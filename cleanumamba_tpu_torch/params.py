@@ -1,0 +1,130 @@
+"""Parameter pytrees: numpy <-> torch, checkpoints, and the storage-precision view.
+
+The JAX package's params are nested dicts/lists of arrays with channels-last
+layouts (``cleanumamba_tpu/models/cleanumamba.py::init_params``).  The port
+keeps exactly that tree, with torch tensors at the leaves, so a test can
+build weights once and feed both packages.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from cleanumamba_tpu.config import CleanUMambaConfig
+
+# Copy of cleanumamba_tpu/quant.py::_SENSITIVE_KEYS (that module imports jax).
+# Leaves under these keys are exponentiated or drive the state dynamics, so
+# they keep fp32 whatever the storage precision of the other weights.
+_SENSITIVE_KEYS = ("A_log", "A_real", "A_imag", "inv_dt", "dt_proj_b")
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every leaf of a nested dict/list/tuple tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def from_numpy(tree, device, dtype=None):
+    """numpy pytree (e.g. ``jax.tree.map(np.asarray, params)``) -> the same
+    tree of torch tensors on ``device``.  ``dtype`` recasts floating leaves."""
+
+    def conv(x):
+        if isinstance(x, (np.ndarray, np.generic)):
+            # C order: pickled leaves may be Fortran-ordered views
+            t = torch.from_numpy(np.array(x, order="C", copy=True))
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            return t.to(device)
+        return x
+
+    return tree_map(conv, tree)
+
+
+def to_numpy(tree):
+    """torch pytree -> numpy pytree (floats keep their width; bf16 -> fp32,
+    which numpy cannot hold)."""
+
+    def conv(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            if x.dtype == torch.bfloat16:
+                x = x.float()
+            return x.numpy()
+        return x
+
+    return tree_map(conv, tree)
+
+
+def to_device(tree, device):
+    return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, tree)
+
+
+def load_checkpoint(path: str, device="cpu") -> Tuple[CleanUMambaConfig, Any]:
+    """Checkpoint pickle -> ``(cfg, params)``, params as torch tensors.
+
+    Mirrors ``cleanumamba_tpu/train/checkpoint.py::load_checkpoint``: the
+    pickle holds numpy leaves under ``params`` and a reference-JSON
+    ``network_config`` whose bottleneck family is spelled by ``bottleneck``.
+    Only load checkpoints this project wrote: unpickling runs code.
+    """
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    if payload.get("network_config") is None:
+        raise ValueError(f"{path}: checkpoint has no network_config")
+    bottleneck = payload.get("bottleneck")
+    network = "CleanUNet" if bottleneck == "mha" else "CleanUMamba"
+    ncfg = dict(payload["network_config"])
+    flag = {"lstm": "LSTM", "mamba_s4": "mamba_s4", "mamba2": "mamba_v2"}.get(bottleneck)
+    if flag is not None:
+        ncfg[flag] = True
+    cfg = CleanUMambaConfig.from_reference_json(network, ncfg)
+    return cfg, from_numpy(payload["params"], device)
+
+
+def prepare_weight_view(params, weights: str):
+    """Storage precision of the weights the streaming step reads
+    (port of ``cleanumamba_tpu/streaming.py::prepare_weight_view``).
+
+    "fp32" returns ``params`` as they are.  "bf16" casts every fp32 leaf of
+    ndim >= 2 whose path holds no sensitive key; 1-D leaves (biases, norms,
+    ``D``, ``dt_proj_b``) and ``A_log`` stay fp32.  ``bench.py`` casts every
+    fp32 leaf instead, ``A_log`` included; the port follows this function.
+    """
+    if weights == "fp32":
+        return params
+    if weights == "int8":
+        raise NotImplementedError(
+            "int8 weights come with the quant.py port (ROADMAP Queue 1 item 6)")
+    if weights != "bf16":
+        raise ValueError(f"weights={weights!r}: expected fp32|bf16|int8")
+
+    def cast(path, x):
+        if (isinstance(x, torch.Tensor) and x.dtype == torch.float32
+                and x.ndim >= 2 and not set(path).intersection(_SENSITIVE_KEYS)):
+            return x.to(torch.bfloat16)
+        return x
+
+    return _map_with_path(cast, params)
