@@ -6,7 +6,8 @@
 Phases, each printed as it passes; any failure raises (non-zero exit):
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles the CUDA kernels (``csrc/*.cu``) into ``_build/``;
+2. build: compiles the CUDA kernels (``csrc/*.cu``, one ``nvcc`` each, in
+   parallel) into ``_build/``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving path's shapes, in fp32 (TF32 off) and bf16, plus the other
    GLU gate activations of K3/K4 in fp32, with its time beside the plain
@@ -17,7 +18,21 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
    at block 1; every kernel's launch count must be > 0 after this phase;
    then, in fp32, 2 blocks of 16 frames must equal 32 single steps;
 5. real weights: ``artifacts/pruned_473k_finetuned.pkl`` offline and
-   streamed, streaming == offline with ``normalize_input=False``.
+   streamed, streaming == offline with ``normalize_input=False``;
+6. K2 (backward scan) and K1's chunk states against their plain versions:
+   all seven gradients at the E8 training shape (B=2, L=625, d_inner 2048,
+   d_state 64) in fp32 and bf16, at a ragged shape with h0 and gh_last
+   non-zero, and in a single chunk; K2's time beside the plain version's;
+7. the E8 training slice at full width: bf16 ``make_train_step`` (Adam,
+   lr 1e-4) on batch 2 x 10 s from ``synth_batch`` on the card, a few
+   steps on fresh batches, then 12 on one batch, whose loss must fall;
+   finite gradients every step; K1 and K2 launch counts > 0; ms per step,
+   peak memory and a ``torch.profiler`` window (device-busy share, kernels
+   per step);
+8. the whole-model fp32 gradient of a small config on the card (kernels)
+   against the same step on the CPU (plain versions), every leaf;
+9. the training CLI as a subprocess: 3 iterations of E8 on synthetic data,
+   then a resumed run, and a forward from the final checkpoint.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernels' summary as JSON.  There is no CPU path: without a CUDA device the
@@ -26,10 +41,13 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,6 +101,11 @@ class Report:
 
 FP32_TOL = 1e-4  # fp32 kernel vs plain, relative to max|ref|: summation order only
 BF16_TOL = 2e-2  # bf16 kernel vs the plain version in fp32 on the same bf16-rounded inputs
+# whole-model fp32 gradient, card vs CPU, relative to each leaf's max|ref|: the
+# Pallas backward's test tolerance (tests/test_pallas_scan.py:60).  The
+# summation-order differences of every op (cuFFT, cuBLAS, K1/K2) add up, and
+# the log-magnitude STFT loss amplifies them most in dt_proj's gradient.
+GRAD_TOL = 2e-4
 
 
 # --------------------------------------------------------------------------
@@ -361,6 +384,259 @@ def check_real_weights(dev):
           f"(max_abs_err={np.abs(streamed - offline).max():.3e}, atol 2e-4 rtol 1e-3)")
 
 
+# --------------------------------------------------------------------------
+# Phase 6: K2 and K1's chunk states against their plain versions
+# --------------------------------------------------------------------------
+
+GRAD_NAMES = ("gu", "gdt", "gA", "gB", "gC", "gD", "gh0")
+
+
+def check_scan_bwd(dev, rep: Report):
+    from cleanumamba_tpu_torch.ops import scan as plain_scan
+    from cleanumamba_tpu_torch.ops.cuda.selective_scan import (
+        SCAN_CHUNK,
+        selective_scan,
+        selective_scan_bwd,
+        selective_scan_bwd_plain,
+    )
+
+    g = torch.Generator().manual_seed(6)
+    rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+
+    def inputs(Bsz, L, Di, Ds, dtype, nonzero_state):
+        a = dict(u=rn(Bsz, L, Di), dt=rn(Bsz, L, Di).abs() * 0.1,
+                 A=-torch.exp(rn(Di, Ds) * 0.5), B=rn(Bsz, L, Ds), C=rn(Bsz, L, Ds),
+                 D=rn(Di), h0=rn(Bsz, Di, Ds) * 0.1, gy=rn(Bsz, L, Di),
+                 gh_last=rn(Bsz, Di, Ds) * (0.1 if nonzero_state else 0.0))
+        if not nonzero_state:
+            a["h0"] = torch.zeros_like(a["h0"])
+        a = {k: v.to(dev) for k, v in a.items()}
+        for k in ("u", "B", "C", "gy"):
+            a[k] = a[k].to(dtype)
+        return a
+
+    def run(a, kernel):
+        args = [a[k] for k in ("u", "dt", "A", "B", "C", "D", "h0")]
+        if kernel:
+            _, _, hs = selective_scan(*args, return_starts=True)
+            return hs, selective_scan_bwd(*args[:6], hs, a["gy"], a["gh_last"])
+        f32 = [x.float() for x in args]
+        _, _, hs = plain_scan.selective_scan(*f32, chunk=SCAN_CHUNK, return_starts=True)
+        return hs, selective_scan_bwd_plain(*f32[:6], hs, a["gy"].float(), a["gh_last"])
+
+    timed = {}
+    for Bsz, L, Di, Ds, nonzero in ((2, 625, 2048, 64, False), (1, 37, 48, 8, True),
+                                    (1, 16, 2048, 64, True)):
+        for dt_name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            a = inputs(Bsz, L, Di, Ds, dtype, nonzero)
+            hs, got = run(a, kernel=True)
+            hs_ref, ref = run(a, kernel=False)
+            tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+            label = f"B={Bsz} L={L} d_inner={Di} d_state={Ds} h0,gh_last={nonzero} {dt_name}"
+            rep.check("selective_scan_fwd", label + " h_starts", hs, hs_ref, tol)
+            for name, x, r in zip(GRAD_NAMES, got, ref):
+                rep.check("selective_scan_bwd", f"{label} {name}", x, r, tol)
+            if L == 625:
+                timed[dt_name] = a
+
+    # time at the E8 training shape, kernel and plain in turns
+    times = {}
+    for dt_name, a in timed.items():
+        args = [a[k] for k in ("u", "dt", "A", "B", "C", "D", "h0")]
+        _, _, hs = selective_scan(*args, return_starts=True)
+        f32 = [x.float() for x in args]
+        _, _, hs_p = plain_scan.selective_scan(*f32, chunk=SCAN_CHUNK, return_starts=True)
+        kern = lambda: selective_scan_bwd(*args[:6], hs, a["gy"], a["gh_last"])  # noqa: E731
+        plain = lambda: selective_scan_bwd_plain(  # noqa: E731
+            *f32[:6], hs_p, a["gy"].float(), a["gh_last"])
+        p1, k1 = _time_ms(plain, iters=5, warmup=1), _time_ms(kern, iters=20)
+        k2, p2 = _time_ms(kern, iters=20), _time_ms(plain, iters=5, warmup=1)
+        times[dt_name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"  selective_scan_bwd B=2 L=625 d_inner=2048 d_state=64 {dt_name}: "
+              f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+    rep.ms["selective_scan_bwd"] = times["bf16"]  # the training path runs bf16
+
+
+# --------------------------------------------------------------------------
+# Phase 7: the E8 training slice
+# --------------------------------------------------------------------------
+
+def _device_busy(prof) -> tuple:
+    """(union of CUDA kernel intervals in ms, number of kernels) in a trace."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for s0, s1 in spans:
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    return busy / 1e3, len(spans)
+
+
+def run_training(dev, cfg, smi, counters):
+    from cleanumamba_tpu.config import LossConfig, OptimizationConfig
+    from cleanumamba_tpu_torch.data.synth_device import synth_batch
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+    from cleanumamba_tpu_torch.train.optim import make_optimizer
+    from cleanumamba_tpu_torch.train.trainer import make_train_step
+
+    opt_cfg = OptimizationConfig()  # adam, lr 1e-4, bf16
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    optimizer = make_optimizer(opt_cfg, schedule=lambda s: opt_cfg.learning_rate)
+    opt_state = optimizer.init(params)
+    step = make_train_step(cfg, LossConfig(), optimizer, bf16=opt_cfg.bf16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, L = 2, 10 * SR
+
+    def batch():
+        clean, noisy = synth_batch(gen, B, L)
+        return clean.reshape(1, B, L), noisy.reshape(1, B, L)
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    n_fresh, times = 4, []
+    for i in range(n_fresh):
+        b = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, aux = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not bool(aux["grads_finite"]):
+            raise AssertionError(f"training step {i}: non-finite gradients")
+        print(f"  fresh batch step {i}: loss={float(aux['loss']):.4f} "
+              f"gnorm={float(aux['grad_norm']):.3f} {times[-1]:.1f} ms", flush=True)
+    fixed, losses = batch(), []
+    for i in range(12):
+        params, opt_state, aux = step(params, opt_state, fixed)
+        if not bool(aux["grads_finite"]):
+            raise AssertionError(f"repeated-batch step {i}: non-finite gradients")
+        losses.append(float(aux["loss"]))
+    print(f"  12 steps on one batch: loss {' '.join(f'{x:.4f}' for x in losses)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: {losses}")
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"  kernel launches on the training slice: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the training path")
+    peak = torch.cuda.max_memory_allocated()
+
+    # a short trace: device-busy share and kernels per step
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            params, opt_state, aux = step(params, opt_state, fixed)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n_kernels = _device_busy(prof)
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    os.makedirs("profiles", exist_ok=True)
+    with open("profiles/train_step_profile.txt", "w") as f:
+        f.write(f"{smi}\n{table}\n")
+    steady = sorted(times[1:])
+    median = steady[len(steady) // 2]
+    # the profiler slows the host, so the idle share is given against both walls
+    print(f"  E8 bf16 train step, batch 2 x 10 s, on {smi}: "
+          f"{median:.1f} ms median of steps 1-{n_fresh - 1} "
+          f"({' '.join(f'{t:.1f}' for t in times)} ms); peak memory {peak / 2**30:.2f} GiB; "
+          f"traced {n_prof} steps: wall {wall / n_prof:.1f} ms/step, device busy "
+          f"{busy / n_prof:.1f} ms/step (idle share {1 - busy / wall:.3f} traced, "
+          f"{1 - busy / n_prof / median:.3f} against the untraced median), "
+          f"{n_kernels / n_prof:.0f} kernels/step")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 8: whole-model gradient, card against CPU
+# --------------------------------------------------------------------------
+
+def check_model_grad(dev):
+    from cleanumamba_tpu.config import CleanUMambaConfig, LossConfig
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+    from cleanumamba_tpu_torch.params import from_numpy, to_numpy, tree_leaves
+    from cleanumamba_tpu_torch.train.trainer import make_grad_fn
+
+    cfg = CleanUMambaConfig(channels_H=8, max_H=16, encoder_n_layers=3, tsfm_n_layers=2,
+                            tsfm_d_model=32, tsfm_n_head=4, tsfm_d_inner=64)
+    weights = to_numpy(init_params(cfg, torch.Generator().manual_seed(8)))
+    rng = np.random.default_rng(8)
+    clean = (rng.normal(size=(1, 2, 4096)) * 0.3).astype(np.float32)
+    noisy = (clean + 0.1 * rng.normal(size=clean.shape)).astype(np.float32)
+    grad_fn = make_grad_fn(cfg, LossConfig(), bf16=False)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        out[d.type] = grad_fn(from_numpy(weights, d), torch.from_numpy(clean).to(d),
+                              torch.from_numpy(noisy).to(d))
+    (g_gpu, a_gpu), (g_cpu, a_cpu) = out["cuda"], out["cpu"]
+    worst = 0.0
+    leaves_gpu, leaves_cpu = tree_leaves(g_gpu), tree_leaves(g_cpu)
+    for i, (x, r) in enumerate(zip(leaves_gpu, leaves_cpu)):
+        _, rel = _rel_err(x.cpu(), r)
+        worst = max(worst, rel)
+        if not rel <= GRAD_TOL:
+            raise AssertionError(f"gradient leaf {i} {tuple(r.shape)}: relative error "
+                                 f"{rel:.3e} > {GRAD_TOL:g}")
+    _, loss_rel = _rel_err(a_gpu["loss"].cpu(), a_cpu["loss"])
+    if not loss_rel <= FP32_TOL:
+        raise AssertionError(f"loss: relative error {loss_rel:.3e} > {FP32_TOL:g}")
+    print(f"  small fp32 model, L=4096: {len(leaves_cpu)} gradient leaves on the card "
+          f"(K1/K2) vs the CPU (plain): worst relative error {worst:.3e} (tol {GRAD_TOL:g}), "
+          f"loss {loss_rel:.3e} (tol {FP32_TOL:g})")
+
+
+# --------------------------------------------------------------------------
+# Phase 9: the training CLI
+# --------------------------------------------------------------------------
+
+def check_cli(dev):
+    from cleanumamba_tpu.config import CleanUMambaConfig
+    from cleanumamba_tpu_torch.models.cleanumamba import forward
+    from cleanumamba_tpu_torch.params import from_numpy
+    from cleanumamba_tpu_torch.train.checkpoint import find_max_epoch, load_checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "exp.json")
+        with open(exp, "w") as f:
+            json.dump({"network": "CleanUMamba", "exp_path": "e8",
+                       "network_config": CleanUMambaConfig().to_reference_json()}, f)
+        with open(os.path.join(root, "configs", "train_synth.json")) as f:
+            conf = json.load(f)
+        conf["train_config"]["log"]["directory"] = os.path.join(tmp, "logs")
+        path = os.path.join(tmp, "config.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        base = [sys.executable, "-m", "cleanumamba_tpu_torch.cli.train", "-c", path, "-e", exp,
+                "--synthetic", "--log-every", "1"]
+        for max_iters, expect in ((3, "iter 2: loss="), (5, "resumed from iter 2")):
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + ["--max-iters", str(max_iters)], cwd=root,
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0 or expect not in proc.stdout:
+                raise AssertionError(f"training CLI (--max-iters {max_iters}) failed:\n"
+                                     f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("iter", "resumed"))]
+            print(f"  cli --max-iters {max_iters} ({time.perf_counter() - t0:.1f} s): "
+                  + " | ".join(lines))
+        ck_dir = os.path.join(tmp, "logs", "e8", "checkpoint")
+        last = find_max_epoch(ck_dir)
+        if last != 4:
+            raise AssertionError(f"expected checkpoint 4.pkl, newest is {last}")
+        ck = load_checkpoint(os.path.join(ck_dir, f"{last}.pkl"))
+        x = torch.from_numpy(
+            (np.random.default_rng(9).normal(size=(1, SR)) * 0.1).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            y = forward(from_numpy(ck["params"], dev), x, ck["config"])
+        _finite("forward from the CLI's checkpoint", y)
+        print(f"  checkpoint {last}.pkl (count {ck['opt_state']['count']}): forward on 1 s finite")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -368,7 +644,10 @@ def main() -> int:
     from cleanumamba_tpu.config import CleanUMambaConfig
     from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
     from cleanumamba_tpu_torch.ops.cuda import build
-    from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan
+    from cleanumamba_tpu_torch.ops.cuda.selective_scan import (
+        selective_scan,
+        selective_scan_bwd,
+    )
     from cleanumamba_tpu_torch.ops.cuda.stream_fused import (
         fused_decoder_level,
         fused_encoder_level,
@@ -383,8 +662,9 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    for name in ("selective_scan", "stream_fused"):
-        build.load_library(name)
+    sources = ("selective_scan", "stream_fused")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.load_library, sources))  # one nvcc per source, in parallel
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
 
     cfg = CleanUMambaConfig()  # E8
@@ -402,9 +682,26 @@ def main() -> int:
     print("phase 5 real weights:", flush=True)
     check_real_weights(dev)
 
+    print("phase 6 K2 and K1's chunk states vs plain versions:", flush=True)
+    check_scan_bwd(dev, rep)
+    print("phase 7 E8 training slice:", flush=True)
+    train_launches = run_training(dev, cfg, smi, (selective_scan, selective_scan_bwd))
+    del params32
+    torch.cuda.empty_cache()
+    print("phase 8 whole-model gradient, card vs CPU:", flush=True)
+    check_model_grad(dev)
+    print("phase 9 training CLI:", flush=True)
+    check_cli(dev)
+
+    # launches: each path's own run (serving, phase 4; training, phase 7)
+    for name, n in train_launches.items():
+        launches[name] = launches.get(name, 0) + n
     sources = {
         "selective_scan": ("selective_scan_fwd", "cleanumamba_tpu_torch/csrc/selective_scan.cu",
                            "cleanumamba_tpu/ops/pallas/selective_scan.py:169"),
+        "selective_scan_bwd": ("selective_scan_bwd",
+                               "cleanumamba_tpu_torch/csrc/selective_scan.cu",
+                               "cleanumamba_tpu/ops/pallas/selective_scan.py:341"),
         "fused_encoder_level": ("fused_encoder_level",
                                 "cleanumamba_tpu_torch/csrc/stream_fused.cu",
                                 "cleanumamba_tpu/ops/pallas/stream_fused.py:297"),

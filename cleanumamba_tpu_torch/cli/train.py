@@ -1,0 +1,161 @@
+"""Training CLI of the port, one GPU (port of ``cleanumamba_tpu/cli/train.py``).
+
+    python -m cleanumamba_tpu_torch.cli.train -c configs/train_synth.json \
+        -e <experiment.json> --synthetic [--max-iters N] [--device-data K]
+
+Same flags and checkpoint layout as the JAX CLI: resumes from the newest
+``{log_directory}/{exp_path}/checkpoint/{n}.pkl``, logs
+``iter N: loss=... rec=... sc=... mag=... gnorm=...`` every ``--log-every``
+iterations, and saves every ``iters_per_ckpt`` and at the end.  Runs on
+``cuda:0`` (the CPU where there is no card).  Not yet ported, and refused:
+more than one device, ``--model-parallel`` > 1, and mid-training validation.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+
+from cleanumamba_tpu.config import load_experiment_config, load_train_config
+from cleanumamba_tpu.data import (
+    CleanNoisyPairDataset,
+    SyntheticDenoiseDataset,
+    make_training_loader,
+)
+from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
+from cleanumamba_tpu_torch.params import from_numpy
+from cleanumamba_tpu_torch.train.checkpoint import (
+    find_max_epoch,
+    load_checkpoint,
+    save_checkpoint,
+)
+from cleanumamba_tpu_torch.train.optim import make_optimizer
+from cleanumamba_tpu_torch.train.trainer import make_device_data_steps, make_train_step
+
+
+def _first_valid_iter(start: int, every: int) -> int:
+    """The first iteration >= start at which the JAX CLI would validate."""
+    first = max(start, every)
+    return -(-first // every) * every
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("-c", "--config", required=True, help="global config JSON")
+    ap.add_argument("-e", "--exp", required=True, help="experiment JSON")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="use the synthetic dataset (no DNS download needed)")
+    ap.add_argument("--max-iters", type=int, default=None)
+    ap.add_argument("--log-every", type=int, default=100)
+    ap.add_argument("--device-data", type=int, default=0, metavar="K",
+                    help="synthetic batches generated on the device, K train steps "
+                         "per call (trainer.make_device_data_steps; implies --synthetic)")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="M",
+                    help="shard weights over M devices (not ported yet)")
+    args = ap.parse_args(argv)
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "--model-parallel > 1 comes with parallel/tensor.py (ROADMAP Queue 1 item 12)")
+    if args.device_data:
+        args.synthetic = True
+        if args.log_every % args.device_data:
+            ap.error("--log-every must be a multiple of --device-data")
+
+    tc = load_train_config(args.config)
+    network, cfg, raw_exp = load_experiment_config(args.exp)
+    exp_path = raw_exp.get("exp_path", "exp")
+    ckpt_dir = os.path.join(tc.log_directory, exp_path, "checkpoint")
+    opt = tc.optimization
+    if opt.n_devices > 1:
+        raise NotImplementedError(
+            f"n_gpus={opt.n_devices}: data parallelism over several devices comes with "
+            "DDP (ROADMAP Queue 1 item 7); this CLI trains on one device")
+    per_step_batch = opt.batch_size_per_device
+    accum = max(1, opt.batch_size_total // per_step_batch)
+    dev = torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    print(f"model: {network} ({cfg.bottleneck}) | device: {dev} | "
+          f"batch/step: {per_step_batch} x accum {accum}")
+
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    print(f"params: {count_params(params)/1e6:.3f}M")
+    optimizer = make_optimizer(opt)
+    opt_state = optimizer.init(params)
+
+    start_iter, run_id, t_prev = 0, None, 0.0
+    ck_iter = find_max_epoch(ckpt_dir) if tc.ckpt_iter == "max" else int(tc.ckpt_iter)
+    if ck_iter >= 0:
+        ck = load_checkpoint(os.path.join(ckpt_dir, f"{ck_iter}.pkl"))
+        params = from_numpy(ck["params"], dev)
+        state = ck.get("opt_state")
+        if isinstance(state, dict) and {"count", "mu", "nu"} <= state.keys():
+            opt_state = {"count": int(state["count"]), "mu": from_numpy(state["mu"], dev),
+                         "nu": from_numpy(state["nu"], dev)}
+        else:
+            print("checkpoint has no optimizer state in this port's layout: fresh moments")
+        start_iter = ck["iter"] + 1
+        run_id = ck.get("run_id")
+        t_prev = ck.get("training_time_seconds", 0.0)
+        print(f"resumed from iter {ck['iter']}")
+
+    max_iters = args.max_iters or opt.n_iters
+    if _first_valid_iter(start_iter, tc.iters_per_valid) < max_iters:
+        raise NotImplementedError(
+            f"mid-training validation at iter {_first_valid_iter(start_iter, tc.iters_per_valid)}"
+            " comes with eval/validate (ROADMAP Queue 1 item 11): set iters_per_valid "
+            "beyond the run or lower --max-iters")
+
+    L = int(tc.crop_length_sec * tc.sample_rate)
+    step_fn = make_train_step(cfg, tc.loss, optimizer, bf16=opt.bf16, remat=opt.remat)
+    stepper = loader = None
+    if args.device_data:
+        stepper = make_device_data_steps(step_fn, per_step_batch, L, args.device_data,
+                                         accum=accum)
+        gen = torch.Generator(device=dev).manual_seed(1234 + start_iter)
+    else:
+        if args.synthetic or not tc.data_root or not os.path.isdir(tc.data_root):
+            if not args.synthetic:
+                print(f"data root {tc.data_root!r} not found -> synthetic dataset")
+            ds = SyntheticDenoiseDataset(crop_length_sec=tc.crop_length_sec,
+                                         sample_rate=tc.sample_rate)
+        else:
+            ds = CleanNoisyPairDataset(tc.data_root, "training", tc.crop_length_sec,
+                                       tc.sample_rate, dataset=tc.dataset)
+        loader = make_training_loader(ds, per_step_batch * accum)
+
+    n_iter = start_iter
+    t0 = time.time() - t_prev
+    stride = args.device_data or 1
+    crossed = lambda every: (n_iter // every) > ((n_iter - stride) // every)  # noqa: E731
+    while n_iter < max_iters:
+        if stepper is not None:
+            params, opt_state, aux = stepper(params, opt_state, gen)
+            n_iter += stride - 1  # land on the last iteration of the call
+        else:
+            clean, noisy = next(loader)
+            shape = (accum, per_step_batch, L)
+            batch = (torch.from_numpy(clean.reshape(shape)).to(dev),
+                     torch.from_numpy(noisy.reshape(shape)).to(dev))
+            params, opt_state, aux = step_fn(params, opt_state, batch)
+
+        if crossed(args.log_every) or n_iter == start_iter:
+            print(f"iter {n_iter}: loss={float(aux['loss']):.4f} "
+                  f"rec={float(aux['reconstruct']):.4f} "
+                  f"sc={float(aux.get('stft_sc', 0)):.4f} "
+                  f"mag={float(aux.get('stft_mag', 0)):.4f} "
+                  f"gnorm={float(aux['grad_norm']):.3f} ({time.time() - t0:.0f}s)", flush=True)
+        if crossed(tc.iters_per_ckpt) and n_iter >= tc.iters_per_ckpt:
+            path = save_checkpoint(ckpt_dir, n_iter, params, opt_state, cfg, run_id=run_id,
+                                   training_time_seconds=time.time() - t0)
+            print(f"saved {path}")
+        n_iter += 1
+
+    path = save_checkpoint(ckpt_dir, n_iter - 1, params, opt_state, cfg, run_id=run_id,
+                           training_time_seconds=time.time() - t0)
+    print(f"saved {path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from cleanumamba_tpu_torch.ops.conv import causal_depthwise_conv
-from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan
+from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan_fn
 from cleanumamba_tpu_torch.ops.scan import selective_scan_step
 
 
@@ -44,13 +44,17 @@ def ssm_inputs(p, xs):
 
 def mixer_forward(p, x):
     """Offline forward.  x: (B, T, d_model) -> (B, T, d_model).  The scan
-    runs the K1 kernel for CUDA tensors, the plain chunked scan on the CPU."""
-    _, d_inner, _, _, _ = mixer_dims(p)
+    runs K1 for CUDA tensors, the plain chunked scan on the CPU; when
+    autograd records the call it goes through ``SelectiveScanFn`` (backward
+    K2 or the plain reverse scan).  h0 is zeros, as in the JAX package, so
+    that its gradient exists."""
+    _, d_inner, d_state, _, _ = mixer_dims(p)
     xz = x @ p["in_proj"].to(x.dtype)
     xs, z = xz[..., :d_inner], xz[..., d_inner:]
     xs = F.silu(causal_depthwise_conv(xs, p["conv_w"], p["conv_b"]))
     dt, Bm, Cm, A = ssm_inputs(p, xs)
-    y, _ = selective_scan(xs, dt, A, Bm, Cm, p["D"].float())
+    h0 = torch.zeros((xs.shape[0], d_inner, d_state), dtype=torch.float32, device=xs.device)
+    y, _ = selective_scan_fn(xs, dt, A, Bm, Cm, p["D"].float(), h0)
     return (y * F.silu(z)) @ p["out_proj"].to(y.dtype)
 
 

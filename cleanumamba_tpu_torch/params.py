@@ -47,6 +47,12 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure with ``leaves`` (in ``tree_leaves`` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def from_numpy(tree, device, dtype=None):
     """numpy pytree (e.g. ``jax.tree.map(np.asarray, params)``) -> the same
     tree of torch tensors on ``device``.  ``dtype`` recasts floating leaves."""
@@ -82,26 +88,31 @@ def to_device(tree, device):
     return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, tree)
 
 
-def load_checkpoint(path: str, device="cpu") -> Tuple[CleanUMambaConfig, Any]:
-    """Checkpoint pickle -> ``(cfg, params)``, params as torch tensors.
-
-    Mirrors ``cleanumamba_tpu/train/checkpoint.py::load_checkpoint``: the
-    pickle holds numpy leaves under ``params`` and a reference-JSON
-    ``network_config`` whose bottleneck family is spelled by ``bottleneck``.
-    Only load checkpoints this project wrote: unpickling runs code.
-    """
-    with open(path, "rb") as f:
-        payload = pickle.load(f)
+def payload_config(payload: dict) -> CleanUMambaConfig:
+    """The CleanUMambaConfig of a checkpoint payload: its reference-JSON
+    ``network_config``, with the bottleneck family spelled by ``bottleneck``
+    (as ``cleanumamba_tpu/train/checkpoint.py::load_checkpoint`` reads it)."""
     if payload.get("network_config") is None:
-        raise ValueError(f"{path}: checkpoint has no network_config")
+        raise ValueError("checkpoint has no network_config")
     bottleneck = payload.get("bottleneck")
     network = "CleanUNet" if bottleneck == "mha" else "CleanUMamba"
     ncfg = dict(payload["network_config"])
     flag = {"lstm": "LSTM", "mamba_s4": "mamba_s4", "mamba2": "mamba_v2"}.get(bottleneck)
     if flag is not None:
         ncfg[flag] = True
-    cfg = CleanUMambaConfig.from_reference_json(network, ncfg)
-    return cfg, from_numpy(payload["params"], device)
+    return CleanUMambaConfig.from_reference_json(network, ncfg)
+
+
+def load_checkpoint(path: str, device="cpu") -> Tuple[CleanUMambaConfig, Any]:
+    """Checkpoint pickle -> ``(cfg, params)``, params as torch tensors.
+
+    The pickle holds numpy leaves under ``params`` and a reference-JSON
+    ``network_config`` (:func:`payload_config`).  Only load checkpoints this
+    project wrote: unpickling runs code.
+    """
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    return payload_config(payload), from_numpy(payload["params"], device)
 
 
 def prepare_weight_view(params, weights: str):

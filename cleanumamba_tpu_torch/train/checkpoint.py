@@ -1,0 +1,74 @@
+"""Training checkpoints (port of ``cleanumamba_tpu/train/checkpoint.py``).
+
+The payload is the JAX package's: a pickled dict with ``iter``, ``run_id``,
+``network_config`` (reference JSON), ``bottleneck``, ``params`` (numpy
+leaves, bf16 widened to fp32), ``opt_state`` and ``training_time_seconds``,
+saved as ``{iter}.pkl``.  So the JAX package's ``load_checkpoint`` reads a
+checkpoint the port wrote, and the reverse.  ``opt_state`` is in the port's
+layout (``train/optim.py``): it resumes within the port.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Any, Optional
+
+from cleanumamba_tpu.config import CleanUMambaConfig
+from cleanumamba_tpu_torch.params import payload_config, to_numpy
+
+
+def find_max_epoch(path: str) -> int:
+    """Latest ``{n}.pkl`` iteration in a directory, -1 if none."""
+    if not os.path.isdir(path):
+        return -1
+    epoch = -1
+    for f in os.listdir(path):
+        if f.endswith(".pkl"):
+            try:
+                epoch = max(epoch, int(f[:-4]))
+            except ValueError:
+                continue
+    return epoch
+
+
+def save_checkpoint(directory: str, step: int, params: Any, opt_state: Any = None,
+                    cfg: Optional[CleanUMambaConfig] = None, run_id: Optional[str] = None,
+                    training_time_seconds: float = 0.0, extra: Optional[dict] = None) -> str:
+    """Write ``{directory}/{step}.pkl`` atomically; returns its path."""
+    os.makedirs(directory, exist_ok=True)
+    payload = {
+        "iter": step,
+        "run_id": run_id,
+        "network_config": cfg.to_reference_json() if cfg is not None else None,
+        "bottleneck": cfg.bottleneck if cfg is not None else None,
+        "params": to_numpy(params),
+        "opt_state": to_numpy(opt_state) if opt_state is not None else None,
+        "training_time_seconds": training_time_seconds,
+    }
+    if extra:
+        payload.update(extra)
+    path = os.path.join(directory, f"{step}.pkl")
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str) -> dict:
+    """The payload, numpy leaves as saved, plus ``config`` (a
+    CleanUMambaConfig) when it has a network_config.  Only load checkpoints
+    this project wrote: unpickling runs code."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    if payload.get("network_config") is not None:
+        payload["config"] = payload_config(payload)
+    return payload
+
+
+def load_latest(directory: str) -> Optional[dict]:
+    step = find_max_epoch(directory)
+    if step < 0:
+        return None
+    return load_checkpoint(os.path.join(directory, f"{step}.pkl"))

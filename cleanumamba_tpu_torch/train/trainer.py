@@ -1,0 +1,123 @@
+"""The train step (port of ``cleanumamba_tpu/train/trainer.py``, one device).
+
+``make_train_step`` returns ``train_step(params, opt_state, (clean, noisy))``
+with a leading accumulation axis on clean and noisy, as the JAX step has:
+gradients averaged over the micro-batches, optional ``skip_nonfinite_updates``
+and ``remat`` (``torch.utils.checkpoint``).  The params are the port's
+pytree of fp32 master tensors; a step returns new trees and leaves its
+inputs as they were.
+
+Under ``bf16=True`` every fp32 leaf is cast to bf16 for the forward,
+``A_log``, ``dt_proj_b`` and the norm scales included, and so is ``noisy``
+(as the JAX step does; ``params.prepare_weight_view`` keeps some leaves
+fp32 and is not used here).  The scan state and the loss stay fp32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from cleanumamba_tpu.config import CleanUMambaConfig, LossConfig
+from cleanumamba_tpu_torch.data.synth_device import synth_batch
+from cleanumamba_tpu_torch.losses import loss_fn
+from cleanumamba_tpu_torch.models.cleanumamba import forward
+from cleanumamba_tpu_torch.params import tree_leaves, tree_map, tree_unflatten
+from cleanumamba_tpu_torch.train.optim import Optimizer, apply_updates, global_norm
+
+
+def make_grad_fn(model_cfg: CleanUMambaConfig, loss_cfg: LossConfig, bf16: bool = True,
+                 remat: bool = False) -> Callable:
+    """Returns grad_fn(params, clean, noisy) -> (grads, aux).
+
+    clean, noisy: (accum, B, L).  grads is a tree like params, fp32, the
+    mean over the accum micro-batches of the gradient of each one's loss;
+    aux holds the micro-batch means of ``loss`` and its parts (0-d tensors).
+    """
+
+    def fwd(p, noisy):
+        return forward(p, noisy, model_cfg)
+
+    def micro_loss(params, clean, noisy):
+        p = params
+        if bf16:
+            p = tree_map(lambda x: x.to(torch.bfloat16) if x.dtype == torch.float32 else x,
+                         params)
+            noisy = noisy.to(torch.bfloat16)
+        denoised = checkpoint(fwd, p, noisy, use_reentrant=False) if remat else fwd(p, noisy)
+        return loss_fn(denoised.float(), clean.float(), loss_cfg)
+
+    def grad_fn(params, clean, noisy):
+        grads, auxs = None, []
+        for c, n in zip(clean, noisy):
+            leaf_params = tree_map(lambda x: x.detach().requires_grad_(), params)
+            loss, aux = micro_loss(leaf_params, c, n)
+            g = torch.autograd.grad(loss, tree_leaves(leaf_params))
+            grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
+            auxs.append({k: v.detach() for k, v in aux.items()})
+        grads = tree_unflatten(params, [g / clean.shape[0] for g in grads])
+        return grads, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+
+    return grad_fn
+
+
+def make_train_step(model_cfg: CleanUMambaConfig, loss_cfg: LossConfig, optimizer: Optimizer,
+                    bf16: bool = True, skip_nonfinite_updates: bool = False,
+                    remat: bool = False) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state, aux).
+
+    batch: (clean, noisy), each (accum, B, L) on the params' device.  aux is
+    :func:`make_grad_fn`'s plus ``grad_norm`` (before clipping) and
+    ``grads_finite``, as 0-d tensors.  With ``skip_nonfinite_updates`` a
+    step whose gradient is not finite returns params and opt_state as they
+    were (one device sync per step).
+    """
+    grad_fn = make_grad_fn(model_cfg, loss_cfg, bf16=bf16, remat=remat)
+
+    def train_step(params, opt_state, batch):
+        grads, aux = grad_fn(params, *batch)
+        aux["grad_norm"] = global_norm(tree_leaves(grads))
+        aux["grads_finite"] = torch.isfinite(aux["grad_norm"])
+        if skip_nonfinite_updates and not bool(aux["grads_finite"]):
+            return params, opt_state, aux
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, aux
+
+    return train_step
+
+
+def make_device_data_steps(step_fn, batch: int, length: int, k_steps: int, accum: int = 1,
+                           sr: int = 16000, snr=(0.0, 15.0)) -> Callable:
+    """K train steps over batches synthesized on the params' device
+    (``data/synth_device.synth_batch``), with no host data at all.
+
+    Returns stepper(params, opt_state, generator) -> (params, opt_state,
+    aux), aux from the last of the K steps; ``generator`` is a
+    ``torch.Generator`` on the params' device, advanced by each batch.
+    """
+
+    def stepper(params, opt_state, generator: torch.Generator):
+        aux = None
+        shape = (accum, batch, length)
+        for _ in range(k_steps):
+            clean, noisy = synth_batch(generator, batch * accum, length, sr,
+                                       float(snr[0]), float(snr[1]))
+            params, opt_state, aux = step_fn(params, opt_state,
+                                             (clean.reshape(shape), noisy.reshape(shape)))
+        return params, opt_state, aux
+
+    return stepper
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Checkpointable training state (the reference checkpoint's fields)."""
+
+    step: int
+    params: Any
+    opt_state: Any
+    run_id: Optional[str] = None
+    training_time_seconds: float = 0.0
