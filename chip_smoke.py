@@ -32,11 +32,31 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
 8. the whole-model fp32 gradient of a small config on the card (kernels)
    against the same step on the CPU (plain versions), every leaf;
 9. the training CLI as a subprocess: 3 iterations of E8 on synthetic data,
-   then a resumed run, and a forward from the final checkpoint.
+   then a resumed run, and a forward from the final checkpoint;
+10. K5 (the whole-frame kernel) against its plain version at the released
+    small geometry ("FullMini": channels 32..64, 8 levels, 3 bottleneck
+    layers, d_model 64, d_inner 128): 5 bottleneck families x {fp32, bf16
+    packs} x batch {1, 2}, 8 consecutive frames with the state carried,
+    outputs and every state leaf; the MHA ring after it has wrapped; and
+    both ``artifacts/*.pkl`` (ragged pruned widths);
+11. the small-model block-1 path: ``Streamer(params, cfg, fused="auto")``
+    per family, 2 s of audio in 256-sample hops and a flush: it resolves to
+    "mega", K5 is launched once per frame stepped, and the output equals the
+    same audio through plain ``stream_step``; the pruned checkpoint streamed
+    through K5 equals its offline forward; E8-full still resolves to "fused"
+    and launches K3/K4;
+12. times of that path (CUDA events and host clock, >= 200 frames): K5 alone,
+    ``stream_step_mega`` whole, ``stream_step`` through the K3/K4 packs and
+    plain, for FullMini mamba and mha with fp32 and bf16 packs; wall per
+    ``Streamer.feed``; a ``torch.profiler`` window of the mega path (device
+    busy per frame, kernels per frame, idle share).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
-kernels' summary as JSON.  There is no CPU path: without a CUDA device the
-script exits non-zero and prints no result.
+kernels' summary as JSON: each kernel's launches on its path, error, time,
+the plain version's time and its bound (the larger of the bytes it must
+move over 3.35 TB/s and its operations over the card's peak for their type).
+There is no CPU path: without a CUDA device the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -84,12 +104,34 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Published peaks of one H100 SXM: device memory 3.35 TB/s; 67 TFLOP/s fp32
+# outside the tensor cores, 989 TFLOP/s dense bf16 in them; the special-function
+# units (exp) have 16 lanes per SM against 128 fp32 lanes: 1/8 of the FMA rate.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+SFU_OPS_PER_S = 67e12 / 2 / 8
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(nbytes, flops, dtype=torch.float32, sfu=0) -> tuple:
+    """(least ms the card could take, "bytes" | "operations"): every input
+    byte read once and every output byte written once at the memory rate,
+    against the operations at the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / PEAK_FLOPS[dtype], sfu / SFU_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 class Report:
-    """Per-kernel max errors and times for the summary line."""
+    """Per-kernel max errors, times and bounds for the summary line."""
 
     def __init__(self):
         self.err = {}
         self.ms = {}
+        self.bound = {}
 
     def check(self, kernel, label, got, ref, tol):
         err, rel = _rel_err(got, ref)
@@ -151,6 +193,10 @@ def check_scan(dev, rep: Report):
     ms = _time_ms(lambda: selective_scan(**a))
     plain_ms = _time_ms(lambda: selective_scan_plain(**a))
     rep.ms["selective_scan_fwd"] = (ms, plain_ms)
+    # per state element and step: one exp and ~6 fp32 operations
+    n_state = a["u"].numel() * a["A"].shape[1]
+    rep.bound["selective_scan_fwd"] = _bound(
+        _nbytes(*a.values(), *selective_scan(**a)), 6 * n_state, sfu=n_state)
     print(f"  selective_scan_fwd B=1 L=16 d_inner=2048 d_state=64 bf16: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
 
@@ -235,6 +281,21 @@ def check_fused(dev, cfg, params, rep: Report):
 
     def dec_all(fn):
         return lambda: [fn(x, s, p, *pk, relu=r) for x, s, p, pk, r in dec_calls["bf16"]]
+
+    # bounds of the 8 levels together: windows/x/skip/prev and packs in, outputs
+    # out; 2 operations per multiply-add of the level's products
+    nb = fl = 0
+    for win, (arrays, meta) in enc_calls["bf16"]:
+        M = win.shape[0] * win.shape[1]
+        nb += _nbytes(win, *arrays.values()) + M * (meta["C2"] // 2) * 2
+        fl += 2 * M * (arrays["cw"].numel() + arrays["mwa"].numel() + arrays["mwb"].numel())
+    rep.bound["fused_encoder_level"] = _bound(nb, fl, torch.bfloat16)
+    nb = fl = 0
+    for x, skip, prev, (arrays, meta), _ in dec_calls["bf16"]:
+        M = x.shape[0] * x.shape[1]
+        nb += _nbytes(x, skip, prev, *arrays.values()) + (M + 1) * S * meta["Cout"] * 2
+        fl += 2 * M * sum(arrays[k].numel() for k in ("mwa", "mwb", "cwlo", "cwhi"))
+    rep.bound["fused_decoder_level"] = _bound(nb, fl, torch.bfloat16)
 
     for name, kern, plain, wrap in (
             ("fused_encoder_level", sf.fused_encoder_level, sf.fused_encoder_level_plain, enc_all),
@@ -368,7 +429,7 @@ def check_real_weights(dev):
     x = (np.random.default_rng(0).normal(size=(1, L)) * 0.1).astype(np.float32)
     x_ext = torch.from_numpy(np.pad(x, ((0, 0), (0, 1000)))).to(dev)
     offline = forward(params, x_ext, cfg)[:, :L].cpu().numpy()
-    s = Streamer(params, cfg, dev)
+    s = Streamer(params, cfg, dev, fused=True)  # the per-level kernels (K3/K4); K5: phase 11
     outs, pos = [], 0
     for n in (1000, 256, 256, 3000, 256, 4096, 256, 256, L):  # single and block feeds
         outs.append(s.feed(x[:, pos: pos + n]))
@@ -455,6 +516,15 @@ def check_scan_bwd(dev, rep: Report):
         print(f"  selective_scan_bwd B=2 L=625 d_inner=2048 d_state=64 {dt_name}: "
               f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
     rep.ms["selective_scan_bwd"] = times["bf16"]  # the training path runs bf16
+    # per state element and step: the state recomputed (one exp, ~6 operations)
+    # and the adjoint with its five products (~12 operations)
+    a = timed["bf16"]
+    args = [a[k] for k in ("u", "dt", "A", "B", "C", "D", "h0")]
+    _, _, hs = selective_scan(*args, return_starts=True)
+    grads = selective_scan_bwd(*args[:6], hs, a["gy"], a["gh_last"])
+    n_state = a["u"].numel() * a["A"].shape[1]
+    rep.bound["selective_scan_bwd"] = _bound(
+        _nbytes(*args[:6], hs, a["gy"], a["gh_last"], *grads), 18 * n_state, sfu=n_state)
 
 
 # --------------------------------------------------------------------------
@@ -474,7 +544,7 @@ def _device_busy(prof) -> tuple:
 
 
 def run_training(dev, cfg, smi, counters):
-    from cleanumamba_tpu.config import LossConfig, OptimizationConfig
+    from cleanumamba_tpu_torch.config import LossConfig, OptimizationConfig
     from cleanumamba_tpu_torch.data.synth_device import synth_batch
     from cleanumamba_tpu_torch.models.cleanumamba import init_params
     from cleanumamba_tpu_torch.train.optim import make_optimizer
@@ -557,7 +627,7 @@ def run_training(dev, cfg, smi, counters):
 # --------------------------------------------------------------------------
 
 def check_model_grad(dev):
-    from cleanumamba_tpu.config import CleanUMambaConfig, LossConfig
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig, LossConfig
     from cleanumamba_tpu_torch.models.cleanumamba import init_params
     from cleanumamba_tpu_torch.params import from_numpy, to_numpy, tree_leaves
     from cleanumamba_tpu_torch.train.trainer import make_grad_fn
@@ -595,9 +665,8 @@ def check_model_grad(dev):
 # --------------------------------------------------------------------------
 
 def check_cli(dev):
-    from cleanumamba_tpu.config import CleanUMambaConfig
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig
     from cleanumamba_tpu_torch.models.cleanumamba import forward
-    from cleanumamba_tpu_torch.params import from_numpy
     from cleanumamba_tpu_torch.train.checkpoint import find_max_epoch, load_checkpoint
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -628,20 +697,374 @@ def check_cli(dev):
         last = find_max_epoch(ck_dir)
         if last != 4:
             raise AssertionError(f"expected checkpoint 4.pkl, newest is {last}")
-        ck = load_checkpoint(os.path.join(ck_dir, f"{last}.pkl"))
+        ck = load_checkpoint(os.path.join(ck_dir, f"{last}.pkl"), dev)
         x = torch.from_numpy(
             (np.random.default_rng(9).normal(size=(1, SR)) * 0.1).astype(np.float32)).to(dev)
         with torch.no_grad():
-            y = forward(from_numpy(ck["params"], dev), x, ck["config"])
+            y = forward(ck["params"], x, ck["config"])
         _finite("forward from the CLI's checkpoint", y)
         print(f"  checkpoint {last}.pkl (count {ck['opt_state']['count']}): forward on 1 s finite")
+
+
+# --------------------------------------------------------------------------
+# Phases 10-12: the small-model block-1 path through the whole-frame kernel (K5)
+# --------------------------------------------------------------------------
+
+FAMILIES = ("mamba", "mamba2", "lstm", "mamba_s4", "mha")
+CKPTS = (CKPT, "artifacts/capstone_724k_scratch.pkl")
+
+
+def _fullmini(family, **kw):
+    """The released small geometry (0.43-0.45 M parameters)."""
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig
+
+    return CleanUMambaConfig(channels_H=32, max_H=64, encoder_n_layers=8, tsfm_n_layers=3,
+                             tsfm_n_head=8, tsfm_d_model=64, tsfm_d_inner=128,
+                             bottleneck=family, **kw)
+
+
+def _contiguous(state):
+    from cleanumamba_tpu_torch.params import tree_map
+
+    return tree_map(lambda t: t.contiguous(), state)
+
+
+def _noise(dev, B, n, seed, scale=0.3):
+    x = np.random.default_rng(seed).normal(size=(B, n)) * scale
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def _mega_vs_plain(rep, label, params, cfg, cdt, B, dev, n_frames=8, wrap_ring=False):
+    """n_frames consecutive frames: K5 and its plain version on the same
+    inputs each frame (the plain version's state is the one carried), outputs
+    and every new state leaf relative to that leaf's max|ref|.
+
+    The output's error is taken relative to the larger of max|out| and the
+    max of the last decoder level's new tail: the output is the overlap-add
+    of two partial sums (lo taps + carried hi taps) of which that tail is
+    one, and in a trained denoiser they cancel to ~1/200 (max|out| 4e-4
+    beside a tail of 8e-2 on the pruned checkpoint), so the rounding of the
+    partial sums sets the error (the plain version on the GPU and on the CPU
+    then differ by 1.2-1.8e-4 of max|out| too, every state leaf by < 3e-6).
+    The input is synthetic noisy speech (``synth_batch``)."""
+    from cleanumamba_tpu_torch.data.synth_device import synth_batch
+    from cleanumamba_tpu_torch.ops.cuda.stream_mega import (
+        mega_stream_step,
+        mega_stream_step_ref,
+        pack_mega,
+    )
+    from cleanumamba_tpu_torch.params import prepare_weight_view, tree_leaves
+    from cleanumamba_tpu_torch.streaming import stream_prime
+
+    view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")
+    mega = pack_mega(view, cfg, cdt)
+    if mega is None:
+        raise AssertionError(f"{label}: the model does not pack")
+    fl, ts = cfg.frame_length, cfg.total_stride
+    _, audio = synth_batch(torch.Generator(device=dev).manual_seed(10), B, fl + n_frames * ts)
+    state, _ = stream_prime(params, cfg, audio[:, :fl])
+    if wrap_ring:  # a ring that has gone round: every slot written, pos past max_len
+        bc = state["bottleneck"]
+        g = torch.Generator().manual_seed(11)
+        state["bottleneck"] = {
+            "k": torch.randn(bc["k"].shape, generator=g).to(dev),
+            "v": torch.randn(bc["v"].shape, generator=g).to(dev),
+            "pos": torch.full_like(bc["pos"], bc["k"].shape[2] + 5)}
+    tol = FP32_TOL if cdt == torch.float32 else BF16_TOL
+    worst = 0.0
+    for t in range(n_frames):
+        frame = torch.cat([state["input_tail"], audio[:, fl + t * ts: fl + (t + 1) * ts]], 1)
+        frame, st = frame.contiguous(), _contiguous(state)
+        upd_k, y_k = mega_stream_step(frame, st, *mega)
+        upd_r, y_r = mega_stream_step_ref(frame, st, *mega)
+        torch.cuda.synchronize()
+        out_scale = max(y_r.abs().max().item(), upd_r["dec"][-1].abs().max().item())
+        for i, (got, ref) in enumerate(zip([y_k] + tree_leaves(upd_k),
+                                           [y_r] + tree_leaves(upd_r))):
+            if tuple(got.shape) != tuple(ref.shape) or got.dtype != ref.dtype:
+                raise AssertionError(f"{label}: leaf {tuple(got.shape)} {got.dtype} vs "
+                                     f"{tuple(ref.shape)} {ref.dtype}")
+            if ref.numel() == 0:
+                continue
+            err, rel = _rel_err(got, ref)
+            if i == 0:
+                rel = err / max(out_scale, 1e-30)
+            worst = max(worst, rel)
+            if got.is_floating_point():
+                rep.err["mega_stream_step"] = max(rep.err.get("mega_stream_step", 0.0), err)
+            if not rel <= tol:
+                raise AssertionError(f"{label} frame {t}: leaf {tuple(ref.shape)} relative "
+                                     f"error {rel:.3e} > {tol:g}")
+        _finite(label, y_k)
+        state = {**state, **upd_r, "input_tail": frame[:, ts:]}
+    print(f"  mega_stream_step {label}: {n_frames} frames, worst leaf rel={worst:.3e} "
+          f"(tol {tol:g}), pack {sum(_nbytes(a) for a in mega[0].values()) / 1e6:.2f} MB, "
+          f"shared memory {mega[1]['smem_bytes']} B")
+
+
+def check_mega(dev, rep: Report):
+    from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
+    from cleanumamba_tpu_torch.params import load_checkpoint
+
+    models = {}
+    for family in FAMILIES:
+        cfg = _fullmini(family)
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        models[family] = (cfg, params)
+        for cdt_name, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for B in (1, 2):
+                _mega_vs_plain(rep, f"FullMini {family} ({count_params(params):,} params) "
+                               f"pack={cdt_name} B={B}", params, cfg, cdt, B, dev)
+    cfg, params = models["mha"]
+    _mega_vs_plain(rep, "FullMini mha ring wrapped pack=fp32 B=2", params, cfg, torch.float32,
+                   2, dev, n_frames=3, wrap_ring=True)
+    for path in CKPTS:
+        cfg, params = load_checkpoint(path, dev)
+        for cdt_name, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            _mega_vs_plain(rep, f"{path} pack={cdt_name} B=2", params, cfg, cdt, 2, dev)
+    return models
+
+
+def _stream(streamer, audio, hop):
+    """Feed ``audio`` (numpy, (B, L)) hop by hop, flush; (output, frames stepped singly)."""
+    outs = [streamer.feed(audio[:, i: i + hop]) for i in range(0, audio.shape[1], hop)]
+    single = sum(1 for o in outs if o.shape[1] == hop) - 1  # the first is the prime
+    outs.append(streamer.flush())
+    return np.concatenate(outs, axis=1), single
+
+
+def run_mega_path(dev, models, params_e8, cfg_e8, counters):
+    """Phase 11.  Returns K5's launches on the path (all five families)."""
+    from cleanumamba_tpu_torch.models.cleanumamba import forward
+    from cleanumamba_tpu_torch.ops.cuda.stream_mega import mega_stream_step
+    from cleanumamba_tpu_torch.params import load_checkpoint
+    from cleanumamba_tpu_torch.streaming import Streamer
+
+    audio = _noise(dev, 1, 2 * SR, seed=12, scale=0.1).cpu().numpy()
+    total = 0
+    for family, (cfg, params) in models.items():
+        s = Streamer(params, cfg, fused="auto")  # the default device: the card
+        if s.fused_mode != "mega" or s.device.type != "cuda":
+            raise AssertionError(f"{family}: fused_mode={s.fused_mode!r} on {s.device}")
+        mega_stream_step.launches = 0
+        got, n_single = _stream(s, audio, cfg.total_stride)
+        launched = mega_stream_step.launches
+        ref, _ = _stream(Streamer(params, cfg, fused=False), audio, cfg.total_stride)
+        if launched != n_single or launched <= 0:
+            raise AssertionError(f"{family}: K5 launched {launched} times for {n_single} frames")
+        if got.shape != audio.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{family}: bad output {got.shape}")
+        err, rel = _rel_err(torch.from_numpy(got), torch.from_numpy(ref))
+        if not rel <= FP32_TOL:
+            raise AssertionError(f"{family}: mega vs plain stream_step rel {rel:.3e}")
+        print(f"  Streamer(fused='auto') FullMini {family}: mode mega, {launched} K5 launches "
+              f"for {n_single} frames stepped, 2 s finite, vs plain stream_step "
+              f"max_abs_err={err:.3e} rel={rel:.3e} (tol {FP32_TOL:g})")
+        total += launched
+
+    cfg, params = load_checkpoint(CKPT, dev)
+    cfg = dataclasses.replace(cfg, normalize_input=False)
+    L = 12000
+    x = _noise(dev, 1, L, seed=13, scale=0.1)
+    offline = forward(params, torch.nn.functional.pad(x, (0, 1000)), cfg)[:, :L].cpu().numpy()
+    s = Streamer(params, cfg, fused="auto")
+    mega_stream_step.launches = 0
+    streamed, n_single = _stream(s, x.cpu().numpy(), cfg.total_stride)
+    if s.fused_mode != "mega" or mega_stream_step.launches != n_single:
+        raise AssertionError(f"{CKPT}: mode {s.fused_mode}, {mega_stream_step.launches} launches")
+    np.testing.assert_allclose(streamed, offline, atol=2e-4, rtol=1e-3)
+    print(f"  {CKPT}: streamed through K5 ({n_single} frames) == offline forward "
+          f"(max_abs_err={np.abs(streamed - offline).max():.3e}, atol 2e-4 rtol 1e-3)")
+    total += mega_stream_step.launches
+
+    for c in counters:
+        c.launches = 0
+    mega_stream_step.launches = 0
+    s = Streamer(params_e8, cfg_e8, fused="auto")  # 41 M parameters: does not pack
+    _stream(s, audio[:, : cfg_e8.frame_length + 4 * cfg_e8.total_stride], cfg_e8.total_stride)
+    fused = {c.__name__: c.launches for c in counters}
+    if s.fused_mode != "fused" or mega_stream_step.launches != 0 or min(fused.values()) <= 0:
+        raise AssertionError(f"E8-full: mode {s.fused_mode!r}, launches {fused}, "
+                             f"K5 {mega_stream_step.launches}")
+    print(f"  E8-full Streamer(fused='auto'): mode fused, launches {fused}, K5 none")
+    return total
+
+
+def _host_ms(fn, iters):
+    """Host-clock ms of each of ``iters`` calls, each ended by a synchronise."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)
+
+
+def _mega_work(meta, arrays, B):
+    """Operations of one frame from the pack's dims: 2 per multiply-add of
+    every product (a level's weights are used by each of its T tokens, the
+    bottleneck's once), one exp per SSM state element."""
+    K, level = meta["K"], 0
+    macs = 0
+    for e in meta["enc"]:
+        w = K * e["Cin"] * e["C"] + e["C"] * e["C2"]
+        macs, level = macs + e["T"] * w, level + w
+    for d in meta["dec"]:
+        w = d["C"] * d["C2"] + (d["C2"] // 2) * K * d["Cout"]
+        macs, level = macs + d["T"] * w, level + w
+    macs += arrays["w"].numel() - level  # conv1, conv2 and the bottleneck's matrices
+    macs += sum(4 * b["H"] * b["N"] * b["N"] for b in meta["bott"] if "N" in b)
+    sfu = sum(b["d_inner"] * b["d_state"] for b in meta["bott"] if "d_state" in b)
+    return 2 * B * macs, B * sfu
+
+
+def time_mega(dev, models, rep: Report, smi):
+    """Phase 12: ms per frame of the four block-1 steps, FullMini mamba and mha."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cleanumamba_tpu_torch.ops.cuda.stream_fused import pack_stream_params
+    from cleanumamba_tpu_torch.ops.cuda.stream_mega import (
+        mega_stream_step,
+        mega_stream_step_ref,
+        pack_mega,
+    )
+    from cleanumamba_tpu_torch.params import prepare_weight_view, tree_leaves
+    from cleanumamba_tpu_torch.streaming import (
+        Streamer,
+        stream_prime,
+        stream_step,
+        stream_step_mega,
+    )
+
+    n = 200
+    for family in ("mamba", "mha"):
+        cfg, params = models[family]
+        fl, ts = cfg.frame_length, cfg.total_stride
+        audio = _noise(dev, 1, fl + ts, seed=14)
+        new = audio[:, fl:]
+        state, _ = stream_prime(params, cfg, audio[:, :fl])
+        state = _contiguous(state)
+        frame = torch.cat([state["input_tail"], new], 1).contiguous()
+        for cdt_name, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")
+            mega = pack_mega(view, cfg, cdt)
+            packs = pack_stream_params(view, cfg, cdt)
+            runs = {
+                "K5 alone": lambda: mega_stream_step(frame, state, *mega),
+                "K5 plain version": lambda: mega_stream_step_ref(frame, state, *mega),
+                "stream_step_mega": lambda: stream_step_mega(cfg, state, new, mega),
+                "stream_step K3/K4": lambda: stream_step(view, cfg, state, new, packs=packs),
+                "stream_step plain": lambda: stream_step(view, cfg, state, new),
+            }
+            ms = {k: _time_ms(fn, iters=n, warmup=10) for k, fn in runs.items()}
+            wall = {k: _host_ms(runs[k], n) for k in ("stream_step_mega", "stream_step K3/K4")}
+            print(f"  FullMini {family} {cdt_name} B=1, ms per frame over {n} frames on {smi}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                  + "; synced wall median/p90: "
+                  + ", ".join(f"{k} {v[n // 2]:.4f}/{v[n * 9 // 10]:.4f}"
+                              for k, v in wall.items()))
+            if family == "mamba" and cdt == torch.float32:
+                plain_ms = ms["K5 plain version"]
+                upd, y = mega_stream_step(frame, state, *mega)
+                flops, sfu = _mega_work(mega[1], mega[0], 1)
+                rep.bound["mega_stream_step"] = _bound(
+                    _nbytes(frame, y, *mega[0].values(), *tree_leaves(upd),
+                            *state["enc"], *state["dec"], *tree_leaves(state["bottleneck"])),
+                    flops, cdt, sfu)
+
+        # wall per Streamer.feed of one hop, host clock (each feed ends in a copy to the host)
+        hops = _noise(dev, 1, fl + (n + 1) * ts, seed=15, scale=0.1).cpu().numpy()
+        feeds = {}
+        for mode in ("auto", True, False):
+            s = Streamer(params, cfg, fused=mode)
+            s.feed(hops[:, :fl])
+            s.feed(hops[:, fl: fl + ts])  # warm-up frame
+            times = []
+            for i in range(1, n + 1):
+                t0 = time.perf_counter()
+                s.feed(hops[:, fl + i * ts: fl + (i + 1) * ts])
+                times.append((time.perf_counter() - t0) * 1e3)
+            times.sort()
+            feeds[s.fused_mode] = (times[n // 2], times[n * 9 // 10])
+        print(f"  FullMini {family} fp32 Streamer.feed per 256-sample hop, wall ms median/p90 "
+              f"over {n} feeds on {smi}: "
+              + ", ".join(f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in feeds.items()))
+
+    # K5's device time per launch (from a trace) for every family, and how it
+    # moves with depth, width and bottleneck layers: at depth D level i has
+    # T = 2^(D-1-i) rows, so D - 1 halves the rows of every level
+    def k5_device_us(label, cfg, params):
+        mega = pack_mega(params, cfg, torch.float32)
+        state, _ = stream_prime(params, cfg, torch.zeros(1, cfg.frame_length, device=dev))
+        state, frame = _contiguous(state), _noise(dev, 1, cfg.frame_length, seed=17)
+        for _ in range(5):
+            mega_stream_step(frame, state, *mega)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(30):
+                mega_stream_step(frame, state, *mega)
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if "mega_kernel" in e.name]
+        if len(spans) < 10:  # a trace may miss the first launches after it starts
+            raise AssertionError(f"{label}: the trace holds {len(spans)} K5 launches of 30")
+        return sum(spans) / len(spans)
+
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+
+    readings = {family: k5_device_us(family, *models[family]) for family in FAMILIES}
+    # K5's time in the summary line is its device time: a loop of wrapper calls
+    # timed with events reads the host's launch rate when that is the slower
+    rep.ms["mega_stream_step"] = (readings["mamba"] / 1e3, plain_ms)
+    for label, kw in (("L=1", dict(tsfm_n_layers=1)), ("L=6", dict(tsfm_n_layers=6)),
+                      ("D=7", dict(encoder_n_layers=7)), ("D=6", dict(encoder_n_layers=6)),
+                      ("D=4", dict(encoder_n_layers=4)),
+                      ("width 16..32", dict(channels_H=16, max_H=32)),
+                      ("width 64..128", dict(channels_H=64, max_H=128))):
+        cfg = dataclasses.replace(models["mamba"][0], **kw)
+        readings[f"mamba {label}"] = k5_device_us(
+            label, cfg, init_params(cfg, torch.Generator().manual_seed(0), dev))
+    print(f"  K5 device us per launch, fp32 pack B=1 (FullMini: D=8, L=3, width 32..64) on "
+          f"{smi}: " + ", ".join(f"{k} {v:.1f}" for k, v in readings.items()))
+
+    # a profiler window of the mega path (FullMini mamba, fp32, batch 1)
+    cfg, params = models["mamba"]
+    fl, ts = cfg.frame_length, cfg.total_stride
+    mega = pack_mega(params, cfg, torch.float32)
+    audio = _noise(dev, 1, fl + 60 * ts, seed=16)
+    state, _ = stream_prime(params, cfg, audio[:, :fl])
+    for t in range(10):
+        state, _ = stream_step_mega(cfg, state, audio[:, fl + t * ts: fl + (t + 1) * ts], mega)
+    n_prof = 50
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(10, 10 + n_prof):
+            state, out = stream_step_mega(cfg, state, audio[:, fl + t * ts: fl + (t + 1) * ts],
+                                          mega)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n_kernels = _device_busy(prof)
+    k5 = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "mega_kernel" in e.name]
+    if len(k5) != n_prof:
+        raise AssertionError(f"the trace holds {len(k5)} K5 launches for {n_prof} frames")
+    k5_ms = sum(k5) / len(k5) / 1e3
+    os.makedirs("profiles", exist_ok=True)
+    with open("profiles/mega_step_profile.txt", "w") as f:
+        f.write(f"{smi}\n{prof.key_averages().table(sort_by='cuda_time_total', row_limit=30)}\n")
+    print(f"  stream_step_mega traced, FullMini mamba fp32 B=1, {n_prof} frames on {smi}: wall "
+          f"{wall / n_prof:.4f} ms/frame, device busy {busy / n_prof:.4f} ms/frame (idle share "
+          f"{1 - busy / wall:.3f}), {n_kernels / n_prof:.1f} kernels/frame, K5 "
+          f"{k5_ms:.4f} ms of device time per launch")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
-    from cleanumamba_tpu.config import CleanUMambaConfig
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig
     from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
     from cleanumamba_tpu_torch.ops.cuda import build
     from cleanumamba_tpu_torch.ops.cuda.selective_scan import (
@@ -652,6 +1075,7 @@ def main() -> int:
         fused_decoder_level,
         fused_encoder_level,
     )
+    from cleanumamba_tpu_torch.ops.cuda.stream_mega import mega_stream_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -662,7 +1086,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    sources = ("selective_scan", "stream_fused")
+    sources = ("selective_scan", "stream_fused", "stream_mega")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load_library, sources))  # one nvcc per source, in parallel
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
@@ -686,12 +1110,17 @@ def main() -> int:
     check_scan_bwd(dev, rep)
     print("phase 7 E8 training slice:", flush=True)
     train_launches = run_training(dev, cfg, smi, (selective_scan, selective_scan_bwd))
-    del params32
-    torch.cuda.empty_cache()
     print("phase 8 whole-model gradient, card vs CPU:", flush=True)
     check_model_grad(dev)
     print("phase 9 training CLI:", flush=True)
     check_cli(dev)
+    print("phase 10 K5 vs its plain version:", flush=True)
+    models = check_mega(dev, rep)
+    print("phase 11 the small-model block-1 path:", flush=True)
+    launches["mega_stream_step"] = run_mega_path(
+        dev, models, params32, cfg, (fused_encoder_level, fused_decoder_level))
+    print("phase 12 times of the block-1 path:", flush=True)
+    time_mega(dev, models, rep, smi)
 
     # launches: each path's own run (serving, phase 4; training, phase 7)
     for name, n in train_launches.items():
@@ -708,13 +1137,19 @@ def main() -> int:
         "fused_decoder_level": ("fused_decoder_level",
                                 "cleanumamba_tpu_torch/csrc/stream_fused.cu",
                                 "cleanumamba_tpu/ops/pallas/stream_fused.py:365"),
+        "mega_stream_step": ("mega_stream_step", "cleanumamba_tpu_torch/csrc/stream_mega.cu",
+                             "cleanumamba_tpu/ops/pallas/stream_mega.py:727"),
     }
     kernels = []
     for fn_name, (kname, src, replaces) in sources.items():
         ms, plain_ms = rep.ms[kname]
+        bound_ms, bound_by = rep.bound[kname]
+        # library_ms: no single PyTorch call computes what any of these kernels
+        # fuses (a scan with carried state, a level, a whole frame)
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[fn_name], "max_abs_err": rep.err[kname],
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
     print(f"E8 streaming RTF on {smi}: block 16 (bf16) {rtf16:.1f}x, "
           f"block 1 (Streamer, bf16 packs) {rtf1:.1f}x realtime")
     print(f"nvidia-smi: {smi}")

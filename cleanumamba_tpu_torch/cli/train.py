@@ -1,13 +1,14 @@
 """Training CLI of the port, one GPU (port of ``cleanumamba_tpu/cli/train.py``).
 
     python -m cleanumamba_tpu_torch.cli.train -c configs/train_synth.json \
-        -e <experiment.json> --synthetic [--max-iters N] [--device-data K]
+        -e <experiment.json> --synthetic [--max-iters N] [--device-data K] [--device D]
 
 Same flags and checkpoint layout as the JAX CLI: resumes from the newest
 ``{log_directory}/{exp_path}/checkpoint/{n}.pkl``, logs
 ``iter N: loss=... rec=... sc=... mag=... gnorm=...`` every ``--log-every``
 iterations, and saves every ``iters_per_ckpt`` and at the end.  Runs on
-``cuda:0`` (the CPU where there is no card).  Not yet ported, and refused:
+``cuda:0`` unless ``--device`` names another device, and raises where there
+is no CUDA device and none was named.  Not yet ported, and refused:
 more than one device, ``--model-parallel`` > 1, and mid-training validation.
 """
 
@@ -19,14 +20,14 @@ import time
 
 import torch
 
-from cleanumamba_tpu.config import load_experiment_config, load_train_config
-from cleanumamba_tpu.data import (
+from cleanumamba_tpu_torch.config import load_experiment_config, load_train_config
+from cleanumamba_tpu_torch.data import (
     CleanNoisyPairDataset,
     SyntheticDenoiseDataset,
     make_training_loader,
 )
 from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
-from cleanumamba_tpu_torch.params import from_numpy
+from cleanumamba_tpu_torch.params import resolve_device
 from cleanumamba_tpu_torch.train.checkpoint import (
     find_max_epoch,
     load_checkpoint,
@@ -53,6 +54,8 @@ def main(argv=None):
     ap.add_argument("--device-data", type=int, default=0, metavar="K",
                     help="synthetic batches generated on the device, K train steps "
                          "per call (trainer.make_device_data_steps; implies --synthetic)")
+    ap.add_argument("--device", default=None,
+                    help="torch device to train on (default: cuda:0; \"cpu\" for the CPU)")
     ap.add_argument("--model-parallel", type=int, default=1, metavar="M",
                     help="shard weights over M devices (not ported yet)")
     args = ap.parse_args(argv)
@@ -75,7 +78,7 @@ def main(argv=None):
             "DDP (ROADMAP Queue 1 item 7); this CLI trains on one device")
     per_step_batch = opt.batch_size_per_device
     accum = max(1, opt.batch_size_total // per_step_batch)
-    dev = torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    dev = resolve_device(args.device)
     print(f"model: {network} ({cfg.bottleneck}) | device: {dev} | "
           f"batch/step: {per_step_batch} x accum {accum}")
 
@@ -87,12 +90,11 @@ def main(argv=None):
     start_iter, run_id, t_prev = 0, None, 0.0
     ck_iter = find_max_epoch(ckpt_dir) if tc.ckpt_iter == "max" else int(tc.ckpt_iter)
     if ck_iter >= 0:
-        ck = load_checkpoint(os.path.join(ckpt_dir, f"{ck_iter}.pkl"))
-        params = from_numpy(ck["params"], dev)
+        ck = load_checkpoint(os.path.join(ckpt_dir, f"{ck_iter}.pkl"), dev)
+        params = ck["params"]
         state = ck.get("opt_state")
         if isinstance(state, dict) and {"count", "mu", "nu"} <= state.keys():
-            opt_state = {"count": int(state["count"]), "mu": from_numpy(state["mu"], dev),
-                         "nu": from_numpy(state["nu"], dev)}
+            opt_state = {"count": int(state["count"]), "mu": state["mu"], "nu": state["nu"]}
         else:
             print("checkpoint has no optimizer state in this port's layout: fresh moments")
         start_iter = ck["iter"] + 1

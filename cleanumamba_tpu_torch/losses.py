@@ -9,7 +9,7 @@ frequencies.
 
 from __future__ import annotations
 
-from cleanumamba_tpu.config import LossConfig, STFTLossConfig
+from cleanumamba_tpu_torch.config import LossConfig, STFTLossConfig
 from cleanumamba_tpu_torch.ops.stft import stft_magnitude
 
 

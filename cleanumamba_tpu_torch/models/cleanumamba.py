@@ -1,5 +1,7 @@
-"""CleanUMamba: causal time-domain U-Net around a Mamba bottleneck (port of
-``cleanumamba_tpu/models/cleanumamba.py``, the ``"mamba"`` family).
+"""CleanUMamba: causal time-domain U-Net around a sequence-model bottleneck
+(port of ``cleanumamba_tpu/models/cleanumamba.py``).  The offline forward
+runs the ``"mamba"``, ``"lstm"`` and ``"mha"`` families; ``"mamba2"`` and
+``"mamba_s4"`` have their single-token step (streaming) only so far.
 
 Activations are channels-last ``(B, L, C)``; the strided K=4/S=2 encoder
 conv and the decoder's transposed conv are matmuls; the residual stream
@@ -15,8 +17,14 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from cleanumamba_tpu.config import CleanUMambaConfig
-from cleanumamba_tpu_torch.models import bottleneck_mamba
+from cleanumamba_tpu_torch.config import CleanUMambaConfig
+from cleanumamba_tpu_torch.models import (
+    bottleneck_lstm,
+    bottleneck_mamba,
+    bottleneck_mamba2,
+    bottleneck_mha,
+    bottleneck_s4,
+)
 from cleanumamba_tpu_torch.models.bottleneck_mamba import uniform
 from cleanumamba_tpu_torch.ops.conv import (
     conv1d,
@@ -25,17 +33,17 @@ from cleanumamba_tpu_torch.ops.conv import (
     glu_activation,
 )
 from cleanumamba_tpu_torch.ops.norms import layer_norm, rms_norm
-from cleanumamba_tpu_torch.params import tree_leaves, tree_map
+from cleanumamba_tpu_torch.params import resolve_device, tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
-OTHER_FAMILIES_TODO = ("the {} bottleneck comes with ROADMAP Queue 1 item 8 "
-                       "(other bottleneck families); this port runs \"mamba\"")
+OFFLINE_TODO = ("the offline forward of the {} bottleneck comes with ROADMAP Queue 1 "
+                "item 8 (ssd_scan / the S4 kernel and FFT convolution); this port "
+                "streams it (its single-token step) only")
 
-
-def require_mamba(cfg: CleanUMambaConfig) -> None:
-    if cfg.bottleneck != "mamba":
-        raise NotImplementedError(OTHER_FAMILIES_TODO.format(cfg.bottleneck))
+# the residual pre-norm families and their mixer modules
+STEP_MIXERS = {"mamba": bottleneck_mamba, "mamba2": bottleneck_mamba2,
+               "mamba_s4": bottleneck_s4}
 
 
 # --------------------------------------------------------------------------
@@ -89,7 +97,12 @@ def residual_stack(bp, x, cfg: CleanUMambaConfig, mixer):
 
 def bottleneck_forward(params: Params, x, cfg: CleanUMambaConfig):
     """Bottleneck over (B, T, d_model) features; returns the same shape."""
-    require_mamba(cfg)
+    if cfg.bottleneck == "lstm":
+        return bottleneck_lstm.forward(params["layers"], x)
+    if cfg.bottleneck == "mha":
+        return bottleneck_mha.forward(params, x, cfg)
+    if cfg.bottleneck != "mamba":
+        raise NotImplementedError(OFFLINE_TODO.format(cfg.bottleneck))
     return residual_stack(params, x, cfg,
                           lambda l, mp, h: bottleneck_mamba.mixer_forward(mp, h))
 
@@ -147,15 +160,17 @@ def _torch_conv_init(gen, k_size, cin, cout, groups=1):
     return w * scale, b * scale
 
 
-def init_params(cfg: CleanUMambaConfig, gen: torch.Generator, device="cpu",
+def init_params(cfg: CleanUMambaConfig, gen: torch.Generator, device=None,
                 dtype=torch.float32) -> Params:
-    """The full parameter pytree, drawn from the CPU generator ``gen``.
+    """The full parameter pytree, drawn from the CPU generator ``gen`` and
+    moved to ``device`` (None: ``params.default_device()``).
 
     Same tree, leaf names, shapes and init distributions as the JAX
     package's ``init_params`` (torch defaults + weight_scaling_init on every
     conv + mamba-ssm's out_proj rescale); the numbers differ, since the
     generators do.
     """
+    device = resolve_device(device)
     D = cfg.encoder_n_layers
     encoder, decoder_rev, resproj = [], [], []
     cin, cout_dec, h = cfg.channels_input, cfg.channels_output, cfg.channels_H
@@ -191,19 +206,28 @@ def init_params(cfg: CleanUMambaConfig, gen: torch.Generator, device="cpu",
     }
     if cfg.residual_projection:
         params["residual_projection"] = resproj
-    return tree_map(lambda t: t.to(device=device, dtype=dtype), params)
+    return tree_map(lambda t: t.to(device=device, dtype=dtype)
+                    if isinstance(t, torch.Tensor) else t, params)
 
 
 def _init_bottleneck(cfg: CleanUMambaConfig, gen: torch.Generator) -> Params:
-    require_mamba(cfg)
     n = cfg.tsfm_n_layers
+    if cfg.bottleneck == "lstm":
+        return {"layers": bottleneck_lstm.init(gen, cfg.tsfm_d_model, n)}
+    if cfg.bottleneck == "mha":
+        return bottleneck_mha.init(gen, cfg)
+    if cfg.bottleneck not in STEP_MIXERS:
+        raise ValueError(cfg.bottleneck)
     layers = []
     for _ in range(n):
-        mixer = bottleneck_mamba.mixer_init(gen, cfg.tsfm_d_model, cfg.d_inner, cfg.d_state,
-                                            cfg.dt_rank, cfg.d_conv)
-        # mamba-ssm _init_weights: out_proj kaiming-uniform / sqrt(n_layer)
-        mixer["out_proj"] = uniform(gen, (cfg.d_inner, cfg.tsfm_d_model),
-                                     1.0 / math.sqrt(cfg.d_inner)) / math.sqrt(n)
+        if cfg.bottleneck == "mamba":
+            mixer = bottleneck_mamba.mixer_init(gen, cfg.tsfm_d_model, cfg.d_inner,
+                                                cfg.d_state, cfg.dt_rank, cfg.d_conv)
+            # mamba-ssm _init_weights: out_proj kaiming-uniform / sqrt(n_layer)
+            mixer["out_proj"] = uniform(gen, (cfg.d_inner, cfg.tsfm_d_model),
+                                         1.0 / math.sqrt(cfg.d_inner)) / math.sqrt(n)
+        else:
+            mixer = STEP_MIXERS[cfg.bottleneck].mixer_init(gen, cfg)
         layers.append({"norm": _norm_params(cfg), "mixer": mixer})
     return {"layers": layers, "norm_f": _norm_params(cfg)}
 

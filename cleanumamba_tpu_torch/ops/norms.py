@@ -21,3 +21,10 @@ def rms_norm(x, scale, eps: float = 1e-5):
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def gated_rms_norm(x, z, scale, eps: float = 1e-5):
+    """Mamba2's gated RMSNorm: norm(x * silu(z)) with fp32 statistics."""
+    xf = x.float() * torch.nn.functional.silu(z.float())
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)

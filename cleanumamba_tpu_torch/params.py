@@ -14,12 +14,28 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from cleanumamba_tpu.config import CleanUMambaConfig
+from cleanumamba_tpu_torch.config import CleanUMambaConfig
 
 # Copy of cleanumamba_tpu/quant.py::_SENSITIVE_KEYS (that module imports jax).
 # Leaves under these keys are exponentiated or drive the state dynamics, so
 # they keep fp32 whatever the storage precision of the other weights.
 _SENSITIVE_KEYS = ("A_log", "A_real", "A_imag", "inv_dt", "dt_proj_b")
+
+
+def default_device() -> torch.device:
+    """The device every entry point runs on unless its caller names another:
+    the first CUDA device.  Raises where there is none; nothing carries on
+    on the CPU unasked (pass ``device="cpu"`` to ask)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: this port runs on the GPU by default; pass device=\"cpu\" "
+            "(or --device cpu) to run on the CPU")
+    return torch.device("cuda:0")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means :func:`default_device`."""
+    return default_device() if device is None else torch.device(device)
 
 
 def tree_map(fn, tree):
@@ -64,6 +80,11 @@ def from_numpy(tree, device, dtype=None):
             if dtype is not None and t.is_floating_point():
                 t = t.to(dtype)
             return t.to(device)
+        # static tags of an S4 kernel (attuned length, mode) may arrive as
+        # small wrapper objects around an int or a str: carry the plain value
+        value = getattr(x, "value", None)
+        if isinstance(value, (int, str)) and not isinstance(x, (int, str)):
+            return value
         return x
 
     return tree_map(conv, tree)
@@ -103,13 +124,15 @@ def payload_config(payload: dict) -> CleanUMambaConfig:
     return CleanUMambaConfig.from_reference_json(network, ncfg)
 
 
-def load_checkpoint(path: str, device="cpu") -> Tuple[CleanUMambaConfig, Any]:
-    """Checkpoint pickle -> ``(cfg, params)``, params as torch tensors.
+def load_checkpoint(path: str, device=None) -> Tuple[CleanUMambaConfig, Any]:
+    """Checkpoint pickle -> ``(cfg, params)``, params as torch tensors on
+    ``device`` (None: :func:`default_device`).
 
     The pickle holds numpy leaves under ``params`` and a reference-JSON
     ``network_config`` (:func:`payload_config`).  Only load checkpoints this
     project wrote: unpickling runs code.
     """
+    device = resolve_device(device)
     with open(path, "rb") as f:
         payload = pickle.load(f)
     return payload_config(payload), from_numpy(payload["params"], device)

@@ -1,5 +1,5 @@
-"""Constant-memory streaming inference (port of ``cleanumamba_tpu/streaming.py``,
-Mamba bottleneck).
+"""Constant-memory streaming inference (port of ``cleanumamba_tpu/streaming.py``),
+all five bottleneck families.
 
 Per frame of ``frame_length`` samples the model emits ``total_stride``
 output samples.  The carried state is a dict:
@@ -10,15 +10,20 @@ output samples.  The carried state is a dict:
 - ``enc[i]``: the cached suffix of encoder level i's frame output;
 - ``dec[j]``: decoder overlap-add tails, stored *minus the ConvTranspose
   bias* so the bias is not added twice when the next frame lands on them;
-- ``bottleneck``: per-layer Mamba caches (conv_state, fp32 ssm_state).
+- ``bottleneck``: per-layer mixer caches (conv_state and fp32 ssm_state for
+  mamba and mamba2, h and fp32 c for lstm, conv_state, the complex s4_state
+  as (re, im) pairs and its discrete system for mamba_s4) or, for mha, the
+  ring KV caches of every layer and one shared position.
 
 At level i each frame produces ``S^(D-1-i)`` new outputs from the last
 ``K + S*(S^(D-1-i) - 1)`` samples of the previous level's frame output.
 
-Kernels on this path: the block step's bottleneck runs the selective-scan
-kernel (K1) for CUDA tensors; the single-frame step runs every packed
-encoder/decoder level through the fused level kernels (K3/K4) when given
-``packs`` (``Streamer`` packs on CUDA).
+Kernels on this path: the block step's mamba and mamba2 bottlenecks run the
+selective-scan kernel (K1) for CUDA tensors; the single-frame step of a
+model that packs whole (``pack_mega``: the small released geometry) is one
+launch of the whole-frame kernel (K5, ``stream_step_mega``); otherwise it
+runs every packed encoder/decoder level through the fused level kernels
+(K3/K4) when given ``packs``.  ``Streamer`` chooses (``fused``).
 """
 
 from __future__ import annotations
@@ -28,18 +33,14 @@ from typing import List
 import numpy as np
 import torch
 
-from cleanumamba_tpu.config import CleanUMambaConfig
-from cleanumamba_tpu_torch.models.bottleneck_mamba import (
-    mixer_dims,
-    mixer_init_cache,
-    mixer_step,
-    ssm_inputs,
-)
+from cleanumamba_tpu_torch.config import CleanUMambaConfig
+from cleanumamba_tpu_torch.models import bottleneck_lstm, bottleneck_mamba2, bottleneck_mha
+from cleanumamba_tpu_torch.models.bottleneck_mamba import mixer_dims, ssm_inputs
 from cleanumamba_tpu_torch.models.cleanumamba import (
+    STEP_MIXERS,
     decoder_level,
     encoder_level,
     pointwise,
-    require_mamba,
     residual_stack,
 )
 from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan
@@ -49,17 +50,10 @@ from cleanumamba_tpu_torch.ops.cuda.stream_fused import (
     fused_encoder_level,
     pack_stream_params,
 )
-from cleanumamba_tpu_torch.params import prepare_weight_view, to_device
-
-
-def _level_lengths(cfg: CleanUMambaConfig) -> List[int]:
-    """Frame-output length at each encoder level (E8: 382, 190, ..., 4, 1)."""
-    lens = []
-    l = cfg.frame_length
-    for _ in range(cfg.encoder_n_layers):
-        l = (l - cfg.kernel_size) // cfg.stride + 1
-        lens.append(l)
-    return lens
+from cleanumamba_tpu_torch.ops.cuda.stream_mega import level_lengths as _level_lengths
+from cleanumamba_tpu_torch.ops.cuda.stream_mega import mega_stream_step, pack_mega
+from cleanumamba_tpu_torch.ops.norms import gated_rms_norm
+from cleanumamba_tpu_torch.params import prepare_weight_view, resolve_device, to_device, tree_map
 
 
 def _level_strides(cfg: CleanUMambaConfig) -> List[int]:
@@ -73,14 +67,24 @@ def _level_strides(cfg: CleanUMambaConfig) -> List[int]:
 # --------------------------------------------------------------------------
 
 def _bottleneck_init_cache(params, cfg: CleanUMambaConfig, batch: int, dtype, device):
-    require_mamba(cfg)
-    return [mixer_init_cache(lp["mixer"], batch, dtype, device)
-            for lp in params["bottleneck"]["layers"]]
+    bp = params["bottleneck"]
+    if cfg.bottleneck == "lstm":
+        return bottleneck_lstm.init_cache(bp["layers"], batch, dtype, device)
+    if cfg.bottleneck == "mha":
+        return bottleneck_mha.init_cache(bp, cfg, batch, bottleneck_mha.mha_max_len(cfg), dtype,
+                                         device)
+    mixer = STEP_MIXERS[cfg.bottleneck]
+    return [mixer.mixer_init_cache(lp["mixer"], batch, dtype, device) for lp in bp["layers"]]
 
 
 def _bottleneck_step(params, cfg: CleanUMambaConfig, cache, x):
     """x: (B, d_model) single bottleneck token -> (cache', y)."""
-    require_mamba(cfg)
+    bp = params["bottleneck"]
+    if cfg.bottleneck == "lstm":
+        return bottleneck_lstm.step(bp["layers"], cache, x)
+    if cfg.bottleneck == "mha":
+        return bottleneck_mha.step(bp, cfg, cache, x)
+    mixer_step = STEP_MIXERS[cfg.bottleneck].mixer_step
     new_cache = []
 
     def mixer(l, mp, h):
@@ -116,17 +120,33 @@ def _mamba_mixer_tokens(p, lc, hidden):
     return {"conv_state": new_conv_state, "ssm_state": h_last}, hidden
 
 
+def _mamba2_mixer_tokens(p, lc, hidden):
+    """N Mamba-2 (SSD) mixer tokens as one selective scan from the carried
+    state: the scalar-per-head decay broadcast to A[i, s] = a_head(i // headdim),
+    the same form as ``bottleneck_mamba2.mixer_step``, so a block equals N steps."""
+    z, xBC, dt_h = bottleneck_mamba2.split_zxbcdt(p, hidden @ p["in_proj"].to(hidden.dtype))
+    pre, new_conv_state = _rolling_depthwise_conv(
+        lc["conv_state"], xBC, p["conv_w"], p["conv_b"], hidden.shape[1])
+    xs, dt, A, Bm, Cm, D = bottleneck_mamba2.ssm_inputs(
+        p, torch.nn.functional.silu(pre), dt_h)
+    y, h_last = selective_scan(xs, dt, A, Bm, Cm, D, lc["ssm_state"])
+    hidden = gated_rms_norm(y, z, p["norm_w"]) @ p["out_proj"].to(y.dtype)
+    return {"conv_state": new_conv_state, "ssm_state": h_last}, hidden
+
+
 def _bottleneck_tokens(params, cfg: CleanUMambaConfig, cache, x):
-    """N bottleneck tokens (B, N, d_model) with carried state: one selective
-    scan per layer with h0 = the carried state (K1 on CUDA) for N > 1, a
-    single token step otherwise."""
-    require_mamba(cfg)
+    """N bottleneck tokens (B, N, d_model) with carried state.  mamba and
+    mamba2 with N > 1: one selective scan per layer with h0 = the carried
+    state (K1 on CUDA).  Otherwise (lstm, mha, mamba_s4, or one token) a loop
+    of single-token steps."""
     N = x.shape[1]
-    if N > 1:
+    if cfg.bottleneck in ("mamba", "mamba2") and N > 1:
+        mixer_tokens = (_mamba_mixer_tokens if cfg.bottleneck == "mamba"
+                        else _mamba2_mixer_tokens)
         new_cache = []
 
         def mixer(l, mp, h):
-            nc, out = _mamba_mixer_tokens(mp, cache[l], h)
+            nc, out = mixer_tokens(mp, cache[l], h)
             new_cache.append(nc)
             return out
 
@@ -282,6 +302,30 @@ def stream_step(params, cfg: CleanUMambaConfig, state, new_samples,
     return new_state, out
 
 
+def stream_step_mega(cfg: CleanUMambaConfig, state, new_samples, mega):
+    """The single-frame step through the whole-frame kernel (K5 on CUDA, its
+    plain version on the CPU): the same function as :func:`stream_step` in
+    fp32; only the normalisation EMA before and the rescale after it stay
+    plain torch.  ``mega``: ``(arrays, meta)`` from ``pack_mega``."""
+    arrays, meta = mega
+    frame = torch.cat([state["input_tail"], new_samples], dim=1)
+    frames = state["frames"] + 1
+    if cfg.normalize_input:
+        inv_n = 1.0 / frames.float()
+        input_std = _std(frame, 1) * inv_n + (1.0 - inv_n) * state["input_std"]
+        x = frame.float() / input_std
+    else:
+        input_std = state["input_std"]
+        x = frame.float()
+    # a state left by stream_prime or stream_step holds slices of larger tensors
+    upd, out = mega_stream_step(
+        x.contiguous(), tree_map(lambda t: t.contiguous(), state), arrays, meta)
+    if cfg.normalize_input:
+        out = out * input_std.to(out.dtype)
+    return {"input_tail": frame[:, cfg.total_stride:], "input_std": input_std,
+            "frames": frames, **upd}, out
+
+
 def _stack_strided_frames(window, starts, length):
     """(B, len(starts), length) from per-frame slices of window (B, L)."""
     return torch.stack([window[:, s : s + length] for s in starts], dim=1)
@@ -409,32 +453,51 @@ class Streamer:
     """Host-side feed/flush wrapper: accepts chunks of any length, returns
     denoised audio as it becomes available.
 
-    A feed that completes one new frame runs ``stream_step`` (on CUDA with
-    every packable level through the fused level kernels K3/K4); a feed that
-    completes several runs them as one ``stream_step_block`` (K1 in the
-    bottleneck on CUDA).  ``fused_mode`` is "fused" when the single-frame
-    step uses packed levels (CUDA) and "plain" otherwise (CPU).
+    A feed that completes one new frame runs the single-frame step; a feed
+    that completes several runs them as one ``stream_step_block`` (K1 in the
+    mamba and mamba2 bottlenecks on CUDA).
+
+    fused: "auto" | "mega" | True | False, which single-frame step runs.
+    "mega": the whole frame as one launch (``stream_step_mega``, K5 on CUDA);
+    raises if the model does not pack (``pack_mega``).  True: every U-Net
+    level that packs through the fused level kernels (K3/K4 on CUDA).  False:
+    plain ``stream_step``.  "auto" (the policy is by model, the dispatch by
+    device): mega where the model packs and the state is fp32, else the
+    per-level packs on a CUDA device, else plain.  ``fused_mode`` says what
+    was resolved: "mega" | "fused" | "plain".  On a CPU device the packed
+    paths run their kernels' plain versions.
+
+    device: where the model runs; None means ``params.default_device()``
+    (the first CUDA device; raises where there is none).
 
     weights: "fp32" | "bf16", the storage precision of the weight matrices
     (``prepare_weight_view``); bf16 also makes the packs' compute dtype
     bf16.  State and activation math run in ``dtype``.
     """
 
-    def __init__(self, params, cfg: CleanUMambaConfig, device="cpu", batch: int = 1,
-                 dtype=torch.float32, weights: str = "fp32"):
-        require_mamba(cfg)
-        self.device = torch.device(device)
+    def __init__(self, params, cfg: CleanUMambaConfig, device=None, batch: int = 1,
+                 dtype=torch.float32, weights: str = "fp32", fused="auto"):
+        self.device = resolve_device(device)
         self.params = prepare_weight_view(to_device(params, self.device), weights)
         self.cfg = cfg
         self.dtype = dtype
         self.batch = batch
-        self.packs = None
-        if self.device.type == "cuda":
-            cdt = torch.float32 if weights == "fp32" else torch.bfloat16
+        self.packs = self.mega = None
+        cdt = torch.float32 if weights == "fp32" else torch.bfloat16
+        if fused not in ("auto", "mega", True, False):
+            raise ValueError(f"fused={fused!r}: expected 'auto', 'mega', True or False")
+        if fused == "mega" or (fused == "auto" and dtype == torch.float32):
+            self.mega = pack_mega(self.params, cfg, cdt)
+            if self.mega is None and fused == "mega":
+                raise ValueError("fused='mega': the model does not meet the whole-frame "
+                                 "kernel's constraints (see pack_mega)")
+        if self.mega is None and (fused is True or (fused == "auto"
+                                                    and self.device.type == "cuda")):
             arrays, meta = pack_stream_params(self.params, cfg, cdt)
             if meta is not None:
                 self.packs = (arrays, meta)
-        self.fused_mode = "fused" if self.packs is not None else "plain"
+        self.fused_mode = ("mega" if self.mega is not None
+                           else "fused" if self.packs is not None else "plain")
         self.state = None
         self.pending = np.zeros((batch, 0), np.float32)
         self.fed = 0
@@ -460,7 +523,9 @@ class Streamer:
             # pending holds fl - ts already-seen samples plus the new ones
             n_frames = (self.pending.shape[1] - fl) // ts + 1
             new = self._tensor(self.pending[:, fl - ts : fl + (n_frames - 1) * ts])
-            if n_frames == 1:
+            if n_frames == 1 and self.mega is not None:
+                self.state, out = stream_step_mega(self.cfg, self.state, new, self.mega)
+            elif n_frames == 1:
                 self.state, out = stream_step(self.params, self.cfg, self.state, new,
                                               self.dtype, packs=self.packs)
             else:

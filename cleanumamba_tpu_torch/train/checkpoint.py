@@ -14,8 +14,8 @@ import os
 import pickle
 from typing import Any, Optional
 
-from cleanumamba_tpu.config import CleanUMambaConfig
-from cleanumamba_tpu_torch.params import payload_config, to_numpy
+from cleanumamba_tpu_torch.config import CleanUMambaConfig
+from cleanumamba_tpu_torch.params import from_numpy, payload_config, resolve_device, to_numpy
 
 
 def find_max_epoch(path: str) -> int:
@@ -56,19 +56,24 @@ def save_checkpoint(directory: str, step: int, params: Any, opt_state: Any = Non
     return path
 
 
-def load_checkpoint(path: str) -> dict:
-    """The payload, numpy leaves as saved, plus ``config`` (a
+def load_checkpoint(path: str, device=None) -> dict:
+    """The payload with ``params`` and ``opt_state`` as torch tensors on
+    ``device`` (None: ``params.default_device()``), plus ``config`` (a
     CleanUMambaConfig) when it has a network_config.  Only load checkpoints
     this project wrote: unpickling runs code."""
+    device = resolve_device(device)
     with open(path, "rb") as f:
         payload = pickle.load(f)
+    for key in ("params", "opt_state"):
+        if payload.get(key) is not None:
+            payload[key] = from_numpy(payload[key], device)
     if payload.get("network_config") is not None:
         payload["config"] = payload_config(payload)
     return payload
 
 
-def load_latest(directory: str) -> Optional[dict]:
+def load_latest(directory: str, device=None) -> Optional[dict]:
     step = find_max_epoch(directory)
     if step < 0:
         return None
-    return load_checkpoint(os.path.join(directory, f"{step}.pkl"))
+    return load_checkpoint(os.path.join(directory, f"{step}.pkl"), device)

@@ -22,7 +22,7 @@ from typing import Callable
 
 import torch
 
-from cleanumamba_tpu.config import OptimizationConfig
+from cleanumamba_tpu_torch.config import OptimizationConfig
 from cleanumamba_tpu_torch.params import tree_leaves, tree_map, tree_unflatten
 from cleanumamba_tpu_torch.train.schedule import linear_warmup_cosine_decay
 

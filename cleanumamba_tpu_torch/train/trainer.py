@@ -21,7 +21,7 @@ from typing import Any, Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from cleanumamba_tpu.config import CleanUMambaConfig, LossConfig
+from cleanumamba_tpu_torch.config import CleanUMambaConfig, LossConfig
 from cleanumamba_tpu_torch.data.synth_device import synth_batch
 from cleanumamba_tpu_torch.losses import loss_fn
 from cleanumamba_tpu_torch.models.cleanumamba import forward

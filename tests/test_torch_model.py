@@ -80,7 +80,7 @@ def test_forward_return_skips_matches_jax(small_params):
 def test_forward_checkpoint_matches_jax(ckpt):
     """Ragged pruned E8 checkpoints (per-layer d_inner, d_state, dt_rank)."""
     ref = jax_load_checkpoint(ckpt)
-    cfg, pt = tparams.load_checkpoint(ckpt)
+    cfg, pt = tparams.load_checkpoint(ckpt, "cpu")
     x = _wave(4, 1, 4000, 0.1)
     want = np.asarray(_jax_forward(ref["params"], jnp.asarray(x), ref["config"]))
     _assert_rel(tm.forward(pt, torch.from_numpy(x), cfg), want)
@@ -121,7 +121,7 @@ def test_init_params_tree_matches_jax_at_e8():
     (jax.eval_shape: nothing computed on the JAX side), and 41.37M params."""
     cfg = CleanUMambaConfig()
     jshape = jax.eval_shape(lambda k: jm.init_params(k, cfg), jax.random.PRNGKey(0))
-    pt = tm.init_params(cfg, torch.Generator().manual_seed(0))
+    pt = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     t_def, t_leaves = _flat_shapes(tparams.to_numpy(pt))
     j_def, j_leaves = _flat_shapes(jshape)
     assert t_def == j_def
@@ -135,8 +135,8 @@ def test_init_params_distributions(small_params):
     """Seeded and reproducible; the same distributions as JAX init_params:
     deterministic leaves equal, random leaves with the same spread."""
     pj, _ = small_params
-    a = tm.init_params(SMALL, torch.Generator().manual_seed(5))
-    b = tm.init_params(SMALL, torch.Generator().manual_seed(5))
+    a = tm.init_params(SMALL, torch.Generator().manual_seed(5), "cpu")
+    b = tm.init_params(SMALL, torch.Generator().manual_seed(5), "cpu")
     for x, y in zip(tparams.tree_leaves(a), tparams.tree_leaves(b)):
         assert torch.equal(x, y)
     leaves = jax.tree_util.tree_leaves  # one (sorted-key) order for both trees
@@ -155,25 +155,26 @@ def test_init_params_distributions(small_params):
 
 
 def test_other_bottleneck_families_raise():
-    cfg = dataclasses.replace(SMALL, bottleneck="lstm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(cfg, torch.Generator().manual_seed(0))
-    _, pt = tparams.load_checkpoint(CKPTS[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.bottleneck_forward(pt["bottleneck"], torch.zeros(1, 3, 292), cfg)
+    """The offline forward of mamba2 and mamba_s4 is not ported yet and says
+    so; their single-token steps and lstm/mha are (test_torch_bottlenecks.py)."""
+    _, pt = tparams.load_checkpoint(CKPTS[0], "cpu")
+    for family in ("mamba2", "mamba_s4"):
+        cfg = dataclasses.replace(SMALL, bottleneck=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tm.bottleneck_forward(pt["bottleneck"], torch.zeros(1, 3, 292), cfg)
 
 
 def test_checkpoint_roundtrip(tmp_path):
     """load (port) -> to_numpy -> pickle in the project's format -> load with
     both loaders: identical config and leaves."""
-    cfg, pt = tparams.load_checkpoint(CKPTS[1])
+    cfg, pt = tparams.load_checkpoint(CKPTS[1], "cpu")
     path = tmp_path / "rt.pkl"
     path.write_bytes(pickle.dumps({
         "iter": 1, "network_config": cfg.to_reference_json(), "bottleneck": cfg.bottleneck,
         "params": tparams.to_numpy(pt), "opt_state": None}))
-    cfg2, pt2 = tparams.load_checkpoint(str(path))
+    cfg2, pt2 = tparams.load_checkpoint(str(path), "cpu")
     ref = jax_load_checkpoint(str(path))
-    assert cfg2 == cfg == ref["config"]
+    assert cfg2 == cfg and dataclasses.asdict(cfg) == dataclasses.asdict(ref["config"])
     leaves = jax.tree_util.tree_leaves  # one (sorted-key) order for all three
     for a, b, c in zip(leaves(tparams.to_numpy(pt2)), leaves(tparams.to_numpy(pt)),
                        leaves(ref["params"])):

@@ -5,6 +5,7 @@ port on the CPU.  fp32 tolerance: rtol=1e-5, atol=1e-5 (summation order
 only).
 """
 
+import dataclasses
 import pickle
 import subprocess
 import sys
@@ -152,9 +153,9 @@ def test_load_checkpoint_matches_jax_loader():
     from cleanumamba_tpu.train.checkpoint import load_checkpoint
 
     path = "artifacts/capstone_724k_scratch.pkl"
-    cfg, params = tparams.load_checkpoint(path)
+    cfg, params = tparams.load_checkpoint(path, "cpu")
     ref = load_checkpoint(path)
-    assert cfg == ref["config"]
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref["config"])
     got = jax.tree_util.tree_leaves(tparams.to_numpy(params))
     want = jax.tree_util.tree_leaves(ref["params"])
     assert len(got) == len(want)
@@ -169,7 +170,7 @@ def test_load_checkpoint_other_bottleneck_config(tmp_path):
                "bottleneck": "lstm", "params": {"w": np.zeros((2, 2), np.float32)}}
     path = tmp_path / "ck.pkl"
     path.write_bytes(pickle.dumps(payload))
-    cfg, params = tparams.load_checkpoint(str(path))
+    cfg, params = tparams.load_checkpoint(str(path), "cpu")
     assert cfg.bottleneck == "lstm" and params["w"].shape == (2, 2)
 
 

@@ -83,7 +83,7 @@ def models(small):
     def get(model_id):
         if model_id not in cache:
             ref = jax_load_checkpoint(model_id)
-            cfg, pt = tparams.load_checkpoint(model_id)
+            cfg, pt = tparams.load_checkpoint(model_id, "cpu")
             cache[model_id] = (cfg, ref["params"], pt)
         return cache[model_id]
 
@@ -211,8 +211,8 @@ def test_streamer_matches_jax(models, model_id, normalize_input):
     # prime, a single step (over two feeds), two 4-frame blocks, then flush
     # (2 frames); few distinct block sizes keep JAX's compiles few
     sizes = [cfg.frame_length + 3, tsd - 5, 2, 4 * tsd]
-    s_t, s_j = ts.Streamer(pt, cfg), js.Streamer(pj, cfg)
-    assert s_t.fused_mode == "plain"  # CPU: no packs
+    s_t, s_j = ts.Streamer(pt, cfg, "cpu"), js.Streamer(pj, cfg)
+    assert s_t.fused_mode == "mega"  # these models pack; on the CPU the plain version runs
     got = _feed_all(s_t, x, sizes)
     want = _feed_all(s_j, x, sizes)
     assert got.shape == want.shape == x.shape
@@ -229,7 +229,7 @@ def test_offline_equals_streaming(small):
     x = (np.random.default_rng(10).normal(size=(1, L)) * 0.3).astype(np.float32)
     x_ext = torch.from_numpy(np.pad(x, ((0, 0), (0, 1000))))
     offline = forward(pt, x_ext, cfg)[:, :L].numpy()
-    s = ts.Streamer(pt, cfg)
+    s = ts.Streamer(pt, cfg, "cpu")
     streamed = np.concatenate([s.feed(x[:, i: i + 1000]) for i in range(0, L, 1000)]
                               + [s.flush()], axis=1)
     assert streamed.shape == (1, L)
@@ -239,9 +239,7 @@ def test_offline_equals_streaming(small):
 def test_streamer_weight_views(small):
     cfg, _, pt = small
     x = _audio(cfg, 1, 6, seed=11)
-    out = _feed_all(ts.Streamer(pt, cfg, weights="bf16"), x, [cfg.frame_length])
+    out = _feed_all(ts.Streamer(pt, cfg, "cpu", weights="bf16"), x, [cfg.frame_length])
     assert out.shape == x.shape and np.isfinite(out).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.Streamer(pt, cfg, weights="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.Streamer(pt, dataclasses.replace(cfg, bottleneck="mha"))
+        ts.Streamer(pt, cfg, "cpu", weights="int8")
