@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``cleanumamba_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA device
+    python3 chip_smoke.py --fused-only   # K3/K4 alone: their part of phases 3-5
 
 Phases, each printed as it passes; any failure raises (non-zero exit):
 
@@ -9,14 +10,21 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
 2. build: compiles the CUDA kernels (``csrc/*.cu``, one ``nvcc`` each, in
    parallel) into ``_build/``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, in fp32 (TF32 off) and bf16, plus the other
-   GLU gate activations of K3/K4 in fp32, with its time beside the plain
-   version's (CUDA events, after warm-up);
+   the serving path's shapes, in fp32 (TF32 off) and bf16, with its time
+   beside the plain version's.  K3/K4: every E8 level at block 1, with and
+   without ``prev``; batch 2 and 8 at the four deepest levels; every ragged
+   level of the pruned checkpoint; a repeated call bit for bit; the other
+   GLU gate activations in fp32.  Their times are device times from a
+   ``torch.profiler`` trace of rounds through one frame's 16 level calls
+   (per level and launch: us, the bytes it must move, GB/s), beside 16 empty
+   launches (the launch floor) and the host's cost per wrapper call;
 4. the E8 serving slice at full width (random weights from a seeded
    ``torch.Generator``, bf16 weight view): offline forward on 1 s, prime +
    64 blocks of 16 frames through ``stream_step_block``, then ``Streamer``
    at block 1; every kernel's launch count must be > 0 after this phase;
-   then, in fp32, 2 blocks of 16 frames must equal 32 single steps;
+   then, in fp32, 2 blocks of 16 frames must equal 32 single steps; then a
+   profiler window of the block-1 step (device busy and K3 + K4 per frame,
+   ``profiles/block1_step_profile.txt``);
 5. real weights: ``artifacts/pruned_473k_finetuned.pkl`` offline and
    streamed, streaming == offline with ``normalize_input=False``;
 6. K2 (backward scan) and K1's chunk states against their plain versions:
@@ -61,6 +69,7 @@ prints no result.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import dataclasses
 import json
@@ -202,108 +211,285 @@ def check_scan(dev, rep: Report):
 
 
 def _fp32_pack(pk):
+    """The same pack in fp32 (the tiled layout is kept)."""
     arrays, meta = pk
     return {k: v.float() for k, v in arrays.items()}, {**meta, "cdt": torch.float32}
 
 
-def check_fused(dev, cfg, params, rep: Report):
+FUSED_KERNELS = ("conv_relu_kernel", "glu_kernel", "convt_kernel", "empty_kernel")
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _trace_calls(calls, per_call, iters=20, warmup=3):
+    """Device time of each of ``calls`` (thunks that launch ``per_call`` K3/K4
+    kernels each) from a ``torch.profiler`` trace of ``iters`` rounds through
+    all of them in order, so that a level finds its weights where a frame
+    would (a round reads more than the L2 cache holds).  Returns, per call,
+    (median us of each kernel, median us the device is busy with them: the
+    union of their intervals, which counts an overlap once and no gap that the
+    host left between two launches; median us from the first kernel's start
+    to the last one's end, gaps included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        for fn in calls:
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.name for k in FUSED_KERNELS))
+    per_round = per_call * len(calls)
+    rounds = len(ev) // per_round
+    if rounds < iters // 2:  # a trace may miss the first launches after it starts
+        raise AssertionError(f"the trace holds {len(ev)} kernels for {iters} rounds of {per_round}")
+    ev = ev[len(ev) - rounds * per_round:]
+    out = []
+    for c in range(len(calls)):
+        groups = [ev[r * per_round + c * per_call: r * per_round + (c + 1) * per_call]
+                  for r in range(rounds)]
+        kernels = [_median([g[j][1] - g[j][0] for g in groups]) for j in range(per_call)]
+        busy = _median([sum(e - max(s, g[j - 1][1] if j else s)
+                            for j, (s, e) in enumerate(g) if e > (g[j - 1][1] if j else s))
+                        for g in groups])
+        out.append((kernels, busy, _median([g[-1][1] - g[0][0] for g in groups])))
+    return out
+
+
+def _enc_case(pk, B, T, rn):
+    """Random windows for an encoder pack, in its compute dtype."""
+    return rn(B, T, pk[1]["K"] * pk[1]["Cin"]).to(pk[1]["cdt"])
+
+
+def _dec_case(pk, B, T, rn, has_prev):
+    """Random x, skip and prev (or None) for a decoder pack, in its compute dtype."""
+    cdt, C_in, SC = pk[1]["cdt"], pk[1]["Cx"], pk[1]["S"] * pk[1]["Cout"]
+    x, skip = rn(B, T, C_in).to(cdt), rn(B, T, C_in).to(cdt)
+    return x, skip, (rn(B, 1, SC).to(cdt) if has_prev else None)
+
+
+def _check_enc(rep, sf, win, pk, label):
+    cdt = pk[1]["cdt"]
+    got = sf.fused_encoder_level(win, *pk)
+    if cdt == torch.float32:
+        ref = sf.fused_encoder_level_plain(win, *pk)
+    else:
+        ref = sf.fused_encoder_level_plain(win.to(cdt).float(), *_fp32_pack(pk))
+    rep.check("fused_encoder_level", label, got, ref,
+              FP32_TOL if cdt == torch.float32 else BF16_TOL)
+
+
+def _check_dec(rep, sf, x, skip, prev, pk, relu, label):
+    cdt = pk[1]["cdt"]
+    out, tail = sf.fused_decoder_level(x, skip, prev, *pk, relu=relu)
+    if cdt == torch.float32:
+        r_out, r_tail = sf.fused_decoder_level_plain(x, skip, prev, *pk, relu=relu)
+    else:
+        r_out, r_tail = sf.fused_decoder_level_plain(
+            x.float(), skip.float(), None if prev is None else prev.float(),
+            *_fp32_pack(pk), relu=relu)
+    tol = FP32_TOL if cdt == torch.float32 else BF16_TOL
+    rep.check("fused_decoder_level", label + " out", out, r_out, tol)
+    rep.check("fused_decoder_level", label + " tail", tail, r_tail, tol)
+
+
+def _level_bytes(sf, pk, *tensors):
+    """Bytes a level call must move: its weights and biases once (at their
+    logical size, without the pack's padding) and the tensors given."""
+    return _nbytes(*sf.unpack_level(*pk).values(), *tensors)
+
+
+def check_fused(dev, cfg, params, rep: Report, smi):
     """K3/K4 at every E8 level at block 1 (T = 2^(7-i) tokens at encoder
-    level i), fp32 and bf16 packs, with and without a decoder prev tail."""
+    level i), fp32 and bf16 packs, with and without a decoder prev tail; at
+    batch 2 and 8 on the four deepest levels; on the ragged levels of the
+    pruned checkpoint; a repeated call bit for bit; then their times."""
     from cleanumamba_tpu_torch.ops.cuda import stream_fused as sf
+    from cleanumamba_tpu_torch.params import load_checkpoint
 
     D, S = cfg.encoder_n_layers, cfg.stride
     g = torch.Generator().manual_seed(2)
     rn = lambda *s: (torch.randn(*s, generator=g) * 0.5).to(dev)  # noqa: E731
-    enc_calls, dec_calls = {}, {}
+    enc_pk, dec_pk = {}, {}
+    enc_calls, dec_calls = [], []
     for cdt_name, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        for i, ep in enumerate(params["encoder"]):
-            pk = sf.pack_encoder_level(ep, cfg, i, cdt)
+        enc_pk[cdt_name] = [sf.pack_encoder_level(ep, cfg, i, cdt)
+                            for i, ep in enumerate(params["encoder"])]
+        dec_pk[cdt_name] = [sf.pack_decoder_level(dp, cfg, D - 1 - j, cdt)
+                            for j, dp in enumerate(params["decoder"])]
+        for i, pk in enumerate(enc_pk[cdt_name]):
             T = S ** (D - 1 - i)
             win32 = rn(1, T, pk[1]["K"] * pk[1]["Cin"])
             acts = (("fp32", torch.float32),) if cdt == torch.float32 else (
                 ("bf16", torch.bfloat16), ("fp32", torch.float32))
             for act_name, adt in acts:
                 win = win32.to(adt)
-                got = sf.fused_encoder_level(win, *pk)
-                if cdt == torch.float32:
-                    ref = sf.fused_encoder_level_plain(win, *pk)
-                else:
-                    ref = sf.fused_encoder_level_plain(win.to(cdt).float(), *_fp32_pack(pk))
-                tol = FP32_TOL if cdt == torch.float32 else BF16_TOL
-                rep.check("fused_encoder_level", f"level {i} T={T} pack={cdt_name} "
-                          f"act={act_name}", got, ref, tol)
-                if act_name == cdt_name:
-                    enc_calls.setdefault(cdt_name, []).append((win, pk))
-        for j, dp in enumerate(params["decoder"]):
-            pk = sf.pack_decoder_level(dp, cfg, D - 1 - j, cdt)
+                _check_enc(rep, sf, win, pk, f"level {i} T={T} pack={cdt_name} act={act_name}")
+                if act_name == cdt_name == "bf16":
+                    enc_calls.append((win, pk))
+        for j, pk in enumerate(dec_pk[cdt_name]):
             T = S ** j
-            C_in = pk[0]["mwa"].shape[0]
-            SC = S * pk[1]["Cout"]
-            relu = j != D - 1
             for has_prev in (False, True):
-                x, skip = rn(1, T, C_in).to(cdt), rn(1, T, C_in).to(cdt)
-                prev = rn(1, 1, SC).to(cdt) if has_prev else None
-                out, tail = sf.fused_decoder_level(x, skip, prev, *pk, relu=relu)
-                if cdt == torch.float32:
-                    r_out, r_tail = sf.fused_decoder_level_plain(x, skip, prev, *pk, relu=relu)
-                else:
-                    r_out, r_tail = sf.fused_decoder_level_plain(
-                        x.float(), skip.float(), None if prev is None else prev.float(),
-                        *_fp32_pack(pk), relu=relu)
-                tol = FP32_TOL if cdt == torch.float32 else BF16_TOL
-                label = f"level {j} T={T} pack={cdt_name} prev={has_prev}"
-                rep.check("fused_decoder_level", label + " out", out, r_out, tol)
-                rep.check("fused_decoder_level", label + " tail", tail, r_tail, tol)
-                if has_prev:
-                    dec_calls.setdefault(cdt_name, []).append((x, skip, prev, pk, relu))
+                x, skip, prev = _dec_case(pk, 1, T, rn, has_prev)
+                _check_dec(rep, sf, x, skip, prev, pk, j != D - 1,
+                           f"level {j} T={T} pack={cdt_name} prev={has_prev}")
+                if has_prev and cdt_name == "bf16":
+                    dec_calls.append((x, skip, prev, pk, j != D - 1))
+
+    # batch 2 and 8 at the four deepest levels (the levels that stream megabytes)
+    deep_enc, deep_dec = [], []
+    for cdt_name, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for B in (2, 8):
+            for i in range(D - 4, D):
+                T, pk = S ** (D - 1 - i), enc_pk[cdt_name][i]
+                win = _enc_case(pk, B, T, rn)
+                _check_enc(rep, sf, win, pk, f"level {i} B={B} T={T} pack={cdt_name}")
+                if B == 8 and cdt_name == "bf16":
+                    deep_enc.append((win, pk))
+            for j in range(4):
+                T, pk = S ** j, dec_pk[cdt_name][j]
+                for has_prev in (False, True):
+                    x, skip, prev = _dec_case(pk, B, T, rn, has_prev)
+                    _check_dec(rep, sf, x, skip, prev, pk, True,
+                               f"level {j} B={B} T={T} pack={cdt_name} prev={has_prev}")
+                    if B == 8 and has_prev and cdt_name == "bf16":
+                        deep_dec.append((x, skip, prev, pk, True))
+
+    # ragged widths: every level of the pruned checkpoint (channel counts that
+    # are no multiple of 8), batch 2
+    cfg_r, params_r = load_checkpoint(CKPT, dev)
+    Dr, Sr = cfg_r.encoder_n_layers, cfg_r.stride
+    widths = []
+    for cdt_name, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for i, ep in enumerate(params_r["encoder"]):
+            pk = sf.pack_encoder_level(ep, cfg_r, i, cdt)
+            T = Sr ** (Dr - 1 - i)
+            win = _enc_case(pk, 2, T, rn)
+            _check_enc(rep, sf, win, pk, f"pruned level {i} B=2 T={T} "
+                       f"({pk[1]['Cin']}->{pk[1]['C']}->{pk[1]['C2'] // 2}) pack={cdt_name}")
+            widths.append(pk[1]["C"])
+        for j, dp in enumerate(params_r["decoder"]):
+            pk = sf.pack_decoder_level(dp, cfg_r, Dr - 1 - j, cdt)
+            T = Sr ** j
+            x, skip, prev = _dec_case(pk, 2, T, rn, True)
+            _check_dec(rep, sf, x, skip, prev, pk, j != Dr - 1,
+                       f"pruned level {j} B=2 T={T} ({pk[1]['Cx']}->{pk[1]['C']}->"
+                       f"{pk[1]['Cout']}) pack={cdt_name}")
+    if all(w % 8 == 0 for w in widths):
+        raise AssertionError(f"{CKPT}: no ragged width among {widths}")
+
+    # the same inputs give the same bits: one K3 and one K4 call repeated
+    win, pk = enc_calls[D - 1]
+    first = sf.fused_encoder_level(win, *pk).clone()
+    for _ in range(3):
+        if not torch.equal(sf.fused_encoder_level(win, *pk), first):
+            raise AssertionError("fused_encoder_level: a repeated call differs")
+    x, skip, prev, pk, relu = deep_dec[1]
+    first = [t.clone() for t in sf.fused_decoder_level(x, skip, prev, *pk, relu=relu)]
+    for _ in range(3):
+        again = sf.fused_decoder_level(x, skip, prev, *pk, relu=relu)
+        if not all(torch.equal(a, b) for a, b in zip(again, first)):
+            raise AssertionError("fused_decoder_level: a repeated call differs")
+    print("  K3 (level 7, B=1) and K4 (level 1, B=8): 3 repeated calls bitwise equal")
 
     # the other GLU gate activations (E8 uses Sigmoid): encoder level 4 and
     # its decoder level, fp32 packs
     for act in ("ReLU", "SiLU", "GELU"):
         cfg_a = dataclasses.replace(cfg, glu_activation=act)
         pk = sf.pack_encoder_level(params["encoder"][4], cfg_a, 4, torch.float32)
-        win = rn(1, S ** (D - 5), pk[1]["K"] * pk[1]["Cin"])
-        rep.check("fused_encoder_level", f"level 4 pack=fp32 act={act}",
-                  sf.fused_encoder_level(win, *pk), sf.fused_encoder_level_plain(win, *pk),
-                  FP32_TOL)
+        win = _enc_case(pk, 1, S ** (D - 5), rn)
+        _check_enc(rep, sf, win, pk, f"level 4 pack=fp32 act={act}")
         pk = sf.pack_decoder_level(params["decoder"][D - 5], cfg_a, 4, torch.float32)
-        T, C_in, SC = S ** (D - 5), pk[0]["mwa"].shape[0], S * pk[1]["Cout"]
-        x, skip, prev = rn(1, T, C_in), rn(1, T, C_in), rn(1, 1, SC)
-        got = sf.fused_decoder_level(x, skip, prev, *pk, relu=True)
-        ref = sf.fused_decoder_level_plain(x, skip, prev, *pk, relu=True)
-        for part, g_, r_ in zip(("out", "tail"), got, ref):
-            rep.check("fused_decoder_level", f"level {D - 5} pack=fp32 act={act} {part}",
-                      g_, r_, FP32_TOL)
-
-    # times for one block-1 frame's worth of levels (all 8), bf16 as on the path
-    def enc_all(fn):
-        return lambda: [fn(win, *pk) for win, pk in enc_calls["bf16"]]
-
-    def dec_all(fn):
-        return lambda: [fn(x, s, p, *pk, relu=r) for x, s, p, pk, r in dec_calls["bf16"]]
+        x, skip, prev = _dec_case(pk, 1, S ** (D - 5), rn, True)
+        _check_dec(rep, sf, x, skip, prev, pk, True, f"level {D - 5} pack=fp32 act={act}")
 
     # bounds of the 8 levels together: windows/x/skip/prev and packs in, outputs
     # out; 2 operations per multiply-add of the level's products
-    nb = fl = 0
-    for win, (arrays, meta) in enc_calls["bf16"]:
-        M = win.shape[0] * win.shape[1]
-        nb += _nbytes(win, *arrays.values()) + M * (meta["C2"] // 2) * 2
-        fl += 2 * M * (arrays["cw"].numel() + arrays["mwa"].numel() + arrays["mwb"].numel())
-    rep.bound["fused_encoder_level"] = _bound(nb, fl, torch.bfloat16)
-    nb = fl = 0
-    for x, skip, prev, (arrays, meta), _ in dec_calls["bf16"]:
-        M = x.shape[0] * x.shape[1]
-        nb += _nbytes(x, skip, prev, *arrays.values()) + (M + 1) * S * meta["Cout"] * 2
-        fl += 2 * M * sum(arrays[k].numel() for k in ("mwa", "mwb", "cwlo", "cwhi"))
-    rep.bound["fused_decoder_level"] = _bound(nb, fl, torch.bfloat16)
+    def enc_work(win, pk):
+        M, w = win.shape[0] * win.shape[1], sf.unpack_level(*pk)
+        return (_level_bytes(sf, pk, win) + M * (pk[1]["C2"] // 2) * 2,
+                2 * M * (w["cw"].numel() + w["mwa"].numel() + w["mwb"].numel()))
 
-    for name, kern, plain, wrap in (
-            ("fused_encoder_level", sf.fused_encoder_level, sf.fused_encoder_level_plain, enc_all),
-            ("fused_decoder_level", sf.fused_decoder_level, sf.fused_decoder_level_plain, dec_all)):
-        ms, plain_ms = _time_ms(wrap(kern)), _time_ms(wrap(plain))
-        rep.ms[name] = (ms, plain_ms)
-        print(f"  {name} all 8 E8 levels at block 1, bf16: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+    def dec_work(x, skip, prev, pk):
+        M, w = x.shape[0] * x.shape[1], sf.unpack_level(*pk)
+        return (_level_bytes(sf, pk, x, skip, prev)
+                + (M + x.shape[0]) * S * pk[1]["Cout"] * 2,
+                2 * M * sum(w[k].numel() for k in ("mwa", "mwb", "cwlo", "cwhi")))
+
+    enc_w = [enc_work(win, pk) for win, pk in enc_calls]
+    dec_w = [dec_work(x, s, p, pk) for x, s, p, pk, _ in dec_calls]
+    rep.bound["fused_encoder_level"] = _bound(
+        sum(b for b, _ in enc_w), sum(f for _, f in enc_w), torch.bfloat16)
+    rep.bound["fused_decoder_level"] = _bound(
+        sum(b for b, _ in dec_w), sum(f for _, f in dec_w), torch.bfloat16)
+
+    # device time per level from a trace: rounds of one frame's 16 level calls
+    def enc_fn(win, pk):
+        return lambda: sf.fused_encoder_level(win, *pk)
+
+    def dec_fn(x, s, p, pk, r):
+        return lambda: sf.fused_decoder_level(x, s, p, *pk, relu=r)
+
+    frame = [enc_fn(*c) for c in enc_calls] + [dec_fn(*c) for c in dec_calls]
+    total = {}
+    for B, calls, work, levels in (
+            (1, frame, enc_w + dec_w, list(range(D)) + list(range(D))),
+            (8, [enc_fn(*c) for c in deep_enc] + [dec_fn(*c) for c in deep_dec],
+             [enc_work(*c) for c in deep_enc] + [dec_work(*c[:4]) for c in deep_dec],
+             list(range(D - 4, D)) + list(range(4)))):
+        n_enc = len(calls) // 2
+        for c, ((kernels, busy, span), (nb, _), lvl) in enumerate(
+                zip(_trace_calls(calls, 2), work, levels)):
+            name = "K3" if c < n_enc else "K4"
+            total[name, B] = total.get((name, B), 0.0) + busy
+            print(f"  {name} level {lvl} B={B} bf16, device us from a trace on {smi}: "
+                  f"launch 1 {kernels[0]:.2f}, launch 2 {kernels[1]:.2f}, busy {busy:.2f}, first "
+                  f"start to last end {span:.2f}; must move {nb / 1e6:.3f} MB: "
+                  f"{nb / busy / 1e3:.1f} GB/s")
+    kernels, busy, span = _trace_calls([lambda: sf.empty_launches(16, dev)], 16)[0]
+    print(f"  16 empty launches on one stream, device us on {smi}: busy {busy:.2f} "
+          f"({_median(kernels):.2f} per launch: the floor that 8 levels x 2 launches set), first "
+          f"start to last end {span:.2f} (the pace at which the host sends them)")
+
+    # host cost of a wrapper call, and the loop of wrapper calls timed with
+    # events: both read the host's launch rate, not the kernels
+    def host_us(calls, rounds=20):  # few enough launches that the queue never fills
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            for fn in calls:
+                fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / (rounds * len(calls)) * 1e6
+
+    checks = [lambda pk=c[-1]: sf.check_pack(*pk) for c in enc_calls] + [
+        lambda pk=c[3]: sf.check_pack(*pk) for c in dec_calls]
+    print(f"  host us per wrapper call (enqueue only, 8 levels x 20 rounds): "
+          f"K3 {host_us(frame[:D]):.2f}, K4 {host_us(frame[D:]):.2f}; the check of the pack's "
+          f"tensors, made once at pack time and no longer in every call, takes "
+          f"K3 {host_us(checks[:D]):.2f}, K4 {host_us(checks[D:]):.2f} a level")
+    plains = (
+        lambda: [sf.fused_encoder_level_plain(win, *pk) for win, pk in enc_calls],
+        lambda: [sf.fused_decoder_level_plain(x, s, p, *pk, relu=r)
+                 for x, s, p, pk, r in dec_calls])
+    for name, short, thunks, plain in (("fused_encoder_level", "K3", frame[:D], plains[0]),
+                                       ("fused_decoder_level", "K4", frame[D:], plains[1])):
+        loop_ms = _time_ms(lambda: [fn() for fn in thunks])
+        plain_ms = _time_ms(plain)
+        rep.ms[name] = (total[short, 1] / 1e3, plain_ms)
+        print(f"  {name} all 8 E8 levels at block 1, bf16, on {smi}: device "
+              f"{total[short, 1] / 1e3:.4f} ms (trace; B=8 levels 4-7: "
+              f"{total[short, 8] / 1e3:.4f} ms), plain {plain_ms:.4f} ms; a loop of wrapper "
+              f"calls timed with events (the host's launch rate): {loop_ms:.4f} ms")
 
 
 # --------------------------------------------------------------------------
@@ -414,6 +600,49 @@ def check_block_equals_steps(dev, cfg, params32):
           f"rel={rel:.3e} (tol {FP32_TOL:g})")
     if not rel <= FP32_TOL:
         raise AssertionError("block streaming != single steps")
+
+
+def trace_block1(dev, cfg, params32, smi):
+    """A profiler window of the E8 block-1 step through the K3/K4 packs (bf16
+    weights and activations, batch 1): device-busy time, kernels and K3/K4
+    device time per frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cleanumamba_tpu_torch.ops.cuda.stream_fused import pack_stream_params
+    from cleanumamba_tpu_torch.params import prepare_weight_view
+    from cleanumamba_tpu_torch.streaming import stream_prime, stream_step
+
+    view = prepare_weight_view(params32, "bf16")
+    packs = pack_stream_params(view, cfg, torch.bfloat16)
+    ts, fl = cfg.total_stride, cfg.frame_length
+    n_warm, n_prof = 10, 40
+    audio = _noise(dev, 1, fl + (n_warm + n_prof) * ts, seed=4, scale=0.1)
+    state, _ = stream_prime(view, cfg, audio[:, :fl], torch.bfloat16)
+
+    def step(t):
+        return stream_step(view, cfg, state, audio[:, fl + t * ts: fl + (t + 1) * ts],
+                           torch.bfloat16, packs=packs)
+
+    for t in range(n_warm):
+        state, _ = step(t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(n_warm, n_warm + n_prof):
+            state, _ = step(t)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n_kernels = _device_busy(prof)
+    fused = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.name for k in FUSED_KERNELS)) / 1e3
+    os.makedirs("profiles", exist_ok=True)
+    with open("profiles/block1_step_profile.txt", "w") as f:
+        f.write(f"{smi}\n{prof.key_averages().table(sort_by='cuda_time_total', row_limit=30)}\n")
+    print(f"  E8 block-1 stream_step through K3/K4 traced, bf16 B=1, {n_prof} frames on {smi}: "
+          f"wall {wall / n_prof:.4f} ms/frame, device busy {busy / n_prof:.4f} ms/frame (idle "
+          f"share {1 - busy / wall:.3f}), {n_kernels / n_prof:.1f} kernels/frame, K3 + K4 "
+          f"{fused / n_prof:.4f} ms of device time per frame (the sum of their kernels)")
 
 
 def check_real_weights(dev):
@@ -1061,6 +1290,11 @@ def time_mega(dev, models, rep: Report, smi):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--fused-only", action="store_true",
+                        help="build and check K3/K4 only (phase 3's fused part, the block-1 "
+                             "checks of phase 4 and phase 5) and print no result lines")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
@@ -1086,7 +1320,8 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    sources = ("selective_scan", "stream_fused", "stream_mega")
+    sources = ("stream_fused",) if args.fused_only else (
+        "selective_scan", "stream_fused", "stream_mega")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load_library, sources))  # one nvcc per source, in parallel
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
@@ -1095,13 +1330,21 @@ def main() -> int:
     params32 = init_params(cfg, torch.Generator().manual_seed(0), dev)
     rep = Report()
     print("phase 3 kernels vs plain versions:", flush=True)
+    if args.fused_only:
+        check_fused(dev, cfg, params32, rep, smi)
+        check_block_equals_steps(dev, cfg, params32)
+        trace_block1(dev, cfg, params32, smi)
+        check_real_weights(dev)
+        print("fused-only run: K3/K4 checks passed (no result lines)")
+        return 0
     check_scan(dev, rep)
-    check_fused(dev, cfg, params32, rep)
+    check_fused(dev, cfg, params32, rep, smi)
 
     print(f"phase 4 E8 slice ({count_params(params32):,} params):", flush=True)
     counters = (selective_scan, fused_encoder_level, fused_decoder_level)
     launches, rtf16, rtf1 = run_slice(dev, cfg, params32, counters)
     check_block_equals_steps(dev, cfg, params32)
+    trace_block1(dev, cfg, params32, smi)
 
     print("phase 5 real weights:", flush=True)
     check_real_weights(dev)

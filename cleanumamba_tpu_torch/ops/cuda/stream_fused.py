@@ -5,13 +5,22 @@ Port of ``cleanumamba_tpu/ops/pallas/stream_fused.py``: the weight packing
 ``fused_encoder_level``/``fused_decoder_level`` launch ``csrc/stream_fused.cu``
 for CUDA tensors and the plain PyTorch versions below for CPU tensors.
 
-A pack is ``(arrays, meta)``: ``arrays`` a dict of contiguous tensors in the
-pack's compute dtype (biases fp32), ``meta`` the static shapes, the GLU
-activation and the compute dtype ``cdt``.  The decoder's grouped layout
-``(B, T, S*Cout)`` with column order ``k*Cout + cout`` is the JAX package's,
-so ``prev`` and the tail interchange with the per-op path.  The TPU's VMEM
-budget does not apply here: every level that meets the static constraints
-packs.  int8 packs come with the ``quant.py`` port.
+A pack is ``(arrays, meta)``: ``arrays`` a dict of contiguous tensors,
+``meta`` the static shapes, the GLU activation and the compute dtype ``cdt``.
+The weight matrices are stored once, tiled for the kernels (``_tile``: per
+tile of ``TILE`` output columns all contraction rows, a GLU's value and gate
+or a ConvTranspose's lo and hi taps interleaved per row, zero padded at the
+ragged edge), in the compute dtype; the biases fp32 in the JAX package's
+shapes; beside them the ``scratch`` that holds a level's first product, sized
+at pack time.  ``unpack_level`` gives back
+the logical ``(K, N)`` matrices under the JAX pack's names: the plain versions
+read the weights through it, so the CPU tests hold the layout the kernels
+read.  The decoder's grouped layout ``(B, T, S*Cout)`` with column order
+``k*Cout + cout`` is the JAX package's, so ``prev`` and the tail interchange
+with the per-op path.  The TPU's VMEM budget does not apply here: every level
+that meets the static constraints packs.  int8 packs come with the
+``quant.py`` port.  A pack serves one CUDA stream at a time: its scratch is
+shared by every call made with it.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 
 from cleanumamba_tpu_torch.ops.conv import ACTIVATIONS
 from cleanumamba_tpu_torch.ops.cuda.build import (
+    DTYPE_CODES,
     check,
     dtype_code,
     load_library,
@@ -47,12 +57,160 @@ def _dense(w):
 # Weight packing (once, at Streamer init)
 # --------------------------------------------------------------------------
 
+TILE = 64  # kTile of csrc/stream_fused.cu: output columns per thread block
+
+# the kernels' limits (csrc/stream_fused.cu) and the planner's targets
+_WARPS = 8
+_MAX_SPLITS = 8           # blocks of a thread block cluster
+_SLAB_MAX = 96 * 1024     # bytes of staged weights per block
+_SLAB_WHOLE = 32 * 1024   # a contraction whose tile fits this is not split
+_SMEM_LIMIT = 200 * 1024
+_MIN_RANGE = 32           # contraction rows below which a range is not halved
+_N_SM = 132               # H100
+_GROUP_ROWS = 32          # most rows a block takes (its sums wait in shared memory)
+_PACK_BATCH = 8  # streams the scratch is sized for at pack time (a larger call grows it)
+_ROW_TILES = (2, 4, 8)
+_BIASES = ("cb", "mba", "mbb", "cb_tiled")
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _tile(mats, cdt):
+    """NW matrices (K, N) -> (ceil(N / TILE), K, NW, TILE) in ``cdt``,
+    contiguous, columns past N zero: each (column tile, contraction range) is
+    one contiguous slab whose rows hold the NW matrices side by side."""
+    K, N = mats[0].shape
+    nt = _cdiv(N, TILE)
+    w = torch.stack([m.to(cdt) for m in mats], dim=1)  # (K, NW, N)
+    w = torch.nn.functional.pad(w, (0, nt * TILE - N))
+    return w.reshape(K, len(mats), nt, TILE).permute(2, 0, 1, 3).contiguous()
+
+
+def _untile(t, N):
+    """The NW logical (K, N) matrices of a tiled weight (views)."""
+    nt, K, NW, _ = t.shape
+    w = t.permute(1, 2, 0, 3).reshape(K, NW, nt * TILE)
+    return [w[:, j, :N] for j in range(NW)]
+
+
+def unpack_level(arrays, meta):
+    """The logical matrices and biases of a level pack under the JAX pack's
+    names (``cw, cb, mwa, mwb, mba, mbb`` or ``mwa, mwb, mba, mbb, cwlo, cwhi,
+    cb_tiled``): what the tiled pack was built from."""
+    half = meta["C2"] // 2
+    out = {k: arrays[k] for k in _BIASES if k in arrays}
+    out["mwa"], out["mwb"] = _untile(arrays["mw"], half)
+    if "cw" in arrays:
+        (out["cw"],) = _untile(arrays["cw"], meta["C"])
+    else:
+        out["cwlo"], out["cwhi"] = _untile(arrays["ctw"], meta["S"] * meta["Cout"])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(rows, K, N, NW, NI, esize):
+    """How one product (rows, K) @ NW x (K, N) is cut into thread blocks:
+    ``(splits, groups, kblk, rpb, R)``, or None if a tile's weights do not fit
+    the shared memory of one cluster.
+
+    A block owns one of ``ceil(N / TILE)`` column tiles, one of ``splits``
+    contraction ranges of ``kblk`` rows (the blocks of a cluster: 1, 2, 4 or
+    8) and one of ``groups`` row groups of ``rpb`` rows, taken ``R`` at a time.
+    A contraction whose whole tile is small stays in one block; otherwise it
+    is halved while a range keeps ``_MIN_RANGE`` rows and the grid is short of
+    two blocks an SM.  Rows are split while the grid is short of one block an
+    SM, and down to ``_GROUP_ROWS`` a block.
+    """
+    nt = _cdiv(N, TILE)
+    row_bytes = TILE * NW * esize
+    kcap = _SLAB_MAX // row_bytes // 8 * 8
+    least = next((s for s in (1, 2, 4, 8) if _cdiv(_cdiv(K, s), 8) * 8 <= kcap), None)
+    if least is None:
+        return None
+    G = 1
+    while True:
+        rpb = _cdiv(rows, G)
+        R = next(r for r in _ROW_TILES if r >= min(rpb, _ROW_TILES[-1]))
+        rpb = _cdiv(rpb, R) * R
+        groups = _cdiv(rows, rpb)
+        splits = least
+        if K * row_bytes > _SLAB_WHOLE:
+            while (splits < _MAX_SPLITS and nt * groups * splits < 2 * _N_SM
+                   and _cdiv(K, 2 * splits) >= _MIN_RANGE):
+                splits *= 2
+        kblk = _cdiv(_cdiv(K, splits), 8) * 8
+        if rpb <= _GROUP_ROWS and (nt * groups * splits >= _N_SM or rpb <= _ROW_TILES[-1]):
+            break
+        G *= 2
+    smem = 128 + kblk * row_bytes + (NI * R * kblk + (_WARPS * R + rpb) * NW * TILE) * 4
+    assert smem <= _SMEM_LIMIT, (rows, K, N, NW, NI, esize)
+    return splits, groups, kblk, rpb, R
+
+
+def _products(kind, B, T, dims):
+    """(rows, K, N, NW, NI) of a level's two products."""
+    if kind == "enc":
+        KC, C, N2 = dims
+        return (B * T, KC, C, 1, 1), (B * T, C, N2, 2, 1)
+    Cx, C, SC = dims
+    return (B * T, Cx, C, 2, 1), (B * (T + 1), C, SC, 2, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _level_plan(kind, B, T, dims, esize):
+    """Both products' plans of a level call as the kernels take them (10
+    ints), and the elements of scratch (the first product's result) it needs;
+    None if a product does not fit (the level then does not pack)."""
+    plans = [_plan(*p, esize) for p in _products(kind, B, T, dims)]
+    if None in plans:
+        return None
+    return (ctypes.c_int * 10)(*plans[0], *plans[1]), B * T * dims[1]
+
+
+def _level_dims(meta):
+    """(kind, the three widths of a level's two products)."""
+    half = meta["C2"] // 2
+    if "Cin" in meta:
+        return "enc", (meta["K"] * meta["Cin"], meta["C"], half)
+    return "dec", (meta["Cx"], half, meta["S"] * meta["Cout"])
+
+
+def _finish_pack(arrays, meta, device):
+    """Allocate the scratch for up to ``_PACK_BATCH`` streams of the level's
+    block-1 token count and check the pack once (the wrappers check only the
+    activations).  None if the kernels cannot take the level's widths."""
+    if meta["cdt"] not in _ESIZE:
+        raise TypeError(f"compute dtype {meta['cdt']} not supported (float32 or bfloat16)")
+    kind, dims = _level_dims(meta)
+    plans = [_level_plan(kind, B, meta["T"], dims, _ESIZE[meta["cdt"]])
+             for B in range(1, _PACK_BATCH + 1)]
+    if None in plans:
+        return None
+    arrays["scratch"] = torch.empty(max(p[1] for p in plans), dtype=meta["cdt"], device=device)
+    check_pack(arrays, meta)
+    return arrays, meta
+
+
+def check_pack(arrays, meta):
+    """Every entry of a level pack has its dtype, is contiguous and lies on
+    one device.  Run once when the pack is made, not per call."""
+    device = arrays["scratch"].device
+    for name, t in arrays.items():
+        want = torch.float32 if name in _BIASES else meta["cdt"]
+        if t.dtype != want:
+            raise TypeError(f"pack entry {name} is {t.dtype}, expected {want}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"pack entry {name} must be contiguous on {device}")
+
+
 def _pack_glu(arrays, mix_w, mix_b, C2, cdt):
     """Split the 1x1 GLU mix (..., C2) into value and gate halves."""
     nAB = C2 // 2
     mw = _dense(mix_w).reshape(-1, C2)
-    arrays["mwa"] = mw[:, :nAB].to(cdt).contiguous()
-    arrays["mwb"] = mw[:, nAB:].to(cdt).contiguous()
+    arrays["mw"] = _tile([mw[:, :nAB], mw[:, nAB:]], cdt)
     mb = mix_b.reshape(1, C2).float()
     arrays["mba"] = mb[:, :nAB].contiguous()
     arrays["mbb"] = mb[:, nAB:].contiguous()
@@ -60,19 +218,22 @@ def _pack_glu(arrays, mix_w, mix_b, C2, cdt):
 
 def pack_encoder_level(ep, cfg, i, compute_dtype=torch.bfloat16):
     """Pack encoder level ``i`` for :func:`fused_encoder_level`; None when the
-    level does not meet the static constraints (bypass 0, K == 2S, groups 1)."""
+    level does not meet the static constraints (bypass 0, K == 2S, groups 1)
+    or is too wide for the kernels (a 64-column tile of a weight matrix over
+    768 KB)."""
     K, S = cfg.kernel_size, cfg.stride
     if cfg.bypass_of_layer(i) != 0 or K != 2 * S or cfg.group_of_layer(i) != 1:
         return None
     cw = _dense(ep["conv_w"])
     Kw, Cin, C = cw.shape
     C2 = _dense(ep["mix_w"]).shape[-1]
-    arrays = {"cw": cw.reshape(Kw * Cin, C).to(compute_dtype).contiguous(),
+    arrays = {"cw": _tile([cw.reshape(Kw * Cin, C)], compute_dtype),
               "cb": ep["conv_b"].reshape(1, C).float().contiguous()}
     _pack_glu(arrays, ep["mix_w"], ep["mix_b"], C2, compute_dtype)
     meta = {"K": K, "S": S, "Cin": Cin, "C": C, "C2": C2,
-            "act": cfg.glu_activation, "cdt": compute_dtype}
-    return arrays, meta
+            "act": cfg.glu_activation, "cdt": compute_dtype,
+            "T": S ** (cfg.encoder_n_layers - 1 - i)}
+    return _finish_pack(arrays, meta, cw.device)
 
 
 def pack_decoder_level(dp, cfg, enc_i, compute_dtype=torch.bfloat16):
@@ -80,26 +241,27 @@ def pack_decoder_level(dp, cfg, enc_i, compute_dtype=torch.bfloat16):
 
     The ConvTranspose weight (K, C, Cout), K == 2S, splits into the lo taps
     (k < S, samples inside the current token's stride) and the hi taps
-    (k >= S, samples that overlap-add into the next token), each laid out
-    (C, S*Cout) with columns ``k*Cout + cout``.  None when static
-    constraints fail.
+    (k >= S, samples that overlap-add into the next token), each (C, S*Cout)
+    with columns ``k*Cout + cout``, tiled side by side.  None when static
+    constraints fail or the level is too wide for the kernels.
     """
     K, S = cfg.kernel_size, cfg.stride
     if cfg.bypass_of_layer(enc_i) != 0 or K != 2 * S:
         return None
     ctw = _dense(dp["convt_w"])
     Kw, C, Cout = ctw.shape
-    C2 = _dense(dp["mix_w"]).shape[-1]
+    mix_w = _dense(dp["mix_w"])
+    C2 = mix_w.shape[-1]
     arrays = {}
     _pack_glu(arrays, dp["mix_w"], dp["mix_b"], C2, compute_dtype)
     full = ctw.permute(1, 0, 2).reshape(C, Kw * Cout)
     half = S * Cout
-    arrays["cwlo"] = full[:, :half].to(compute_dtype).contiguous()
-    arrays["cwhi"] = full[:, half:].to(compute_dtype).contiguous()
+    arrays["ctw"] = _tile([full[:, :half], full[:, half:]], compute_dtype)
     arrays["cb_tiled"] = dp["convt_b"].reshape(1, Cout).float().repeat(1, S).contiguous()
-    meta = {"K": K, "S": S, "C": C, "C2": C2, "Cout": Cout,
-            "act": cfg.glu_activation, "cdt": compute_dtype}
-    return arrays, meta
+    meta = {"K": K, "S": S, "C": C, "C2": C2, "Cout": Cout, "Cx": mix_w.numel() // C2,
+            "act": cfg.glu_activation, "cdt": compute_dtype,
+            "T": S ** (cfg.encoder_n_layers - 1 - enc_i)}
+    return _finish_pack(arrays, meta, ctw.device)
 
 
 def pack_stream_params(params, cfg, compute_dtype=torch.bfloat16):
@@ -138,9 +300,9 @@ def _dot(x, w):
     return x.float() @ w.float()
 
 
-def _glu(x, arrays, act):
-    a = _dot(x, arrays["mwa"]) + arrays["mba"]
-    b = _dot(x, arrays["mwb"]) + arrays["mbb"]
+def _glu(x, w, act):
+    a = _dot(x, w["mwa"]) + w["mba"]
+    b = _dot(x, w["mwb"]) + w["mbb"]
     return a * ACTIVATIONS[act](b)
 
 
@@ -148,9 +310,10 @@ def fused_encoder_level_plain(win, arrays, meta):
     """win (B, T, K*Cin) -> (B, T, C2/2) in the compute dtype."""
     cdt = meta["cdt"]
     B, T, KC = win.shape
+    w = unpack_level(arrays, meta)
     x = win.reshape(B * T, KC).to(cdt)
-    h = torch.relu(_dot(x, arrays["cw"]) + arrays["cb"]).to(cdt)
-    return _glu(h, arrays, meta["act"]).to(cdt).reshape(B, T, meta["C2"] // 2)
+    h = torch.relu(_dot(x, w["cw"]) + w["cb"]).to(cdt)
+    return _glu(h, w, meta["act"]).to(cdt).reshape(B, T, meta["C2"] // 2)
 
 
 def fused_decoder_level_plain(x, skip, prev, arrays, meta, relu: bool):
@@ -161,11 +324,12 @@ def fused_decoder_level_plain(x, skip, prev, arrays, meta, relu: bool):
     SC = meta["S"] * meta["Cout"]
     if T == 0:
         return _no_tokens(x, prev, SC, cdt)
+    w = unpack_level(arrays, meta)
     xin = (x.float() + skip.float()).to(cdt).reshape(B * T, C)
-    g = _glu(xin, arrays, meta["act"]).to(cdt)
-    lo = _dot(g, arrays["cwlo"]).reshape(B, T, SC)
-    hi = _dot(g, arrays["cwhi"]).reshape(B, T, SC)
-    cb = arrays["cb_tiled"]
+    g = _glu(xin, w, meta["act"]).to(cdt)
+    lo = _dot(g, w["cwlo"]).reshape(B, T, SC)
+    hi = _dot(g, w["cwhi"]).reshape(B, T, SC)
+    cb = w["cb_tiled"]
     first = lo[:, :1] + cb
     if prev is not None:
         first = first + prev.float()
@@ -190,25 +354,40 @@ def _no_tokens(x, prev, SC, cdt):
 @functools.cache
 def _kernels():
     lib = load_library("stream_fused")
+    plan_t = ctypes.POINTER(ctypes.c_int)
     enc = lib.fused_encoder_level
-    enc.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    enc.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [plan_t, ctypes.c_void_p])
     enc.restype = ctypes.c_int
     dec = lib.fused_decoder_level
-    dec.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    dec.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 5 + [plan_t, ctypes.c_void_p])
     dec.restype = ctypes.c_int
-    return enc, dec
+    empty = lib.empty_launches
+    empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    return enc, dec, empty
 
 
-def _check_pack(what, arrays, cdt, device, names):
-    for name in names:
-        t = arrays[name]
-        want = torch.float32 if name in ("cb", "mba", "mbb", "cb_tiled") else cdt
-        if t.dtype != want:
-            raise TypeError(f"{what}: pack entry {name} is {t.dtype}, expected {want}")
-    require_cuda(what, device, **{n: arrays[n] for n in names})
+def _plan_for(what, arrays, meta, B, T, device):
+    """The level call's plan; the pack's scratch grown if the call is larger
+    than the pack was sized for.  The pack itself was checked when it was made
+    (``check_pack``); here only that it lies where the activations do."""
+    scratch = arrays["scratch"]
+    if scratch.device != device:
+        raise ValueError(f"{what}: the pack is on {scratch.device}, the activations on {device}")
+    kind, dims = _level_dims(meta)
+    plan, need = _level_plan(kind, B, T, dims, _ESIZE[meta["cdt"]])
+    if need > scratch.numel():
+        arrays["scratch"] = torch.empty(need, dtype=meta["cdt"], device=device)
+    return plan
+
+
+def empty_launches(n: int, device) -> None:
+    """Launch ``n`` empty kernels on ``device``'s current stream: the floor
+    that a chain of launches sets, for ``chip_smoke.py`` to read."""
+    check(_kernels()[2](n, stream_ptr(torch.device(device))), "empty_launches")
 
 
 def fused_encoder_level(win, arrays, meta):
@@ -224,20 +403,20 @@ def fused_encoder_level(win, arrays, meta):
     what = "fused_encoder_level"
     cdt, C, N2 = meta["cdt"], meta["C"], meta["C2"] // 2
     B, T, KC = win.shape
-    if KC != arrays["cw"].shape[0]:
-        raise ValueError(f"{what}: windows have {KC} features, pack expects {arrays['cw'].shape[0]}")
-    tx, tw = dtype_code(win, what), dtype_code(arrays["cw"], what)
+    if KC != meta["K"] * meta["Cin"]:
+        raise ValueError(f"{what}: windows have {KC} features, pack expects "
+                         f"{meta['K'] * meta['Cin']}")
+    tx = dtype_code(win, what)
     require_cuda(what, win.device, win=win)
-    _check_pack(what, arrays, cdt, win.device, ("cw", "cb", "mwa", "mwb", "mba", "mbb"))
     M = B * T
     out = torch.empty((B, T, N2), dtype=cdt, device=win.device)
     if M == 0:
         return out
-    h = torch.empty((M, C), dtype=cdt, device=win.device)
+    plan = _plan_for(what, arrays, meta, B, T, win.device)
     status = _kernels()[0](
-        tx, tw, ptr(win), ptr(arrays["cw"]), ptr(arrays["cb"]), ptr(arrays["mwa"]),
-        ptr(arrays["mwb"]), ptr(arrays["mba"]), ptr(arrays["mbb"]), _ACT_CODES[meta["act"]],
-        ptr(h), ptr(out), M, KC, C, N2, stream_ptr(win.device))
+        tx, DTYPE_CODES[cdt], ptr(win), ptr(arrays["cw"]), ptr(arrays["cb"]), ptr(arrays["mw"]),
+        ptr(arrays["mba"]), ptr(arrays["mbb"]), _ACT_CODES[meta["act"]],
+        ptr(arrays["scratch"]), ptr(out), M, KC, C, N2, plan, stream_ptr(win.device))
     check(status, what)
     fused_encoder_level.launches += 1
     return out
@@ -270,22 +449,20 @@ def fused_decoder_level(x, skip, prev, arrays, meta, relu: bool):
     if prev is not None and (tuple(prev.shape) != (B, 1, SC) or prev.dtype != x.dtype):
         raise ValueError(f"{what}: prev {tuple(prev.shape)} {prev.dtype} must be "
                          f"{(B, 1, SC)} {x.dtype}")
-    if Cx != arrays["mwa"].shape[0]:
-        raise ValueError(f"{what}: x has {Cx} channels, pack expects {arrays['mwa'].shape[0]}")
-    tx, tw = dtype_code(x, what), dtype_code(arrays["mwa"], what)
+    if Cx != meta["Cx"]:
+        raise ValueError(f"{what}: x has {Cx} channels, pack expects {meta['Cx']}")
+    tx = dtype_code(x, what)
     require_cuda(what, x.device, x=x, skip=skip, prev=prev)
-    _check_pack(what, arrays, cdt, x.device,
-                ("mwa", "mwb", "mba", "mbb", "cwlo", "cwhi", "cb_tiled"))
     if B == 0 or T == 0:
         return _no_tokens(x, prev, SC, cdt)
+    plan = _plan_for(what, arrays, meta, B, T, x.device)
     out = torch.empty((B, T, SC), dtype=cdt, device=x.device)
     tail = torch.empty((B, 1, SC), dtype=cdt, device=x.device)
-    g = torch.empty((B * T, C), dtype=cdt, device=x.device)
     status = _kernels()[1](
-        tx, tw, ptr(x), ptr(skip), ptr(arrays["mwa"]), ptr(arrays["mwb"]),
-        ptr(arrays["mba"]), ptr(arrays["mbb"]), _ACT_CODES[meta["act"]], ptr(g),
-        ptr(arrays["cwlo"]), ptr(arrays["cwhi"]), ptr(arrays["cb_tiled"]), ptr(prev),
-        int(relu), ptr(out), ptr(tail), B, T, Cx, C, SC, stream_ptr(x.device))
+        tx, DTYPE_CODES[cdt], ptr(x), ptr(skip), ptr(arrays["mw"]), ptr(arrays["mba"]),
+        ptr(arrays["mbb"]), _ACT_CODES[meta["act"]], ptr(arrays["scratch"]), ptr(arrays["ctw"]),
+        ptr(arrays["cb_tiled"]), ptr(prev), int(relu), ptr(out), ptr(tail), B, T, Cx, C, SC,
+        plan, stream_ptr(x.device))
     check(status, what)
     fused_decoder_level.launches += 1
     return out, tail
