@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA device
     python3 chip_smoke.py --fused-only   # K3/K4 alone: their part of phases 3-5
+    python3 chip_smoke.py --scan-only    # K1/K2 alone: their part of phases 3, 6 and 8
 
 Phases, each printed as it passes; any failure raises (non-zero exit):
 
@@ -10,8 +11,10 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
 2. build: compiles the CUDA kernels (``csrc/*.cu``, one ``nvcc`` each, in
    parallel) into ``_build/``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, in fp32 (TF32 off) and bf16, with its time
-   beside the plain version's.  K3/K4: every E8 level at block 1, with and
+   the serving path's shapes, in fp32 (TF32 off) and bf16.  K1: every lane
+   split its plan picks, d_state 1..256, batch 1, 2 and 8, L 1..2,500, the
+   pruned checkpoint's ragged d_inner, with and without h0 and D, its chunk
+   states, a repeated call bit for bit.  K3/K4: every E8 level at block 1, with and
    without ``prev``; batch 2 and 8 at the four deepest levels; every ragged
    level of the pruned checkpoint; a repeated call bit for bit; the other
    GLU gate activations in fp32.  Their times are device times from a
@@ -24,13 +27,17 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
    at block 1; every kernel's launch count must be > 0 after this phase;
    then, in fp32, 2 blocks of 16 frames must equal 32 single steps; then a
    profiler window of the block-1 step (device busy and K3 + K4 per frame,
-   ``profiles/block1_step_profile.txt``);
+   ``profiles/block1_step_profile.txt``); then the offline forward on 10 s
+   at batch 2, fp32 and bf16 (wall, device busy, kernels, K1's share);
 5. real weights: ``artifacts/pruned_473k_finetuned.pkl`` offline and
    streamed, streaming == offline with ``normalize_input=False``;
-6. K2 (backward scan) and K1's chunk states against their plain versions:
-   all seven gradients at the E8 training shape (B=2, L=625, d_inner 2048,
-   d_state 64) in fp32 and bf16, at a ragged shape with h0 and gh_last
-   non-zero, and in a single chunk; K2's time beside the plain version's;
+6. K2 (backward scan) against its plain version: all seven gradients at
+   the E8 training shape (B=2, L=625, d_inner 2048, d_state 64) and over the
+   same range of shapes as K1 (d_state <= 128), fp32 and bf16, a repeated
+   call bit for bit; then device time per launch of K1 and K2 from a
+   ``torch.profiler`` trace (K1 at the block-16 and training shapes, with
+   and without chunk states; K2 with its summing launch apart), each beside
+   the bound computed from the tensors timed, and K2's scratch bytes;
 7. the E8 training slice at full width: bf16 ``make_train_step`` (Adam,
    lr 1e-4) on batch 2 x 10 s from ``synth_batch`` on the card, a few
    steps on fresh batches, then 12 on one batch, whose loss must fall;
@@ -163,51 +170,188 @@ GRAD_TOL = 2e-4
 # Phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+SCAN_KERNELS = ("scan_", "sum_middle")  # names of K1's and K2's kernels in a trace
+TRAIN_SHAPE = (2, 625, 2048, 64)  # E8, batch 2 x 10 s: B, L, d_inner, d_state
+SERVE_SHAPE = (1, 16, 2048, 64)  # one 16-frame streaming block
+
+
+def _scan_inputs(g, dev, Bsz, L, Di, Ds, dtype, state=True):
+    """Random inputs of K1 and K2 on the card; u, B, C, gy in ``dtype``.
+    ``state`` makes h0 and gh_last non-zero."""
+    rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    a = dict(u=rn(Bsz, L, Di), dt=rn(Bsz, L, Di).abs() * 0.1,
+             A=-torch.exp(rn(Di, Ds) * 0.5), B=rn(Bsz, L, Ds), C=rn(Bsz, L, Ds),
+             D=rn(Di), h0=rn(Bsz, Di, Ds) * 0.1, gy=rn(Bsz, L, Di),
+             gh_last=rn(Bsz, Di, Ds) * 0.1)
+    if not state:
+        a["h0"], a["gh_last"] = torch.zeros_like(a["h0"]), torch.zeros_like(a["gh_last"])
+    a = {k: v.to(dev) for k, v in a.items()}
+    for k in ("u", "B", "C", "gy"):
+        a[k] = a[k].to(dtype)
+    return a
+
+
+SCAN_ARGS = ("u", "dt", "A", "B", "C", "D", "h0")
+
+
+def _pruned_d_inner(dev):
+    """The mixers' (ragged) d_inner in the pruned checkpoint."""
+    from cleanumamba_tpu_torch.models.bottleneck_mamba import mixer_dims
+    from cleanumamba_tpu_torch.params import load_checkpoint
+
+    _, params = load_checkpoint(CKPT, dev)
+    return sorted({mixer_dims(lp["mixer"])[1] for lp in params["bottleneck"]["layers"]})
+
+
+def _same_bits(name, first, again):
+    for i, (x, y) in enumerate(zip(first, again)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: output {i} of a repeated call differs")
+
+
 def check_scan(dev, rep: Report):
-    from cleanumamba_tpu_torch.ops.cuda.selective_scan import (
-        selective_scan,
-        selective_scan_plain,
-    )
+    """K1 against its plain version: every lane split the plan can pick,
+    d_state 1..256, batch 1, 2 and 8, L from 1 to 2,500 (a 40 s clip), ragged
+    widths (the pruned checkpoint's mixers), with and without h0 and D, a
+    repeated call bit for bit."""
+    from cleanumamba_tpu_torch.ops.cuda import selective_scan as kscan
 
     g = torch.Generator().manual_seed(1)
-
-    def inputs(Bsz, L, Di, Ds, h0):
-        rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
-        return dict(
-            u=rn(Bsz, L, Di), dt=rn(Bsz, L, Di).abs() * 0.1,
-            A=-torch.exp(rn(Di, Ds) * 0.5), B=rn(Bsz, L, Ds), C=rn(Bsz, L, Ds),
-            D=rn(Di), h0=rn(Bsz, Di, Ds) * 0.1 if h0 else None)
-
-    for Bsz, L, Di, Ds, h0 in ((1, 16, 2048, 64, True), (2, 63, 2048, 64, False),
-                               (1, 37, 48, 8, True)):
-        base = {k: (v.to(dev) if v is not None else None)
-                for k, v in inputs(Bsz, L, Di, Ds, h0).items()}
+    cases = [(*SERVE_SHAPE, True), (2, 63, 2048, 64, False), (1, 37, 48, 8, True),
+             (8, 17, 2048, 64, True), (*TRAIN_SHAPE, True), (1, 2500, 2048, 64, True),
+             (2, 15, 512, 128, True), (1, 1, 2048, 16, True), (8, 16, 256, 8, False),
+             (1, 5, 33, 1, False), (2, 9, 130, 100, True), (1, 4, 20, 256, True),
+             (8, 33, 2048, 16, True)]
+    cases += [(2, 40, di, 64, True) for di in _pruned_d_inner(dev)]
+    lanes_seen = set()
+    for Bsz, L, Di, Ds, state in cases:
+        lanes_seen.add(kscan.scan_plan(Bsz, Di, Ds).lanes)
         for dt_name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            a = dict(base)
-            for k in ("u", "B", "C"):
-                a[k] = base[k].to(dtype)
-            y, h = selective_scan(**a)
-            ref = {k: (v.float() if v is not None else None) for k, v in a.items()}
-            y_ref, h_ref = selective_scan_plain(**ref)
+            a = _scan_inputs(g, dev, Bsz, L, Di, Ds, dtype, state)
+            args = {k: a[k] for k in SCAN_ARGS}
+            if not state:  # the absent h0 and D
+                args["h0"] = args["D"] = None
+            got = kscan.selective_scan(**args, return_starts=True)
+            ref = kscan.plain_scan.selective_scan(
+                **{k: (v.float() if v is not None else None) for k, v in args.items()},
+                chunk=kscan.scan_chunk(Bsz, Di, Ds), return_starts=True)
             tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-            label = f"B={Bsz} L={L} d_inner={Di} d_state={Ds} h0={h0} {dt_name}"
-            rep.check("selective_scan_fwd", label + " y", y, y_ref, tol)
-            rep.check("selective_scan_fwd", label + " h_last", h, h_ref, tol)
+            label = (f"B={Bsz} L={L} d_inner={Di} d_state={Ds} h0,D={state} {dt_name} "
+                     f"lanes={kscan.scan_plan(Bsz, Di, Ds).lanes}")
+            for name, x, r in zip(("y", "h_last", "h_starts"), got, ref):
+                rep.check("selective_scan_fwd", f"{label} {name}", x, r, tol)
+            _same_bits("selective_scan_fwd " + label, got,
+                       kscan.selective_scan(**args, return_starts=True))
+            y, h = kscan.selective_scan(**args)  # the serving launch: no chunk states
+            _same_bits("selective_scan_fwd without chunk states " + label, got[:2], (y, h))
+    if lanes_seen != set(kscan.LANE_CHOICES):
+        raise AssertionError(f"the cases reach lane splits {lanes_seen} of {kscan.LANE_CHOICES}")
+    print(f"  selective_scan_fwd: {len(cases)} shapes x 2 dtypes, repeated calls bitwise equal, "
+          f"with and without chunk states; lane splits {sorted(lanes_seen)}")
 
-    # time at the block-16 shape (B=1, L=16, E8 widths), bf16 as on the path
-    a = {k: (v.to(dev) if v is not None else None)
-         for k, v in inputs(1, 16, 2048, 64, True).items()}
-    for k in ("u", "B", "C"):
-        a[k] = a[k].to(torch.bfloat16)
-    ms = _time_ms(lambda: selective_scan(**a))
-    plain_ms = _time_ms(lambda: selective_scan_plain(**a))
-    rep.ms["selective_scan_fwd"] = (ms, plain_ms)
-    # per state element and step: one exp and ~6 fp32 operations
-    n_state = a["u"].numel() * a["A"].shape[1]
-    rep.bound["selective_scan_fwd"] = _bound(
-        _nbytes(*a.values(), *selective_scan(**a)), 6 * n_state, sfu=n_state)
-    print(f"  selective_scan_fwd B=1 L=16 d_inner=2048 d_state=64 bf16: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+def _trace_scan(fn, iters=20, warmup=3):
+    """Device time of K1's and K2's kernels in one call of ``fn``, from a
+    ``torch.profiler`` trace of ``iters`` calls: {kernel name: (launches per
+    call, median us per launch)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                k in e.name for k in SCAN_KERNELS):
+            name = e.name.split("<")[0].split("::")[-1].split(" ")[-1]
+            spans.setdefault(name, []).append(e.time_range.end - e.time_range.start)
+    if not spans or min(len(v) for v in spans.values()) < iters // 2:
+        raise AssertionError(f"the trace holds {({k: len(v) for k, v in spans.items()})} scan "
+                             f"kernels for {iters} calls")
+    return {k: (round(len(v) / iters), _median(v)) for k, v in spans.items()}
+
+
+def _scan_bounds(shape, tensors, bwd):
+    """Per state element and step: K1 one exp and ~6 fp32 operations; K2 the
+    state recomputed and the adjoint with its five products (~18), one exp."""
+    n_state = shape[0] * shape[1] * shape[2] * shape[3]
+    return _bound(_nbytes(*tensors), (18 if bwd else 6) * n_state, sfu=n_state)
+
+
+def time_scan(dev, rep: Report, smi):
+    """Device time of K1 and K2 per launch from a trace, each beside the bound
+    computed from the tensors timed: K1 at the block-16 shape and at the
+    training shape with and without chunk states, K2 at the training shape
+    with its summing launches apart."""
+    from cleanumamba_tpu_torch.ops.cuda import selective_scan as kscan
+
+    g = torch.Generator().manual_seed(5)
+
+    def total_us(tr):
+        return sum(n * us for n, us in tr.values())
+
+    def show(tr):
+        return ", ".join(f"{k} x{n} {us:.2f}" for k, (n, us) in sorted(tr.items()))
+
+    for shape in (SERVE_SHAPE, TRAIN_SHAPE):
+        Bsz, L, Di, Ds = shape
+        for dt_name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            if shape == SERVE_SHAPE and dtype == torch.float32:
+                continue
+            a = _scan_inputs(g, dev, *shape, dtype)
+            fwd = {k: a[k] for k in SCAN_ARGS}
+            label = f"B={Bsz} L={L} d_inner={Di} d_state={Ds} {dt_name}"
+            for starts in ((False,) if shape == SERVE_SHAPE else (False, True)):
+                outs = kscan.selective_scan(**fwd, return_starts=starts)
+                tr = _trace_scan(lambda: kscan.selective_scan(**fwd, return_starts=starts))
+                bound_ms, by = _scan_bounds(shape, (*fwd.values(), *outs), bwd=False)
+                print(f"  K1 {label} chunk states={starts}, device us per launch from a trace "
+                      f"on {smi}: {show(tr)}; bound {bound_ms * 1e3:.2f} us ({by}); chunk "
+                      f"states {_nbytes(*outs[2:]) / 1e6:.1f} MB")
+                if shape == SERVE_SHAPE:
+                    plain_ms = _time_ms(lambda: kscan.selective_scan_plain(**fwd), iters=10,
+                                        warmup=2)
+                    rep.ms["selective_scan_fwd"] = (total_us(tr) / 1e3, plain_ms)
+                    rep.bound["selective_scan_fwd"] = (bound_ms, by)
+            if shape == SERVE_SHAPE:
+                continue
+            _, _, hs = kscan.selective_scan(**fwd, return_starts=True)
+            bwd = (*(a[k] for k in SCAN_ARGS[:6]), hs, a["gy"], a["gh_last"])
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            grads = kscan.selective_scan_bwd(*bwd)
+            scratch = torch.cuda.max_memory_allocated() - before - _nbytes(*grads)
+            tr = _trace_scan(lambda: kscan.selective_scan_bwd(*bwd))
+            bound_ms, by = _scan_bounds(shape, (*bwd, *grads), bwd=True)
+            print(f"  K2 {label}, device us per launch from a trace on {smi}: {show(tr)}; all "
+                  f"its launches {total_us(tr):.2f} us; bound {bound_ms * 1e3:.2f} us ({by}); "
+                  f"scratch beside the seven gradients {scratch / 1e6:.1f} MB")
+            if dtype == torch.bfloat16:  # the training path runs bf16
+                # the cluster size is fitted to the card: larger clusters shrink the
+                # partials but may not all find room at once
+                plan = kscan.scan_plan(Bsz, Di, Ds, bwd=True)
+                chunk = kscan.scan_chunk(Bsz, Di, Ds)
+                fitted = kscan.fit_cluster(plan, Bsz, 1, Ds, chunk)
+                room = {c: kscan.clusters_at_once(1, Ds, chunk, plan.lanes, c)
+                        for c in (1, 2, 4, 8)}
+                forced = {c: total_us(_trace_scan(
+                    lambda c=c: kscan.selective_scan_bwd(*bwd, cluster=c))) for c in (1, 2, 4)}
+                print(f"  K2 {label}: {plan.lanes} lanes, {plan.blocks} blocks, clusters of "
+                      f"{fitted.cluster} (of {plan.cluster} at most); clusters the card holds at "
+                      f"once by size {room}; all its launches with the cluster size forced, us: "
+                      + ", ".join(f"{c}: {us:.2f}" for c, us in forced.items()))
+                f32 = [x.float() for x in bwd]
+                plain_ms = _time_ms(lambda: kscan.plain_scan.selective_scan_bwd(
+                    *f32, chunk=kscan.scan_chunk(Bsz, Di, Ds)), iters=3, warmup=1)
+                rep.ms["selective_scan_bwd"] = (total_us(tr) / 1e3, plain_ms)
+                rep.bound["selective_scan_bwd"] = (bound_ms, by)
+    print(f"  plain versions on {smi}: K1 at the block-16 shape "
+          f"{rep.ms['selective_scan_fwd'][1]:.4f} ms, K2 at the training shape "
+          f"{rep.ms['selective_scan_bwd'][1]:.4f} ms")
 
 
 def _fp32_pack(pk):
@@ -645,6 +789,40 @@ def trace_block1(dev, cfg, params32, smi):
           f"{fused / n_prof:.4f} ms of device time per frame (the sum of their kernels)")
 
 
+def trace_offline(dev, cfg, params32, smi):
+    """The offline forward on 10 s at batch 2 (K1 at L = 625 in every
+    bottleneck layer), fp32 and bf16 weights: wall per forward, and from a
+    profiler window device-busy time, kernels and K1's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cleanumamba_tpu_torch.models.cleanumamba import forward
+    from cleanumamba_tpu_torch.params import prepare_weight_view
+
+    x = _noise(dev, 2, 10 * SR, seed=5, scale=0.1)
+    n_prof = 5
+    for name, params in (("fp32", params32), ("bf16", prepare_weight_view(params32, "bf16"))):
+        with torch.no_grad():
+            for _ in range(3):
+                y = forward(params, x, cfg)
+            _finite(f"offline forward 10 s x 2 {name}", y)
+            wall = _host_ms(lambda: forward(params, x, cfg), 10)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n_prof):
+                    forward(params, x, cfg)
+                torch.cuda.synchronize()
+                traced = (time.perf_counter() - t0) * 1e3
+        busy, n_kernels = _device_busy(prof)
+        k1 = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "scan_fwd_kernel" in e.name]
+        print(f"  offline forward 10 s x 2, {name} weights, on {smi}: wall {wall[len(wall) // 2]:.2f} "
+              f"ms median of 10 ({wall[0]:.2f}-{wall[-1]:.2f}); traced {n_prof}: device busy "
+              f"{busy / n_prof:.3f} ms per forward (idle share {1 - busy / traced:.3f}), "
+              f"{n_kernels / n_prof:.0f} kernels, K1 {len(k1) / n_prof:.0f} launches of "
+              f"{_median(k1):.2f} us, {sum(k1) / n_prof / 1e3:.4f} ms per forward")
+
+
 def check_real_weights(dev):
     """The released pruned checkpoint, fp32: streamed == offline on the input
     extended with zeros (the tolerance of tests/test_streaming.py)."""
@@ -682,78 +860,42 @@ GRAD_NAMES = ("gu", "gdt", "gA", "gB", "gC", "gD", "gh0")
 
 
 def check_scan_bwd(dev, rep: Report):
-    from cleanumamba_tpu_torch.ops import scan as plain_scan
-    from cleanumamba_tpu_torch.ops.cuda.selective_scan import (
-        SCAN_CHUNK,
-        selective_scan,
-        selective_scan_bwd,
-        selective_scan_bwd_plain,
-    )
+    """K2 (and the chunk states K1 hands it) against the plain versions: all
+    seven gradients at every lane split, d_state 1..128, batch 1, 2 and 8,
+    L from 1 to 2,500, ragged widths, h0 and gh_last zero and non-zero, a
+    repeated call bit for bit."""
+    from cleanumamba_tpu_torch.ops.cuda import selective_scan as kscan
 
     g = torch.Generator().manual_seed(6)
-    rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
-
-    def inputs(Bsz, L, Di, Ds, dtype, nonzero_state):
-        a = dict(u=rn(Bsz, L, Di), dt=rn(Bsz, L, Di).abs() * 0.1,
-                 A=-torch.exp(rn(Di, Ds) * 0.5), B=rn(Bsz, L, Ds), C=rn(Bsz, L, Ds),
-                 D=rn(Di), h0=rn(Bsz, Di, Ds) * 0.1, gy=rn(Bsz, L, Di),
-                 gh_last=rn(Bsz, Di, Ds) * (0.1 if nonzero_state else 0.0))
-        if not nonzero_state:
-            a["h0"] = torch.zeros_like(a["h0"])
-        a = {k: v.to(dev) for k, v in a.items()}
-        for k in ("u", "B", "C", "gy"):
-            a[k] = a[k].to(dtype)
-        return a
-
-    def run(a, kernel):
-        args = [a[k] for k in ("u", "dt", "A", "B", "C", "D", "h0")]
-        if kernel:
-            _, _, hs = selective_scan(*args, return_starts=True)
-            return hs, selective_scan_bwd(*args[:6], hs, a["gy"], a["gh_last"])
-        f32 = [x.float() for x in args]
-        _, _, hs = plain_scan.selective_scan(*f32, chunk=SCAN_CHUNK, return_starts=True)
-        return hs, selective_scan_bwd_plain(*f32[:6], hs, a["gy"].float(), a["gh_last"])
-
-    timed = {}
-    for Bsz, L, Di, Ds, nonzero in ((2, 625, 2048, 64, False), (1, 37, 48, 8, True),
-                                    (1, 16, 2048, 64, True)):
+    cases = [(*TRAIN_SHAPE, False), (1, 37, 48, 8, True), (*SERVE_SHAPE, True),
+             (8, 17, 2048, 64, True), (1, 2500, 2048, 64, True), (2, 15, 512, 128, True),
+             (1, 1, 2048, 16, True), (8, 16, 256, 8, True), (1, 5, 33, 1, True),
+             (2, 40, 130, 100, True), (8, 33, 2048, 16, True), (2, 625, 512, 128, True)]
+    cases += [(2, 40, di, 64, True) for di in _pruned_d_inner(dev)]
+    lanes_seen = set()
+    for Bsz, L, Di, Ds, state in cases:
+        chunk = kscan.scan_chunk(Bsz, Di, Ds)
+        lanes_seen.add(kscan.scan_plan(Bsz, Di, Ds, bwd=True).lanes)
         for dt_name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            a = inputs(Bsz, L, Di, Ds, dtype, nonzero)
-            hs, got = run(a, kernel=True)
-            hs_ref, ref = run(a, kernel=False)
+            a = _scan_inputs(g, dev, Bsz, L, Di, Ds, dtype, state)
+            args = [a[k] for k in SCAN_ARGS]
+            _, _, hs = kscan.selective_scan(*args, return_starts=True)
+            got = kscan.selective_scan_bwd(*args[:6], hs, a["gy"], a["gh_last"])
+            f32 = [x.float() for x in args]
+            _, _, hs_ref = kscan.plain_scan.selective_scan(*f32, chunk=chunk, return_starts=True)
+            ref = kscan.plain_scan.selective_scan_bwd(
+                *f32[:6], hs_ref, a["gy"].float(), a["gh_last"], chunk=chunk)
             tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-            label = f"B={Bsz} L={L} d_inner={Di} d_state={Ds} h0,gh_last={nonzero} {dt_name}"
-            rep.check("selective_scan_fwd", label + " h_starts", hs, hs_ref, tol)
+            label = (f"B={Bsz} L={L} d_inner={Di} d_state={Ds} h0,gh_last={state} {dt_name} "
+                     f"chunk={chunk}")
             for name, x, r in zip(GRAD_NAMES, got, ref):
                 rep.check("selective_scan_bwd", f"{label} {name}", x, r, tol)
-            if L == 625:
-                timed[dt_name] = a
-
-    # time at the E8 training shape, kernel and plain in turns
-    times = {}
-    for dt_name, a in timed.items():
-        args = [a[k] for k in ("u", "dt", "A", "B", "C", "D", "h0")]
-        _, _, hs = selective_scan(*args, return_starts=True)
-        f32 = [x.float() for x in args]
-        _, _, hs_p = plain_scan.selective_scan(*f32, chunk=SCAN_CHUNK, return_starts=True)
-        kern = lambda: selective_scan_bwd(*args[:6], hs, a["gy"], a["gh_last"])  # noqa: E731
-        plain = lambda: selective_scan_bwd_plain(  # noqa: E731
-            *f32[:6], hs_p, a["gy"].float(), a["gh_last"])
-        p1, k1 = _time_ms(plain, iters=5, warmup=1), _time_ms(kern, iters=20)
-        k2, p2 = _time_ms(kern, iters=20), _time_ms(plain, iters=5, warmup=1)
-        times[dt_name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"  selective_scan_bwd B=2 L=625 d_inner=2048 d_state=64 {dt_name}: "
-              f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
-    rep.ms["selective_scan_bwd"] = times["bf16"]  # the training path runs bf16
-    # per state element and step: the state recomputed (one exp, ~6 operations)
-    # and the adjoint with its five products (~12 operations)
-    a = timed["bf16"]
-    args = [a[k] for k in ("u", "dt", "A", "B", "C", "D", "h0")]
-    _, _, hs = selective_scan(*args, return_starts=True)
-    grads = selective_scan_bwd(*args[:6], hs, a["gy"], a["gh_last"])
-    n_state = a["u"].numel() * a["A"].shape[1]
-    rep.bound["selective_scan_bwd"] = _bound(
-        _nbytes(*args[:6], hs, a["gy"], a["gh_last"], *grads), 18 * n_state, sfu=n_state)
+            _same_bits("selective_scan_bwd " + label, got,
+                       kscan.selective_scan_bwd(*args[:6], hs, a["gy"], a["gh_last"]))
+    if lanes_seen != set(kscan.LANE_CHOICES):
+        raise AssertionError(f"the cases reach lane splits {lanes_seen} of {kscan.LANE_CHOICES}")
+    print(f"  selective_scan_bwd: {len(cases)} shapes x 2 dtypes, all seven gradients of a "
+          f"repeated call bitwise equal; lane splits {sorted(lanes_seen)}")
 
 
 # --------------------------------------------------------------------------
@@ -834,6 +976,12 @@ def run_training(dev, cfg, smi, counters):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy, n_kernels = _device_busy(prof)
+    scan_ms = {}
+    for e in prof.events():  # K1's and K2's share of the step's device time
+        if e.device_type == torch.autograd.DeviceType.CUDA and "scan_" in e.name:
+            name = e.name.split("<")[0].split("::")[-1].split(" ")[-1]
+            n, ms = scan_ms.get(name, (0, 0.0))
+            scan_ms[name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     os.makedirs("profiles", exist_ok=True)
     with open("profiles/train_step_profile.txt", "w") as f:
@@ -847,7 +995,9 @@ def run_training(dev, cfg, smi, counters):
           f"traced {n_prof} steps: wall {wall / n_prof:.1f} ms/step, device busy "
           f"{busy / n_prof:.1f} ms/step (idle share {1 - busy / wall:.3f} traced, "
           f"{1 - busy / n_prof / median:.3f} against the untraced median), "
-          f"{n_kernels / n_prof:.0f} kernels/step")
+          f"{n_kernels / n_prof:.0f} kernels/step; of the device time per step: "
+          + ", ".join(f"{k} x{n / n_prof:.0f} {ms / n_prof:.4f} ms"
+                      for k, (n, ms) in sorted(scan_ms.items())))
     return launches
 
 
@@ -1294,6 +1444,9 @@ def main() -> int:
     parser.add_argument("--fused-only", action="store_true",
                         help="build and check K3/K4 only (phase 3's fused part, the block-1 "
                              "checks of phase 4 and phase 5) and print no result lines")
+    parser.add_argument("--scan-only", action="store_true",
+                        help="build and check K1/K2 only (phase 3's scan part, phase 6 with "
+                             "its times, phase 8) and print no result lines")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -1320,15 +1473,25 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    sources = ("stream_fused",) if args.fused_only else (
-        "selective_scan", "stream_fused", "stream_mega")
+    sources = ("stream_fused",) if args.fused_only else ("selective_scan",) if args.scan_only \
+        else ("selective_scan", "stream_fused", "stream_mega")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load_library, sources))  # one nvcc per source, in parallel
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
 
+    rep = Report()
+    if args.scan_only:
+        print("phase 3 K1 vs its plain version:", flush=True)
+        check_scan(dev, rep)
+        print("phase 6 K2 vs its plain version, and the scan's times:", flush=True)
+        check_scan_bwd(dev, rep)
+        time_scan(dev, rep, smi)
+        print("phase 8 whole-model gradient, card vs CPU:", flush=True)
+        check_model_grad(dev)
+        print("scan-only run: K1/K2 checks passed (no result lines)")
+        return 0
     cfg = CleanUMambaConfig()  # E8
     params32 = init_params(cfg, torch.Generator().manual_seed(0), dev)
-    rep = Report()
     print("phase 3 kernels vs plain versions:", flush=True)
     if args.fused_only:
         check_fused(dev, cfg, params32, rep, smi)
@@ -1345,12 +1508,14 @@ def main() -> int:
     launches, rtf16, rtf1 = run_slice(dev, cfg, params32, counters)
     check_block_equals_steps(dev, cfg, params32)
     trace_block1(dev, cfg, params32, smi)
+    trace_offline(dev, cfg, params32, smi)
 
     print("phase 5 real weights:", flush=True)
     check_real_weights(dev)
 
-    print("phase 6 K2 and K1's chunk states vs plain versions:", flush=True)
+    print("phase 6 K2 vs its plain version, and the scan's times:", flush=True)
     check_scan_bwd(dev, rep)
+    time_scan(dev, rep, smi)
     print("phase 7 E8 training slice:", flush=True)
     train_launches = run_training(dev, cfg, smi, (selective_scan, selective_scan_bwd))
     print("phase 8 whole-model gradient, card vs CPU:", flush=True)

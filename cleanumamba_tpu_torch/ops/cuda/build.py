@@ -24,6 +24,10 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source.  selective_scan.cu instantiates 54 kernels; nvcc
+# optimises them in parallel threads with -split-compile=0 (64 s against
+# 139 s on the 8 cores beside an NVIDIA H100 80GB HBM3).
+SOURCE_FLAGS = {"selective_scan": ("-split-compile=0",)}
 
 
 def _nvcc() -> str:
@@ -37,8 +41,12 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _digest(src: pathlib.Path) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(src.stem)).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [src]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -59,7 +67,7 @@ def load_library(name: str) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+            [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", str(tmp), str(src)],
             capture_output=True, text=True)
         lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,12 +34,79 @@ from cleanumamba_tpu_torch.ops.cuda.build import (
 )
 
 MAX_D_STATE = 256  # K1: 16 lanes x 16 state elements per thread (csrc/selective_scan.cu)
-MAX_D_STATE_BWD = 128  # K2: h_{t-1} of a chunk must fit in shared memory
-# Time steps per saved chunk state: K1 writes h_starts every SCAN_CHUNK steps
-# (a multiple of its 16-step staging) and K2 keeps SCAN_CHUNK steps of
-# h_{t-1} in shared memory (16 x 8 x 256 fp32 = 128 KB at d_state 128).
-SCAN_CHUNK = 16
-_THREADS, _LANES = 256, 16  # csrc/selective_scan.cu: kThreads, kLanes
+MAX_D_STATE_BWD = 128  # K2: 16 lanes x 8, so that a chunk of h_{t-1} fits in shared memory
+_THREADS = 256  # csrc/selective_scan.cu: kThreads, kBwdThreads
+_STAGE = 16  # its kSteps: K1 stages, and both kernels unroll, 16 time steps
+LANE_CHOICES = (4, 8, 16)  # threads that share one channel's d_state
+_MAX_NPT, _MAX_NPT_BWD = 16, 8  # state elements a thread may hold in K1, in K2
+# 128 blocks of 256 threads put work on 128 of the card's 132 SMs: the fewest
+# lanes that still give as many blocks make a thread's step the cheapest
+_MIN_BLOCKS = 128
+# channels whose gB/gC one cluster of K2 sums on chip, at most; on the card
+# the wrapper halves the cluster until it costs no further wave (fit_cluster)
+_CLUSTER_CHANNELS = 128
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+
+
+class ScanPlan(NamedTuple):
+    """How a launch splits the work: ``lanes`` threads per channel with
+    ``npt`` state elements each (lanes * npt >= d_state), ``256 // lanes``
+    channels a block; K2's ``cluster`` blocks sum gB/gC together."""
+    lanes: int
+    npt: int
+    blocks: int
+    cluster: int
+
+    @property
+    def channels(self) -> int:
+        return _THREADS // self.lanes
+
+
+def scan_plan(Bsz: int, Di: int, Ds: int, bwd: bool = False) -> ScanPlan:
+    """The split K1 (or, with ``bwd``, K2) is launched with: the fewest lanes
+    per channel that leave at least 128 blocks and fit d_state in a thread's
+    registers, else the most blocks (16 lanes)."""
+    max_npt = _MAX_NPT_BWD if bwd else _MAX_NPT
+    if not 1 <= Ds <= LANE_CHOICES[-1] * max_npt:
+        raise ValueError(f"d_state={Ds} outside [1, {LANE_CHOICES[-1] * max_npt}]")
+    for lanes in LANE_CHOICES:
+        npt = 1 << max(-(-Ds // lanes) - 1, 0).bit_length()
+        groups = -(-Di // (_THREADS // lanes))
+        if npt <= max_npt and (Bsz * groups >= _MIN_BLOCKS or lanes == LANE_CHOICES[-1]):
+            break
+    per_cluster = max(_CLUSTER_CHANNELS // (_THREADS // lanes), 1)
+    cluster = 1 << (min(per_cluster, max(groups, 1)).bit_length() - 1)
+    return ScanPlan(lanes, npt, Bsz * groups, cluster)
+
+
+def scan_chunk(Bsz: int, Di: int, Ds: int) -> int:
+    """Time steps per saved chunk state for this shape: K1 writes h_starts
+    every ``scan_chunk`` steps and K2 keeps that many steps of h_{t-1} in
+    shared memory, 128 KB at most (256 threads x npt fp32 a step): 16 steps
+    at 8 elements a thread, 32 below.  A multiple of the 16-step stage."""
+    if Ds > MAX_D_STATE_BWD:  # forward only: K2 does not take it
+        return _STAGE
+    return _STAGE if scan_plan(Bsz, Di, Ds, bwd=True).npt == _MAX_NPT_BWD else 2 * _STAGE
+
+
+def bwd_smem_bytes(lanes: int, npt: int, chunk: int, esize: int) -> int:
+    """Shared memory K2 asks for (csrc/selective_scan.cu: bwd_smem_bytes)."""
+    ch, sp = _THREADS // lanes, lanes * npt
+    return (chunk * _THREADS * npt * 4  # h_{t-1} of the chunk
+            + 2 * chunk * 2 * sp * 4  # the block's gB/gC sums, two chunks
+            + 2 * chunk * ch * 4  # gu, gdt on their way out
+            + 2 * chunk * ch * 4  # dt, two stages
+            + 2 * 2 * chunk * sp * esize  # B, C, two stages
+            + 2 * 2 * chunk * ch * esize)  # u, gy, two stages
+
+
+def bwd_scratch_shapes(Bsz: int, L: int, Di: int, Ds: int, plan: ScanPlan | None = None) -> dict:
+    """fp32 scratch of one K2 call: the clusters' gB/gC partials and the
+    per-batch gA, gD, summed by K2's second launch."""
+    plan = plan or scan_plan(Bsz, Di, Ds, bwd=True)
+    n_clusters = -(-(plan.blocks // Bsz) // plan.cluster)
+    return {"part": (2, Bsz, n_clusters, L, Ds), "gA_part": (Bsz, Di, Ds),
+            "gD_part": (Bsz, Di)}
 
 
 def selective_scan_plain(u, dt, A, B, C, D=None, h0=None):
@@ -48,14 +116,15 @@ def selective_scan_plain(u, dt, A, B, C, D=None, h0=None):
 
 def selective_scan_bwd_plain(u, dt, A, B, C, D, h_starts, gy, gh_last):
     """The plain version of K2: the chunked PyTorch reverse scan."""
+    Bsz, _, Di = u.shape
     return plain_scan.selective_scan_bwd(u, dt, A, B, C, D, h_starts, gy, gh_last,
-                                         chunk=SCAN_CHUNK)
+                                         chunk=scan_chunk(Bsz, Di, A.shape[1]))
 
 
 @functools.cache
 def _kernel():
     fn = load_library("selective_scan").selective_scan_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -64,10 +133,37 @@ def _kernel():
 @functools.cache
 def _kernel_bwd():
     fn = load_library("selective_scan").selective_scan_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def clusters_at_once(code: int, Ds: int, chunk: int, lanes: int, cluster: int) -> int:
+    """K2's clusters of this size that the card holds at once."""
+    fn = load_library("selective_scan").selective_scan_bwd_clusters_at_once
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+    n = fn(code, Ds, chunk, lanes, cluster)
+    if n < 0:
+        raise RuntimeError(f"selective_scan_bwd_clusters_at_once: CUDA error {-n}")
+    return n
+
+
+def fit_cluster(plan: ScanPlan, Bsz: int, code: int, Ds: int, chunk: int) -> ScanPlan:
+    """The plan with the largest cluster that costs no wave more than blocks
+    alone would: a cluster must find all its SMs free at once in one part of
+    the card, and at the training shape clusters of four did not all fit
+    (two waves, twice the time) where clusters of two did."""
+    def waves(cluster):
+        at_once = clusters_at_once(code, Ds, chunk, plan.lanes, cluster)
+        needed = Bsz * -(-(plan.blocks // Bsz) // cluster)
+        return -(-needed // at_once) if at_once > 0 else float("inf")
+
+    cluster, least = plan.cluster, waves(1)
+    while cluster > 1 and waves(cluster) > least:
+        cluster //= 2
+    return plan._replace(cluster=cluster)
 
 
 def _no_autograd(what, *tensors):
@@ -99,8 +195,8 @@ def _check_inputs(what, u, dt, A, B, C, D, **state):
 def selective_scan(u, dt, A, B, C, D=None, h0=None, return_starts: bool = False):
     """y, h_last = scan(u, dt, A, B, C, D, h0): K1 for CUDA tensors, the
     plain chunked scan for CPU tensors.  With ``return_starts`` also the state
-    entering each chunk of SCAN_CHUNK steps, h_starts (B, n_chunks, d_inner,
-    d_state) fp32, which ``selective_scan_bwd`` needs.
+    entering each chunk of ``scan_chunk(B, d_inner, d_state)`` steps, h_starts
+    (B, n_chunks, d_inner, d_state) fp32, which ``selective_scan_bwd`` needs.
 
     On CUDA: u, B, C fp32 or bf16 (one dtype); dt, A, D, h0 fp32; all
     contiguous; 1 <= d_state <= 256.  Anything else raises, as does a call
@@ -109,7 +205,8 @@ def selective_scan(u, dt, A, B, C, D=None, h0=None, return_starts: bool = False)
     _no_autograd("selective_scan (K1)", u, dt, A, B, C, D, h0)
     if u.device.type == "cpu":
         if return_starts:
-            return plain_scan.selective_scan(u, dt, A, B, C, D, h0, chunk=SCAN_CHUNK,
+            chunk = scan_chunk(u.shape[0], u.shape[2], A.shape[1])
+            return plain_scan.selective_scan(u, dt, A, B, C, D, h0, chunk=chunk,
                                              return_starts=True)
         return selective_scan_plain(u, dt, A, B, C, D, h0)
     if u.device.type != "cuda":
@@ -121,24 +218,25 @@ def selective_scan(u, dt, A, B, C, D=None, h0=None, return_starts: bool = False)
     if h0 is not None and tuple(h0.shape) != (Bsz, Di, Ds):
         raise ValueError(f"{what}: h0 has shape {tuple(h0.shape)}, expected {(Bsz, Di, Ds)}")
 
-    if D is None:
-        D = torch.zeros(Di, dtype=torch.float32, device=u.device)
-    if h0 is None:
-        h0 = torch.zeros((Bsz, Di, Ds), dtype=torch.float32, device=u.device)
     y = torch.empty_like(u)
     h_last = torch.empty((Bsz, Di, Ds), dtype=torch.float32, device=u.device)
-    n_chunks = -(-L // SCAN_CHUNK)
+    chunk = scan_chunk(Bsz, Di, Ds)
+    n_chunks = -(-L // chunk)
     h_starts = (torch.empty((Bsz, n_chunks, Di, Ds), dtype=torch.float32, device=u.device)
                 if return_starts else None)
     out = (y, h_last, h_starts) if return_starts else (y, h_last)
     if Bsz == 0 or Di == 0:
         return out
     if L == 0:
-        h_last.copy_(h0)
+        if h0 is None:
+            h_last.zero_()
+        else:
+            h_last.copy_(h0)
         return out
+    # an absent D or h0 goes in as a null pointer: the kernel reads zeros
     status = _kernel()(code, ptr(u), ptr(dt), ptr(A), ptr(B), ptr(C), ptr(D), ptr(h0),
-                       ptr(y), ptr(h_last), ptr(h_starts), Bsz, L, Di, Ds, SCAN_CHUNK,
-                       stream_ptr(u.device))
+                       ptr(y), ptr(h_last), ptr(h_starts), Bsz, L, Di, Ds, chunk,
+                       scan_plan(Bsz, Di, Ds).lanes, stream_ptr(u.device))
     check(status, "selective_scan_fwd")
     selective_scan.launches += 1
     return out
@@ -147,7 +245,7 @@ def selective_scan(u, dt, A, B, C, D=None, h0=None, return_starts: bool = False)
 selective_scan.launches = 0
 
 
-def selective_scan_bwd(u, dt, A, B, C, D, h_starts, gy, gh_last):
+def selective_scan_bwd(u, dt, A, B, C, D, h_starts, gy, gh_last, cluster: int | None = None):
     """(gu, gdt, gA, gB, gC, gD, gh0), the VJP of the scan: K2 for CUDA
     tensors, the plain reverse scan for CPU tensors.  ``h_starts`` is what
     ``selective_scan(..., return_starts=True)`` returned on the same inputs.
@@ -155,6 +253,8 @@ def selective_scan_bwd(u, dt, A, B, C, D, h_starts, gy, gh_last):
     gu, gB, gC come back in the dtype of u, B, C; gdt, gA, gD, gh0 in fp32;
     gD is None when D is.  On CUDA: gy in u's dtype; dt, A, D, h_starts,
     gh_last fp32; all contiguous; 1 <= d_state <= 128.  Anything else raises.
+    ``cluster`` (1, 2, 4 or 8) overrides the plan's cluster size on CUDA, for
+    measurements; the gradients are the same sums in another grouping.
     """
     _no_autograd("selective_scan_bwd (K2)", u, dt, A, B, C, D, gy, gh_last)
     if u.device.type == "cpu":
@@ -168,7 +268,8 @@ def selective_scan_bwd(u, dt, A, B, C, D, h_starts, gy, gh_last):
         raise ValueError(f"{what}: d_state={Ds} outside [1, {MAX_D_STATE_BWD}]")
     if gy.dtype != u.dtype:
         raise TypeError(f"{what}: gy must have u's dtype {u.dtype}, got {gy.dtype}")
-    n_chunks = -(-L // SCAN_CHUNK)
+    chunk = scan_chunk(Bsz, Di, Ds)
+    n_chunks = -(-L // chunk)
     shapes = {"gy": (gy, (Bsz, L, Di)), "gh_last": (gh_last, (Bsz, Di, Ds)),
               "h_starts": (h_starts, (Bsz, n_chunks, Di, Ds))}
     for name, (t, shape) in shapes.items():
@@ -179,8 +280,9 @@ def selective_scan_bwd(u, dt, A, B, C, D, h_starts, gy, gh_last):
         raise ValueError(f"{what}: empty input {(Bsz, L, Di)}")
 
     dev, f32 = u.device, torch.float32
-    Dv = torch.zeros(Di, dtype=f32, device=dev) if D is None else D
-    n_groups = -(-Di // (_THREADS // _LANES))
+    plan = scan_plan(Bsz, Di, Ds, bwd=True)
+    plan = (fit_cluster(plan, Bsz, code, Ds, chunk) if cluster is None
+            else plan._replace(cluster=cluster))
     gu = torch.empty_like(u)
     gdt = torch.empty((Bsz, L, Di), dtype=f32, device=dev)
     gB = torch.empty_like(B)
@@ -188,16 +290,14 @@ def selective_scan_bwd(u, dt, A, B, C, D, h_starts, gy, gh_last):
     gA = torch.empty((Di, Ds), dtype=f32, device=dev)
     gD = torch.empty(Di, dtype=f32, device=dev)
     gh0 = torch.empty((Bsz, Di, Ds), dtype=f32, device=dev)
-    # per-block partials, summed in a second launch in one fixed order
-    gB_part = torch.empty((Bsz, n_groups, L, Ds), dtype=f32, device=dev)
-    gC_part = torch.empty_like(gB_part)
-    gA_part = torch.empty((Bsz, Di, Ds), dtype=f32, device=dev)
-    gD_part = torch.empty((Bsz, Di), dtype=f32, device=dev)
+    # partial sums, added up by K2's second launch in one fixed order
+    scratch = {name: torch.empty(shape, dtype=f32, device=dev)
+               for name, shape in bwd_scratch_shapes(Bsz, L, Di, Ds, plan).items()}
     status = _kernel_bwd()(
-        code, ptr(u), ptr(dt), ptr(A), ptr(B), ptr(C), ptr(Dv), ptr(h_starts), ptr(gy),
+        code, ptr(u), ptr(dt), ptr(A), ptr(B), ptr(C), ptr(D), ptr(h_starts), ptr(gy),
         ptr(gh_last), ptr(gu), ptr(gdt), ptr(gB), ptr(gC), ptr(gA), ptr(gD), ptr(gh0),
-        ptr(gB_part), ptr(gC_part), ptr(gA_part), ptr(gD_part), Bsz, L, Di, Ds, SCAN_CHUNK,
-        stream_ptr(dev))
+        ptr(scratch["part"]), ptr(scratch["gA_part"]), ptr(scratch["gD_part"]), Bsz, L, Di, Ds,
+        chunk, plan.lanes, plan.cluster, stream_ptr(dev))
     check(status, "selective_scan_bwd")
     selective_scan_bwd.launches += 1
     return gu, gdt, gA, gB, gC, (None if D is None else gD), gh0

@@ -137,13 +137,96 @@ def test_wrapper_takes_plain_version_on_cpu():
     torch.testing.assert_close(h, h_p, rtol=0, atol=0)
 
 
+# --- the launch plan: pure functions of the shape, pinned here on the CPU ---
+
+# (B, d_inner, d_state): serving, training, a batch of 8, small and ragged
+# widths, the widest states K1 and K2 take
+PLAN_SHAPES = [(1, 2048, 64), (2, 2048, 64), (8, 2048, 64), (1, 48, 8), (8, 256, 8),
+               (2, 512, 128), (1, 2048, 16), (8, 2048, 16), (1, 33, 1), (2, 130, 100),
+               (1, 20, 256), (64, 2048, 128), (1, 2048, 128), (4, 1024, 24)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "B{}-di{}-ds{}".format(*s))
+@pytest.mark.parametrize("bwd", [False, True], ids=["K1", "K2"])
+def test_scan_plan_covers_the_state_and_fills_the_card(shape, bwd):
+    Bsz, Di, Ds = shape
+    if bwd and Ds > kscan.MAX_D_STATE_BWD:
+        with pytest.raises(ValueError):
+            kscan.scan_plan(Bsz, Di, Ds, bwd=True)
+        return
+    plan = kscan.scan_plan(Bsz, Di, Ds, bwd=bwd)
+    assert plan.lanes in kscan.LANE_CHOICES
+    assert plan.npt in (1, 2, 4, 8, 16) and plan.npt <= (8 if bwd else 16)
+    assert plan.lanes * plan.npt >= Ds > plan.lanes * (plan.npt // 2)
+    channels = plan.channels
+    assert channels == 256 // plan.lanes
+    assert plan.blocks == Bsz * -(-Di // channels)
+    # every SM that could get a block gets one: fewer lanes only while 128
+    # blocks are left (at B=1 and 2048 channels the 16 lanes of the serving launch)
+    most = Bsz * -(-Di // 16)
+    assert plan.blocks >= min(128, most)
+    assert plan.cluster in (1, 2, 4, 8)
+    assert plan.cluster * channels <= max(128, channels)
+    assert plan.cluster <= max(plan.blocks // Bsz, 1)
+
+
+def test_scan_plan_picks_every_lane_count_and_keeps_the_serving_launch():
+    assert kscan.scan_plan(1, 2048, 64).lanes == 16  # block 16 of E8: 128 blocks
+    assert kscan.scan_plan(2, 2048, 64).lanes == 8   # the training shape
+    assert kscan.scan_plan(8, 2048, 64).lanes == 4
+    assert kscan.scan_plan(8, 2048, 64, bwd=True).lanes == 8  # 8 elements a thread in K2
+
+
+@pytest.mark.parametrize("ds_lo", [1, 33, 65, 97], ids=lambda d: f"ds{d}-{d + 31}")
+def test_bwd_chunk_fits_shared_memory_for_every_d_state(ds_lo):
+    for Ds in range(ds_lo, ds_lo + 32):
+        for Bsz, Di in ((1, 2048), (2, 2048), (8, 2048), (64, 4096), (1, 16), (3, 200)):
+            plan = kscan.scan_plan(Bsz, Di, Ds, bwd=True)
+            chunk = kscan.scan_chunk(Bsz, Di, Ds)
+            assert chunk >= 16 and chunk % 16 == 0  # a multiple of K1's 16-step stage
+            for esize in (2, 4):
+                assert kscan.bwd_smem_bytes(plan.lanes, plan.npt, chunk, esize) <= kscan.SMEM_LIMIT
+
+
+def test_chunk_follows_the_elements_a_thread_holds():
+    assert kscan.scan_chunk(2, 2048, 64) == 16   # 8 lanes x 8 elements
+    assert kscan.scan_chunk(1, 2048, 64) == 32   # 16 lanes x 4
+    assert kscan.scan_chunk(2, 512, 128) == 16
+    assert kscan.scan_chunk(1, 48, 8) == 32
+    assert kscan.scan_chunk(1, 20, 256) == 16    # forward only
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 24, 8), (1, 40, 16, 128), (2, 16, 8, 64)],
+                         ids=lambda s: "B{}-L{}-di{}-ds{}".format(*s))
+def test_chunk_states_shape_and_values_on_cpu(shape):
+    """h_starts has one state per chunk of scan_chunk steps, and state k is
+    the scan's h after k * chunk steps."""
+    Bsz, L, di, ds = shape
+    a = _torch(_inputs(12, *shape))
+    chunk = kscan.scan_chunk(Bsz, di, ds)
+    y, h, hs = kscan.selective_scan(**a, return_starts=True)
+    assert tuple(hs.shape) == (Bsz, -(-L // chunk), di, ds) and hs.dtype == torch.float32
+    y_p, h_p = kscan.selective_scan_plain(**a)
+    np.testing.assert_allclose(y.numpy(), y_p.numpy(), **TOL)
+    torch.testing.assert_close(hs[:, 0], a["h0"], rtol=0, atol=0)
+    for k in range(1, hs.shape[1]):
+        part = {n: (v[:, :k * chunk] if n in ("u", "dt", "B", "C") else v)
+                for n, v in a.items()}
+        np.testing.assert_allclose(hs[:, k].numpy(), tscan.selective_scan_ref(**part)[1].numpy(),
+                                   **TOL)
+
+
 # --- the CUDA kernel (needs a card; chip_smoke.py runs the same checks) ---
 
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="the CUDA kernel needs a GPU")
 # the serving shapes, the pruned checkpoints' ragged widths, and the d_state
 # edges of the kernel's per-lane templates (1, 100 -> 8 per lane, 256 -> 16)
+# every lane count of the plan (16, 8, 4 at batch 1, 2, 8 of E8's widths), L
+# around the 16-step stage, and a long clip
 @pytest.mark.parametrize("shape", [(1, 16, 2048, 64), (2, 63, 2048, 64), (1, 37, 48, 8),
-                                   (1, 5, 33, 1), (2, 9, 130, 100), (1, 4, 20, 256)])
+                                   (1, 5, 33, 1), (2, 9, 130, 100), (1, 4, 20, 256),
+                                   (8, 17, 2048, 64), (8, 15, 2048, 16), (1, 1, 2048, 16),
+                                   (2, 16, 512, 128), (1, 2500, 256, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_cuda(shape, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -158,6 +241,21 @@ def test_kernel_matches_plain_on_cuda(shape, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for got, want in ((y.float(), y_p), (h, h_p)):
         assert (got - want).abs().max() <= tol * want.abs().max()
+    # with chunk states: the same bits, and a repeated call too
+    y2, h2, hs = kscan.selective_scan(**a, return_starts=True)
+    y3, h3, hs3 = kscan.selective_scan(**a, return_starts=True)
+    assert torch.equal(y2, y) and torch.equal(h2, h)
+    assert torch.equal(y3, y) and torch.equal(h3, h) and torch.equal(hs3, hs)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="the CUDA kernel needs a GPU")
+def test_kernel_takes_absent_D_and_h0_on_cuda():
+    a = {k: v.cuda() for k, v in _torch(_inputs(13, 2, 40, 200, 8)).items()}
+    a.pop("D"), a.pop("h0")
+    y, h = kscan.selective_scan(**a)
+    y_p, h_p = kscan.selective_scan_plain(**a)
+    for got, want in ((y, y_p), (h, h_p)):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="the CUDA kernel needs a GPU")

@@ -27,10 +27,15 @@ from cleanumamba_tpu_torch.ops.cuda import selective_scan as kscan
 
 # tests/test_pallas_scan.py's tolerance for the Pallas backward
 TOL = dict(rtol=2e-4, atol=2e-4)
-CHUNK = kscan.SCAN_CHUNK
 GRADS = ["gu", "gdt", "gA", "gB", "gC", "gD", "gh0"]
 # ragged L (37, 33), d_inner not a multiple of 128 (200, 40), d_state 8 and 64
-SHAPES = [(2, 37, 200, 8), (1, 16, 24, 64), (2, 33, 40, 64)]
+# (chunks of 32 steps) and 128 (8 state elements a thread: chunks of 16)
+SHAPES = [(2, 37, 200, 8), (1, 16, 24, 64), (2, 33, 40, 64), (1, 37, 16, 128)]
+
+
+def _chunk(t):
+    """The chunk the wrappers use for these inputs (it follows the shape)."""
+    return kscan.scan_chunk(t["u"].shape[0], t["u"].shape[2], t["A"].shape[1])
 
 
 def _inputs(seed, Bsz, L, di, ds):
@@ -48,9 +53,9 @@ def _torch(a):
 def _port_bwd(t):
     """Plain forward with chunk states, then the plain backward (port)."""
     _, _, hs = tscan.selective_scan(t["u"], t["dt"], t["A"], t["B"], t["C"], t["D"], t["h0"],
-                                    chunk=CHUNK, return_starts=True)
+                                    chunk=_chunk(t), return_starts=True)
     return hs, tscan.selective_scan_bwd(t["u"], t["dt"], t["A"], t["B"], t["C"], t["D"], hs,
-                                        t["gy"], t["gh_last"], chunk=CHUNK)
+                                        t["gy"], t["gh_last"], chunk=_chunk(t))
 
 
 def _np(xs):
@@ -62,14 +67,15 @@ def case(request):
     a = _inputs(sum(request.param), *request.param)
     # The port runs before JAX (see tests/test_torch_scan.py::case).
     hs, got = _port_bwd(_torch(a))
+    chunk = _chunk(_torch(a))
     j = {k: jnp.asarray(v) for k, v in a.items()}
     scan_args = (j["u"], j["dt"], j["A"], j["B"], j["C"], j["D"], j["h0"])
-    _, res = _ssg_fwd(*scan_args, CHUNK)
-    ref = _np(_ssg_bwd(CHUNK, res, (j["gy"], j["gh_last"])))
-    _, _, bounds = pallas_selective_scan(*scan_args, chunk=CHUNK, tile_d=128, interpret=True,
+    _, res = _ssg_fwd(*scan_args, chunk)
+    ref = _np(_ssg_bwd(chunk, res, (j["gy"], j["gh_last"])))
+    _, _, bounds = pallas_selective_scan(*scan_args, chunk=chunk, tile_d=128, interpret=True,
                                          return_boundaries=True)
     pal = _np(pallas_selective_scan_bwd(*scan_args[:6], bounds, j["gy"], j["gh_last"],
-                                        chunk=CHUNK, tile_d=128, interpret=True))
+                                        chunk=chunk, tile_d=128, interpret=True))
     # JAX keeps the chunk states as (n_chunks, B, d_state, d_inner)
     ref_hs = np.asarray(res[-1]).transpose(1, 0, 3, 2)
     return hs, got, ref, pal, ref_hs
@@ -139,8 +145,8 @@ def test_bf16_inputs_match_jax():
                                       torch.bfloat16, torch.bfloat16, torch.float32,
                                       torch.float32]
     j = {k: jnp.asarray(v) for k, v in a.items()}
-    _, res = _ssg_fwd(j["u"], j["dt"], j["A"], j["B"], j["C"], j["D"], j["h0"], CHUNK)
-    want = _np(_ssg_bwd(CHUNK, res, (j["gy"], j["gh_last"])))
+    _, res = _ssg_fwd(j["u"], j["dt"], j["A"], j["B"], j["C"], j["D"], j["h0"], _chunk(t))
+    want = _np(_ssg_bwd(_chunk(t), res, (j["gy"], j["gh_last"])))
     for g, w in zip(got, want):
         tol = dict(rtol=8e-3, atol=8e-3) if g.dtype == torch.bfloat16 else TOL
         np.testing.assert_allclose(g.float().numpy(), w, **tol)
@@ -204,6 +210,41 @@ def test_wrapper_takes_plain_bwd_on_cpu():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("shape", [(2, 625, 2048, 64), (1, 16, 2048, 64), (2, 40, 48, 8),
+                                   (8, 33, 2048, 16), (2, 625, 512, 128)],
+                         ids=lambda s: "B{}-L{}-di{}-ds{}".format(*s))
+def test_bwd_scratch_is_the_clusters_partials(shape):
+    """K2's scratch: gB/gC partials of one row per cluster (of up to 128
+    channels, not per block of 16), and the per-batch gA and gD."""
+    Bsz, L, Di, Ds = shape
+    shapes = kscan.bwd_scratch_shapes(Bsz, L, Di, Ds)
+    plan = kscan.scan_plan(Bsz, Di, Ds, bwd=True)
+    groups = -(-Di // plan.channels)
+    assert shapes["part"] == (2, Bsz, -(-groups // plan.cluster), L, Ds)
+    assert shapes["part"][2] <= max(-(-Di // 128), 1) + 1
+    assert shapes["gA_part"] == (Bsz, Di, Ds) and shapes["gD_part"] == (Bsz, Di)
+    if shape == (2, 625, 2048, 64):
+        # the training shape at the plan's cluster of 4: 10.5 MB where the
+        # per-block partials were 82 MB; a card that takes clusters of 2 needs 21 MB
+        assert 4 * np.prod(shapes["part"]) <= 11e6
+        half = kscan.bwd_scratch_shapes(Bsz, L, Di, Ds, plan._replace(cluster=2))
+        assert 4 * np.prod(half["part"]) <= 22e6
+
+
+def test_cluster_is_fitted_to_what_the_card_holds_at_once(monkeypatch):
+    """The wrapper halves the plan's cluster while it would cost a wave more
+    than single blocks do (the counts are an H100's for K2 at d_state 64)."""
+    room = {1: 132, 2: 66, 4: 30, 8: 15}
+    monkeypatch.setattr(kscan, "clusters_at_once", lambda code, Ds, chunk, lanes, c: room[c])
+    plan = kscan.scan_plan(2, 2048, 64, bwd=True)  # 128 blocks, clusters of 4 at most
+    assert (plan.blocks, plan.cluster) == (128, 4)
+    assert kscan.fit_cluster(plan, 2, 1, 64, 16).cluster == 2  # 32 clusters of 4 > 30
+    small = kscan.scan_plan(2, 256, 64, bwd=True)  # 32 blocks in 4 clusters of 8
+    assert kscan.fit_cluster(small, 2, 1, 64, 16).cluster == small.cluster  # all fit
+    big = kscan.scan_plan(8, 2048, 64, bwd=True)  # 512 blocks: 4 waves alone, 5 in fours
+    assert kscan.fit_cluster(big, 8, 1, 64, 16).cluster == 2
+
+
 # --- the CUDA kernels (need a card; chip_smoke.py runs the same checks) ---
 
 def _cuda(a, dtype):
@@ -216,25 +257,31 @@ def _cuda(a, dtype):
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="the CUDA kernel needs a GPU")
 # E8 widths, ragged widths, d_state at each of K2's per-lane templates
 # (1, 16 -> 1 per lane, 24 -> 2, 64 -> 4, 100 and 128 -> 8), single chunk
+# every lane count of K2's plan (16, 8, 4), L around the 16-step block
 @pytest.mark.parametrize("shape", [(2, 63, 2048, 64), (1, 37, 48, 8), (1, 16, 32, 16),
                                    (1, 5, 33, 1), (2, 40, 130, 100), (1, 17, 20, 128),
-                                   (2, 33, 40, 24)])
+                                   (2, 33, 40, 24), (8, 17, 2048, 64), (8, 15, 2048, 16),
+                                   (1, 1, 2048, 16), (1, 700, 256, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_bwd_match_plain_on_cuda(shape, dtype):
     t = _cuda(_inputs(10, *shape), dtype)
     scan_args = [t[k] for k in ("u", "dt", "A", "B", "C", "D", "h0")]
     y, h, hs = kscan.selective_scan(*scan_args, return_starts=True)
     f32 = [x.float() for x in scan_args]
-    _, _, hs_p = tscan.selective_scan(*f32, chunk=CHUNK, return_starts=True)
+    _, _, hs_p = tscan.selective_scan(*f32, chunk=_chunk(t), return_starts=True)
     before = kscan.selective_scan_bwd.launches
     got = kscan.selective_scan_bwd(*scan_args[:6], hs, t["gy"], t["gh_last"])
     assert kscan.selective_scan_bwd.launches == before + 1
-    want = tscan.selective_scan_bwd(*f32[:6], hs_p, t["gy"].float(), t["gh_last"], chunk=CHUNK)
+    want = tscan.selective_scan_bwd(*f32[:6], hs_p, t["gy"].float(), t["gh_last"],
+                                    chunk=_chunk(t))
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert (hs - hs_p).abs().max() <= tol * hs_p.abs().max()
     for name, g, w in zip(GRADS, got, want):
         assert g.dtype == (dtype if name in ("gu", "gB", "gC") else torch.float32), name
         assert (g.float() - w).abs().max() <= tol * w.abs().max(), name
+    again = kscan.selective_scan_bwd(*scan_args[:6], hs, t["gy"], t["gh_last"])
+    for name, g, g2 in zip(GRADS, got, again):  # one fixed order of every sum
+        assert torch.equal(g, g2), name
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="the CUDA kernel needs a GPU")
