@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one CUDA device
     python3 chip_smoke.py --fused-only   # K3/K4 alone: their part of phases 3-5
     python3 chip_smoke.py --scan-only    # K1/K2 alone: their part of phases 3, 6 and 8
+    python3 chip_smoke.py --base-k5 DIR  # phase 12 also times DIR's K5 (an earlier checkout)
 
 Phases, each printed as it passes; any failure raises (non-zero exit):
 
@@ -51,8 +52,11 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
 10. K5 (the whole-frame kernel) against its plain version at the released
     small geometry ("FullMini": channels 32..64, 8 levels, 3 bottleneck
     layers, d_model 64, d_inner 128): 5 bottleneck families x {fp32, bf16
-    packs} x batch {1, 2}, 8 consecutive frames with the state carried,
-    outputs and every state leaf; the MHA ring after it has wrapped; and
+    packs} x batch {1, 2, 8}, 8 consecutive frames (3 at batch 8) with the
+    state carried, in both contracts (``mega_stream_step`` on the normalised
+    frame, ``mega_stream_frame`` with the normalisation inside the launch:
+    the new tail, count and std too), outputs and every state leaf, a
+    repeated launch bit for bit; the MHA ring after it has wrapped; and
     both ``artifacts/*.pkl`` (ragged pruned widths);
 11. the small-model block-1 path: ``Streamer(params, cfg, fused="auto")``
     per family, 2 s of audio in 256-sample hops and a flush: it resolves to
@@ -63,8 +67,11 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
 12. times of that path (CUDA events and host clock, >= 200 frames): K5 alone,
     ``stream_step_mega`` whole, ``stream_step`` through the K3/K4 packs and
     plain, for FullMini mamba and mha with fp32 and bf16 packs; wall per
-    ``Streamer.feed``; a ``torch.profiler`` window of the mega path (device
-    busy per frame, kernels per frame, idle share).
+    ``Streamer.feed``; K5's device time from a trace per family, by depth,
+    width and bottleneck layers, per family and pack and at batch 2, 8 and
+    32 (with ``--base-k5 DIR``, another checkout's K5 in the same trace, in
+    turns); a ``torch.profiler`` window of the mega path (device busy per
+    frame, idle share, and one kernel a frame, asserted).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernels' summary as JSON: each kernel's launches on its path, error, time,
@@ -1115,8 +1122,15 @@ def _noise(dev, B, n, seed, scale=0.3):
 
 def _mega_vs_plain(rep, label, params, cfg, cdt, B, dev, n_frames=8, wrap_ring=False):
     """n_frames consecutive frames: K5 and its plain version on the same
-    inputs each frame (the plain version's state is the one carried), outputs
-    and every new state leaf relative to that leaf's max|ref|.
+    inputs each frame (the plain version's state is the one carried):
+    ``mega_stream_step`` on the frame, outputs and every new state leaf
+    relative to that leaf's max|ref|, a repeated launch bitwise equal; and
+    ``mega_stream_frame`` with the normalisation inside the launch: its new
+    tail and frame count equal to the plain version's, its running std within
+    the fp32 tolerance, everything else bitwise equal to ``mega_stream_step``
+    on the frame divided by that std, its output (with an fp32 pack every
+    leaf) within the tolerance of the plain version on that frame, a
+    repeated launch bitwise equal.
 
     The output's error is taken relative to the larger of max|out| and the
     max of the last decoder level's new tail: the output is the overlap-add
@@ -1128,6 +1142,8 @@ def _mega_vs_plain(rep, label, params, cfg, cdt, B, dev, n_frames=8, wrap_ring=F
     The input is synthetic noisy speech (``synth_batch``)."""
     from cleanumamba_tpu_torch.data.synth_device import synth_batch
     from cleanumamba_tpu_torch.ops.cuda.stream_mega import (
+        mega_stream_frame,
+        mega_stream_frame_ref,
         mega_stream_step,
         mega_stream_step_ref,
         pack_mega,
@@ -1142,6 +1158,7 @@ def _mega_vs_plain(rep, label, params, cfg, cdt, B, dev, n_frames=8, wrap_ring=F
     fl, ts = cfg.frame_length, cfg.total_stride
     _, audio = synth_batch(torch.Generator(device=dev).manual_seed(10), B, fl + n_frames * ts)
     state, _ = stream_prime(params, cfg, audio[:, :fl])
+    state = _contiguous(state)
     if wrap_ring:  # a ring that has gone round: every slot written, pos past max_len
         bc = state["bottleneck"]
         g = torch.Generator().manual_seed(11)
@@ -1151,34 +1168,77 @@ def _mega_vs_plain(rep, label, params, cfg, cdt, B, dev, n_frames=8, wrap_ring=F
             "pos": torch.full_like(bc["pos"], bc["k"].shape[2] + 5)}
     tol = FP32_TOL if cdt == torch.float32 else BF16_TOL
     worst = 0.0
-    for t in range(n_frames):
-        frame = torch.cat([state["input_tail"], audio[:, fl + t * ts: fl + (t + 1) * ts]], 1)
-        frame, st = frame.contiguous(), _contiguous(state)
-        upd_k, y_k = mega_stream_step(frame, st, *mega)
-        upd_r, y_r = mega_stream_step_ref(frame, st, *mega)
-        torch.cuda.synchronize()
+
+    def compare(what, t, got, ref, again, leaves=True):
+        nonlocal worst
+        y_k, upd_k = got
+        y_r, upd_r = ref
         out_scale = max(y_r.abs().max().item(), upd_r["dec"][-1].abs().max().item())
-        for i, (got, ref) in enumerate(zip([y_k] + tree_leaves(upd_k),
-                                           [y_r] + tree_leaves(upd_r))):
-            if tuple(got.shape) != tuple(ref.shape) or got.dtype != ref.dtype:
-                raise AssertionError(f"{label}: leaf {tuple(got.shape)} {got.dtype} vs "
-                                     f"{tuple(ref.shape)} {ref.dtype}")
-            if ref.numel() == 0:
+        pairs = list(zip([y_k] + tree_leaves(upd_k), [y_r] + tree_leaves(upd_r),
+                         [again[0]] + tree_leaves(again[1])))
+        for i, (a, r, a2) in enumerate(pairs if leaves else pairs[:1]):
+            if tuple(a.shape) != tuple(r.shape) or a.dtype != r.dtype:
+                raise AssertionError(f"{label} {what}: leaf {tuple(a.shape)} {a.dtype} vs "
+                                     f"{tuple(r.shape)} {r.dtype}")
+            if not torch.equal(a, a2):
+                raise AssertionError(f"{label} {what} frame {t}: leaf {i} differs between two "
+                                     "launches on the same inputs")
+            if r.numel() == 0:
                 continue
-            err, rel = _rel_err(got, ref)
+            err, rel = _rel_err(a, r)
             if i == 0:
                 rel = err / max(out_scale, 1e-30)
             worst = max(worst, rel)
-            if got.is_floating_point():
+            if a.is_floating_point():
                 rep.err["mega_stream_step"] = max(rep.err.get("mega_stream_step", 0.0), err)
             if not rel <= tol:
-                raise AssertionError(f"{label} frame {t}: leaf {tuple(ref.shape)} relative "
+                raise AssertionError(f"{label} {what} frame {t}: leaf {tuple(r.shape)} relative "
                                      f"error {rel:.3e} > {tol:g}")
         _finite(label, y_k)
-        state = {**state, **upd_r, "input_tail": frame[:, ts:]}
+
+    for t in range(n_frames):
+        new = audio[:, fl + t * ts: fl + (t + 1) * ts]
+        frame = torch.cat([state["input_tail"], new], 1).contiguous()
+        upd_k, y_k = mega_stream_step(frame, state, *mega)
+        again = mega_stream_step(frame, state, *mega)
+        upd_r, y_r = mega_stream_step_ref(frame, state, *mega)
+        torch.cuda.synchronize()
+        compare("mega_stream_step", t, (y_k, upd_k), (y_r, upd_r), (again[1], again[0]))
+        # the normalising contract: the new tail and count equal the plain
+        # version's, the running std within the fp32 tolerance; the new state
+        # and the output bit for bit those of the step contract on the frame
+        # divided by that std, the output multiplied by it (the same kernel)
+        full_k, yf_k = mega_stream_frame(state, new, *mega, cfg.normalize_input)
+        full_r, _ = mega_stream_frame_ref(state, new, *mega, cfg.normalize_input)
+        std = full_k["input_std"]
+        err, rel = _rel_err(std, full_r["input_std"])
+        if not (torch.equal(full_k["input_tail"], full_r["input_tail"])
+                and torch.equal(full_k["frames"], full_r["frames"]) and rel <= FP32_TOL):
+            raise AssertionError(f"{label} frame {t}: new tail, count or std (rel {rel:.3e}) "
+                                 "differs from the plain version")
+        x = frame / std if cfg.normalize_input else frame
+        upd_s, y_s = mega_stream_step(x, state, *mega)
+        upd_p, y_p = mega_stream_step_ref(x, state, *mega)
+        if cfg.normalize_input:
+            y_s, y_p = y_s * std, y_p * std
+        for a, b in zip([yf_k] + tree_leaves({k: full_k[k] for k in upd_s}),
+                        [y_s] + tree_leaves(upd_s)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label} frame {t}: the normalising contract differs from "
+                                     "the step contract on the same normalised frame")
+        # and against the plain version given the kernel's std: the output,
+        # and with an fp32 pack every state leaf (with bf16 the last level's
+        # tail on a trained model's normalised frame is a few values that
+        # nearly cancel, and one bf16 rounding of a product's output moves it
+        # by up to 3.1e-2 of its largest value; the step contract above holds
+        # every leaf on the frame as it comes)
+        again_f = mega_stream_frame(state, new, *mega, cfg.normalize_input)
+        compare("mega_stream_frame", t, (yf_k, {k: full_k[k] for k in upd_p}), (y_p, upd_p),
+                (again_f[1], {k: again_f[0][k] for k in upd_p}), leaves=cdt == torch.float32)
+        state = _contiguous({**state, **upd_r, "input_tail": frame[:, ts:]})
     print(f"  mega_stream_step {label}: {n_frames} frames, worst leaf rel={worst:.3e} "
-          f"(tol {tol:g}), pack {sum(_nbytes(a) for a in mega[0].values()) / 1e6:.2f} MB, "
-          f"shared memory {mega[1]['smem_bytes']} B")
+          f"(tol {tol:g}), repeated launches and the two contracts bitwise equal, pack "
+          f"{sum(_nbytes(a) for a in mega[0].values()) / 1e6:.2f} MB")
 
 
 def check_mega(dev, rep: Report):
@@ -1191,9 +1251,10 @@ def check_mega(dev, rep: Report):
         params = init_params(cfg, torch.Generator().manual_seed(0), dev)
         models[family] = (cfg, params)
         for cdt_name, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            for B in (1, 2):
+            for B in (1, 2, 8):
                 _mega_vs_plain(rep, f"FullMini {family} ({count_params(params):,} params) "
-                               f"pack={cdt_name} B={B}", params, cfg, cdt, B, dev)
+                               f"pack={cdt_name} B={B}", params, cfg, cdt, B, dev,
+                               n_frames=8 if B < 8 else 3)
     cfg, params = models["mha"]
     _mega_vs_plain(rep, "FullMini mha ring wrapped pack=fp32 B=2", params, cfg, torch.float32,
                    2, dev, n_frames=3, wrap_ring=True)
@@ -1298,8 +1359,57 @@ def _mega_work(meta, arrays, B):
     return 2 * B * macs, B * sfu
 
 
-def time_mega(dev, models, rep: Report, smi):
-    """Phase 12: ms per frame of the four block-1 steps, FullMini mamba and mha."""
+def _k5_names(fn):
+    """The names of the K5 kernels that ``fn`` launches (by their signatures;
+    a trace may miss the first launches after it starts, so 20 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if "mega_kernel" in e.name}
+    if not names:
+        raise AssertionError("a trace of 20 calls holds no K5 launch")
+    return names
+
+
+def _k5_in_turns(fns, iters=30):
+    """Device us per launch of each K5 variant in ``fns`` (label -> (call,
+    the wrapper whose ``launches`` counts its launches)) from ONE trace of
+    rounds in turns (a, b, b, a), each of ``iters`` launches; the variants
+    are told apart by their kernels' names.  Each wrapper must count its
+    2 * iters launches exactly; the trace may miss a few of them (CUPTI
+    drops some kernel records), and the time is the mean of those it holds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {label: _k5_names(call) for label, (call, _) in fns.items()}
+    if any(a & b for la, a in names.items() for lb, b in names.items() if la != lb):
+        raise AssertionError(f"K5 variants share a kernel name: {names}")
+    order = list(fns) + list(fns)[::-1]
+    before = {label: wrapper.launches for label, (_, wrapper) in fns.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for label in order:
+            for _ in range(iters):
+                fns[label][0]()
+        torch.cuda.synchronize()
+    spans = {label: [] for label in fns}
+    for e in prof.events():
+        for label, ns in names.items():
+            if e.name in ns:
+                spans[label].append(e.time_range.end - e.time_range.start)
+    for label, (_, wrapper) in fns.items():
+        counted = wrapper.launches - before[label]
+        if counted != 2 * iters or not spans[label]:
+            raise AssertionError(f"{label}: {counted} launches counted of {2 * iters}, "
+                                 f"{len(spans[label])} in the trace")
+    return {label: sum(sp) / len(sp) for label, sp in spans.items()}
+
+
+def time_mega(dev, models, rep: Report, smi, base=None):
+    """Phase 12: ms per frame of the four block-1 steps, FullMini mamba and mha;
+    K5's device time per family, pack, batch, depth and width; with ``base``
+    (the parent's K5 module) both kernels in one trace."""
     from torch.profiler import ProfilerActivity, profile
 
     from cleanumamba_tpu_torch.ops.cuda.stream_fused import pack_stream_params
@@ -1380,15 +1490,17 @@ def time_mega(dev, models, rep: Report, smi):
         for _ in range(5):
             mega_stream_step(frame, state, *mega)
         torch.cuda.synchronize()
+        before = mega_stream_step.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(30):
                 mega_stream_step(frame, state, *mega)
             torch.cuda.synchronize()
         spans = [e.time_range.end - e.time_range.start for e in prof.events()
                  if "mega_kernel" in e.name]
-        if len(spans) < 10:  # a trace may miss the first launches after it starts
-            raise AssertionError(f"{label}: the trace holds {len(spans)} K5 launches of 30")
-        return sum(spans) / len(spans)
+        if mega_stream_step.launches - before != 30 or not spans:
+            raise AssertionError(f"{label}: {mega_stream_step.launches - before} launches "
+                                 f"counted of 30, {len(spans)} in the trace")
+        return sum(spans) / len(spans)  # the launches the trace holds
 
     from cleanumamba_tpu_torch.models.cleanumamba import init_params
 
@@ -1407,36 +1519,90 @@ def time_mega(dev, models, rep: Report, smi):
     print(f"  K5 device us per launch, fp32 pack B=1 (FullMini: D=8, L=3, width 32..64) on "
           f"{smi}: " + ", ".join(f"{k} {v:.1f}" for k, v in readings.items()))
 
+    # by batch and geometry; and, with the parent's kernel, both in one trace per case
+    def k5_call(module, mega, cfg, params, B):
+        state, _ = stream_prime(params, cfg, torch.zeros(B, cfg.frame_length, device=dev))
+        state, frame = _contiguous(state), _noise(dev, B, cfg.frame_length, seed=18)
+        return (lambda: module.mega_stream_step(frame, state, *mega)), module.mega_stream_step
+
+    from cleanumamba_tpu_torch.ops.cuda import stream_mega as new_k5
+
+    cases = [(f"{family} {cdt_name} B=1", models[family], cdt, 1) for family in FAMILIES
+             for cdt_name, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16))]
+    cases += [(f"mamba fp32 B={B}", models["mamba"], torch.float32, B) for B in (2, 8, 32)]
+    for label, kw in (("D=4", dict(encoder_n_layers=4)),
+                      ("width 16..32", dict(channels_H=16, max_H=32)),
+                      ("width 64..128", dict(channels_H=64, max_H=128))):
+        cfg = dataclasses.replace(models["mamba"][0], **kw)
+        cases.append((f"mamba fp32 B=1 {label}", (cfg, init_params(
+            cfg, torch.Generator().manual_seed(0), dev)), torch.float32, 1))
+    turns = {}
+    for label, (cfg, params), cdt, B in cases:
+        view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")
+        mega = pack_mega(view, cfg, cdt)
+        fns = {"new": k5_call(new_k5, mega, cfg, params, B)}
+        if base is not None:
+            fns["base"] = k5_call(base, mega, cfg, params, B)
+        turns[label] = _k5_in_turns(fns)
+    print(f"  K5 device us per launch{' (base and new in one trace, turns b n n b)' if base else ''}"
+          f" on {smi}: " + "; ".join(
+              f"{label} " + ", ".join(f"{k} {v:.2f}" for k, v in t.items())
+              + (f" ({t['base'] / t['new']:.2f}x)" if "base" in t else "")
+              for label, t in turns.items()))
+
     # a profiler window of the mega path (FullMini mamba, fp32, batch 1)
     cfg, params = models["mamba"]
     fl, ts = cfg.frame_length, cfg.total_stride
     mega = pack_mega(params, cfg, torch.float32)
-    audio = _noise(dev, 1, fl + 60 * ts, seed=16)
+    n_warm, n_prof = 10, 50
+    audio = _noise(dev, 1, fl + (n_warm + n_prof) * ts, seed=16)
     state, _ = stream_prime(params, cfg, audio[:, :fl])
-    for t in range(10):
+    for t in range(n_warm):
         state, _ = stream_step_mega(cfg, state, audio[:, fl + t * ts: fl + (t + 1) * ts], mega)
-    n_prof = 50
     torch.cuda.synchronize()
+    before = mega_stream_step.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(10, 10 + n_prof):
+        for t in range(n_warm, n_warm + n_prof):
             state, out = stream_step_mega(cfg, state, audio[:, fl + t * ts: fl + (t + 1) * ts],
                                           mega)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # the wrapper counts the launches; the trace (which may miss a few of
+    # them) times them and must hold no other kernel
+    launched = mega_stream_step.launches - before
     busy, n_kernels = _device_busy(prof)
     k5 = [e.time_range.end - e.time_range.start for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA and "mega_kernel" in e.name]
-    if len(k5) != n_prof:
-        raise AssertionError(f"the trace holds {len(k5)} K5 launches for {n_prof} frames")
+    if launched != n_prof or not k5 or n_kernels != len(k5):
+        raise AssertionError(f"{n_prof} frames: {launched} K5 launches counted, "
+                             f"{n_kernels - len(k5)} other kernels in the trace; "
+                             "stream_step_mega is one launch a frame")
     k5_ms = sum(k5) / len(k5) / 1e3
     os.makedirs("profiles", exist_ok=True)
     with open("profiles/mega_step_profile.txt", "w") as f:
         f.write(f"{smi}\n{prof.key_averages().table(sort_by='cuda_time_total', row_limit=30)}\n")
     print(f"  stream_step_mega traced, FullMini mamba fp32 B=1, {n_prof} frames on {smi}: wall "
-          f"{wall / n_prof:.4f} ms/frame, device busy {busy / n_prof:.4f} ms/frame (idle share "
-          f"{1 - busy / wall:.3f}), {n_kernels / n_prof:.1f} kernels/frame, K5 "
-          f"{k5_ms:.4f} ms of device time per launch")
+          f"{wall / n_prof:.4f} ms/frame, {launched / n_prof:.2f} K5 launches a frame (counted by "
+          f"the wrapper) and {n_kernels - len(k5)} other kernels among the {n_kernels} traced, "
+          f"device busy {busy / len(k5):.4f} ms a traced frame (idle share "
+          f"{1 - busy / len(k5) * n_prof / wall:.3f}), K5 {k5_ms:.4f} ms of device time per launch")
+
+
+def _base_k5(checkout):
+    """The K5 wrapper module of another checkout, launching that checkout's kernel."""
+    import importlib.util
+
+    from cleanumamba_tpu_torch.ops.cuda import build
+
+    spec = importlib.util.spec_from_file_location(
+        "base_stream_mega", os.path.join(checkout, "cleanumamba_tpu_torch", "ops", "cuda",
+                                         "stream_mega.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    csrc = os.path.join(checkout, "cleanumamba_tpu_torch", "csrc")
+    module.load_library = lambda name: build.load_library(name, csrc)
+    return module
 
 
 def main() -> int:
@@ -1447,6 +1613,10 @@ def main() -> int:
     parser.add_argument("--scan-only", action="store_true",
                         help="build and check K1/K2 only (phase 3's scan part, phase 6 with "
                              "its times, phase 8) and print no result lines")
+    parser.add_argument("--base-k5", metavar="DIR",
+                        help="a checkout of an earlier version (e.g. the parent commit unpacked "
+                             "with git archive): phase 12 times its K5 beside this one's in "
+                             "one trace")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -1475,8 +1645,13 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = ("stream_fused",) if args.fused_only else ("selective_scan",) if args.scan_only \
         else ("selective_scan", "stream_fused", "stream_mega")
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(build.load_library, sources))  # one nvcc per source, in parallel
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        jobs = [pool.submit(build.load_library, name) for name in sources]  # one nvcc each
+        if args.base_k5:
+            base_csrc = os.path.join(args.base_k5, "cleanumamba_tpu_torch", "csrc")
+            jobs.append(pool.submit(build.load_library, "stream_mega", base_csrc))
+        for job in jobs:
+            job.result()
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}", flush=True)
 
     rep = Report()
@@ -1528,7 +1703,7 @@ def main() -> int:
     launches["mega_stream_step"] = run_mega_path(
         dev, models, params32, cfg, (fused_encoder_level, fused_decoder_level))
     print("phase 12 times of the block-1 path:", flush=True)
-    time_mega(dev, models, rep, smi)
+    time_mega(dev, models, rep, smi, _base_k5(args.base_k5) if args.base_k5 else None)
 
     # launches: each path's own run (serving, phase 4; training, phase 7)
     for name, n in train_launches.items():

@@ -70,8 +70,6 @@
 //    so the overlap-add and the tail (t = T) come out of one epilogue.
 // Output layouts match stream_fused.py's packs: the decoder's grouped
 // (B, T, S*Cout) with column order k*Cout + cout.  No library GEMM is used.
-#include <cstdint>
-
 #include "common.cuh"
 
 namespace {
@@ -108,61 +106,6 @@ struct Split {
   int kblk;    // contraction rows per block (the last ranges may be shorter, or empty)
   int rpb;     // rows per group
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// bytes: a multiple of 16; dst and src 16-byte aligned.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Every thread of every block of the cluster has arrived; shared-memory
-// writes made before it are visible to the cluster after it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// The float at `p` in the shared memory of the cluster's block `rank`.
-__device__ __forceinline__ float load_cluster(const float* p, int rank) {
-  uint32_t remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(remote)
-               : "r"(smem_addr(p)), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote) : "memory");
-  return v;
-}
 
 // Two adjacent staged weights as fp32: the one place a weight type is decoded.
 __device__ __forceinline__ float2 load_w2(const float* p) {

@@ -26,8 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Flags of one source.  selective_scan.cu instantiates 54 kernels; nvcc
 # optimises them in parallel threads with -split-compile=0 (64 s against
-# 139 s on the 8 cores beside an NVIDIA H100 80GB HBM3).
-SOURCE_FLAGS = {"selective_scan": ("-split-compile=0",)}
+# 139 s on the 8 cores beside an NVIDIA H100 80GB HBM3).  stream_mega.cu's
+# two kernels and their shared contraction cores take 20-36 s there.
+SOURCE_FLAGS = {"selective_scan": ("-split-compile=0",), "stream_mega": ("-split-compile=0",)}
 
 
 def _nvcc() -> str:
@@ -47,27 +48,29 @@ def _flags(name: str) -> tuple:
 
 def _digest(src: pathlib.Path) -> str:
     h = hashlib.sha256(" ".join(_flags(src.stem)).encode())
-    for f in sorted(CSRC.glob("*.cuh")) + [src]:
+    for f in sorted(src.parent.glob("*.cuh")) + [src]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
 @functools.cache
-def load_library(name: str) -> ctypes.CDLL:
+def load_library(name: str, csrc: pathlib.Path = CSRC) -> ctypes.CDLL:
     """Build (if its sources changed) and load ``csrc/<name>.cu``.
 
-    Raises if ``nvcc`` is missing or the build fails; the compiler's output
-    (with ``-Xptxas -v``: registers, shared memory, spills per kernel) is
-    written beside the library as ``.log``.
+    ``csrc``: the sources' directory (another checkout's, to time an earlier
+    version of a kernel beside this one).  Raises if ``nvcc`` is missing or
+    the build fails; the compiler's output (with ``-Xptxas -v``: registers,
+    shared memory, spills per kernel) is written beside the library as
+    ``.log``.
     """
-    src = CSRC / f"{name}.cu"
+    src = pathlib.Path(csrc) / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}-{_digest(src)}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", str(tmp), str(src)],
+            [_nvcc(), *_flags(name), "-I", str(src.parent), "-o", str(tmp), str(src)],
             capture_output=True, text=True)
         lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:

@@ -305,6 +305,248 @@ def pack_mega(params, cfg, compute_dtype=torch.bfloat16):
 
 
 # --------------------------------------------------------------------------
+# The cluster plan: how every product of a frame is cut over the blocks of a
+# thread block cluster, and when each block copies its weights into its ring
+# --------------------------------------------------------------------------
+
+CLUSTERS = (8, 4, 2, 1)
+# Layout of the plan table, shared with csrc/stream_mega.cu: a header, then
+# one record per product and rank.
+_PLAN_HDR, _PLAN_REC, _MAX_PROD = 16, 10, 96
+_SMEM_LIMIT = 227 * 1024   # dynamic shared memory of one block on sm_90
+# bytes before the activations: the products' mbarriers, copies of the model table
+# and of a block's plan records (csrc/stream_mega.cu: kActOff)
+_HEAD = 2048 + 4 * _TABLE_LEN + 4 * _MAX_PROD * _PLAN_REC
+# a product this small, whose weights take at most this share of the ring,
+# runs whole in every block of the cluster
+_REDUNDANT_MACS, _REDUNDANT_RING_SHARE = 16384, 4
+_MIN_COLS = 32             # columns a block keeps where rows are left to split: one a lane
+# with fp32 weights, a level's product whose blocks keep at least _MMA_ROWS
+# rows runs on the tensor cores (tiles of 16 columns x 8 rows; _MMA_COLS
+# columns a block where the rows allow).  bf16 packs keep one thread's sum in
+# k order: the tensor cores' order moved a bf16 decoder tail of the capstone
+# checkpoint by 2.09 % of its largest value, past the checks' 2 %.
+_MMA_ROWS, _MMA_COLS = 8, 16
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _products(meta):
+    """Every weight product of a frame in the kernel's order, as dicts: name,
+    rows T (a ConvTranspose counts its T + 1 virtual rows), contraction K,
+    columns N, ``srcs`` (one (weight slice, first column) per weight set of
+    the product) and NI input row sets (2: the ConvTranspose's lo and hi
+    taps read rows t and t - 1)."""
+    sw = meta["slices_w"]
+    prods = []
+
+    def add(name, T, K, N, srcs, NI=1, multi=False):
+        prods.append(dict(name=name, T=T, K=K, N=N, srcs=tuple(srcs), NI=NI, multi=multi))
+
+    for i, e in enumerate(meta["enc"]):
+        half = e["C2"] // 2
+        add(f"e{i}c", e["T"], meta["K"] * e["Cin"], e["C"], [(f"e{i}cw", 0)], multi=True)
+        add(f"e{i}m", e["T"], e["C"], half, [(f"e{i}mw", 0), (f"e{i}mw", half)], multi=True)
+    C_last, d_model = sw["c1w"][1]
+    add("c1", 1, C_last, d_model, [("c1w", 0)])
+    for li, bm in enumerate(meta["bott"]):
+        def mat(name, NW=1, split=0):
+            K, N = sw[f"m{li}{name}"][1]
+            N = N // NW if split else N
+            add(f"m{li}{name}", 1, K, N, [(f"m{li}{name}", j * split) for j in range(NW)])
+
+        kind = meta["kind"]
+        if kind == "lstm":
+            mat("wx")
+        elif kind == "mha":
+            d = bm["d"]
+            add(f"m{li}qkv", 1, d, d, [(f"m{li}w{x}", 0) for x in "qkv"])
+            for name in ("fc", "f1", "f2"):
+                mat(name)
+        elif kind == "mamba":
+            for name in ("in", "xp", "dtw", "out"):
+                mat(name)
+        elif kind == "mamba2":
+            mat("in")
+            mat("out")
+        else:  # mamba_s4
+            mat("in")
+            mat("ulw")
+            mat("olw", NW=2, split=bm["d_inner"])
+            mat("out")
+    add("c2", 1, sw["c2w"][1][0], C_last, [("c2w", 0)])
+    for j, d in enumerate(meta["dec"]):
+        Cg, N = d["C2"] // 2, meta["S"] * d["Cout"]
+        add(f"d{j}m", d["T"], d["C"], Cg, [(f"d{j}mw", 0), (f"d{j}mw", Cg)], multi=True)
+        add(f"d{j}t", d["T"] + 1, Cg, N, [(f"d{j}ct", 0), (f"d{j}ct", N)], NI=2, multi=True)
+    return prods
+
+
+def _mma_shape(T, N, C):
+    """(row ranks, column ranks) of a product on the tensor cores: the most
+    column ranks that leave a block ``_MMA_ROWS`` rows and ``_MMA_COLS``
+    columns, else the fewest that leave it the rows; None if none does."""
+    shapes = [(C // Cc, Cc) for Cc in CLUSTERS if Cc <= C and _cdiv(T, C // Cc) >= _MMA_ROWS]
+    wide = [s for s in shapes if _cdiv(N, s[1]) >= _MMA_COLS]
+    return wide[0] if wide else (shapes[-1] if shapes else None)
+
+
+def _split_shape(T, N, C):
+    """(row ranks, column ranks) of a product split over a cluster of C:
+    columns as long as a block keeps ``_MIN_COLS`` of them (a warp's lanes on
+    neighbouring columns) and rows are left to split, the rest over rows."""
+    Cc = C
+    while Cc > 1 and _cdiv(N, Cc) < _MIN_COLS and 2 * (C // Cc) <= T:
+        Cc //= 2
+    return C // Cc, Cc
+
+
+def _aux_floats(meta):
+    """Floats of the kernel's reduction scratch and of one rank's slot in the
+    MHA exchange (per layer parity)."""
+    red = 4096  # a split contraction's partial sums: parts x outputs x weight sets
+    red = max([red] + [2 * b["H"] * b["N"] for b in meta["bott"] if "N" in b])
+    xch = 2 * meta["n_head"] + meta["bott"][0]["d"] if meta["kind"] == "mha" else 0
+    return red, xch
+
+
+def _smem_layout(meta):
+    """Byte offsets of K5's shared memory, the same for every cluster size:
+    mbarriers and tables, the activations (``meta["smem_bytes"]``), the reduction
+    scratch, the MHA exchange (two layer parities x 8 ranks), the header rows
+    of every level's input window (S rows of the OLD cache a level), then the
+    ring of weight slabs up to the limit."""
+    red, xch = _aux_floats(meta)
+    red_off = _HEAD + meta["smem_bytes"]
+    xch_off = red_off + 4 * red
+    hdr_off = xch_off + 4 * 2 * CLUSTERS[0] * xch
+    hdr = sum(meta["S"] * e["C2"] // 2 for e in meta["enc"][:-1])
+    ring_off = _cdiv(hdr_off + 4 * hdr, 128) * 128
+    ring = max(0, (_SMEM_LIMIT - ring_off) // 16 * 16)
+    return dict(red_off=red_off, xch_off=xch_off, xch=xch, hdr_off=hdr_off, ring_off=ring_off,
+                ring=ring, smem=ring_off + ring)
+
+
+def mega_plan(meta, C):
+    """The plan of a frame for a cluster of ``C`` blocks, a pure function of
+    ``meta``.  Returns a dict: ``products`` (``_products`` with, per product,
+    ``split``, ``mma`` and ``ranks``: per rank (first row, rows, first column,
+    columns, offset of its slab in the kernel's weight buffer, bytes, ring
+    offset or -1, the product after which it is copied or -1)), ``slabs``
+    (offset, product, first column, columns: the weight buffer's layout),
+    ``wk_len`` (its elements), ``table`` (the int32 plan the kernel reads)
+    and ``smem`` (bytes of dynamic shared memory).
+
+    A product of at most ``_REDUNDANT_MACS`` multiply-adds (with bf16
+    weights also one of no more outputs than a block has threads) whose
+    weights fit ``1 / _REDUNDANT_RING_SHARE`` of the ring runs whole in every
+    block (no exchange, no cluster barrier); any other is cut into C blocks
+    of rows x columns (``_split_shape``), ranks in row-major order, each
+    block's outputs written into every block's shared memory.  With fp32
+    weights a level's product whose blocks keep at least ``_MMA_ROWS`` rows
+    (``_mma_shape``) runs on the tensor cores (``mma``).  A block's slab is
+    its columns
+    of the product's weights, (K, weight set, columns) row-major, copied by
+    one bulk copy into a ring of shared memory as soon as the ring space it
+    takes has been read (the product that last used it has ended); a slab
+    larger than the ring is read from device memory where it lies."""
+    if C not in CLUSTERS:
+        raise ValueError(f"cluster of {C} blocks: expected one of {CLUSTERS}")
+    esize = torch.empty((), dtype=meta["cdt"]).element_size()
+    elem_align = 16 // esize
+    prods = _products(meta)
+    if len(prods) > _MAX_PROD:
+        raise ValueError(f"{len(prods)} products, the kernel takes {_MAX_PROD}")
+    lay = _smem_layout(meta)
+    ring, ring_off = lay["ring"], lay["ring_off"]
+
+    wk_len, slabs = 0, []
+    for pi, p in enumerate(prods):
+        NW = len(p["srcs"])
+        whole = p["K"] * NW * p["N"] * esize
+        # a bf16 product is summed in one thread an output (the kernel's
+        # kSplitK): cutting one with no more outputs than a block has threads
+        # shortens no thread's sum and only adds the exchange
+        big = p["T"] * p["K"] * p["N"] * NW > _REDUNDANT_MACS and (
+            meta["cdt"] == torch.float32 or p["T"] * p["N"] > _THREADS)
+        p["split"] = int(C > 1 and (big or whole > ring // _REDUNDANT_RING_SHARE))
+        shape = None
+        if p["multi"] and meta["cdt"] == torch.float32:
+            shape = (_mma_shape(p["T"], p["N"], C) if p["split"]
+                     else (1, 1) if p["T"] >= _MMA_ROWS else None)
+        p["mma"] = int(shape is not None)
+        Cr, Cc = shape or (_split_shape(p["T"], p["N"], C) if p["split"] else (1, 1))
+        tr, ncr = _cdiv(p["T"], Cr), _cdiv(p["N"], Cc)
+        blocks = []
+        for rc in range(Cc):
+            n0 = min(p["N"], rc * ncr)
+            nc = min(p["N"], n0 + ncr) - n0
+            blocks.append((wk_len, n0, nc))
+            if nc:
+                slabs.append((wk_len, pi, n0, nc))
+                wk_len += _cdiv(p["K"] * NW * nc, elem_align) * elem_align
+        ranks = []
+        for r in range(C):
+            rr, rc = (r // Cc, r % Cc) if p["split"] else (0, 0)
+            row0 = min(p["T"], rr * tr)
+            src, n0, nc = blocks[rc]
+            nbytes = _cdiv(p["K"] * NW * nc * esize, 16) * 16
+            ranks.append([row0, min(p["T"], row0 + tr) - row0, n0, nc, src, nbytes, -1, -1])
+        p["ranks"] = ranks
+
+    # each block's ring: slabs placed one after the other, wrapping at its end;
+    # a slab is copied once every earlier slab whose space it takes is read
+    for r in range(C):
+        pos, placed, after = 0, [], -1
+        for pi, p in enumerate(prods):
+            rec = p["ranks"][r]
+            size = rec[5]
+            if size == 0 or size > ring:
+                continue
+            start = pos if pos % ring + size <= ring else _cdiv(pos, ring) * ring
+            end = start + size
+            for q, s_q, e_q in placed:
+                if e_q > start - ring and s_q < end - ring:
+                    after = max(after, q)
+            rec[6], rec[7] = ring_off + start % ring, after
+            placed.append((pi, start, end))
+            pos = end
+
+    table = [0] * (_PLAN_HDR + len(prods) * C * _PLAN_REC)
+    table[:9] = [C, len(prods), ring_off, ring, lay["red_off"], lay["xch_off"], lay["xch"],
+                 lay["smem"], lay["hdr_off"]]
+    for pi, p in enumerate(prods):
+        for r, rec in enumerate(p["ranks"]):
+            base = _PLAN_HDR + (pi * C + r) * _PLAN_REC
+            table[base: base + _PLAN_REC] = [p["split"], *rec, p["mma"]]
+    return dict(products=prods, slabs=slabs, wk_len=wk_len, table=table, **lay)
+
+
+def _cluster_pack(arrays, meta, C):
+    """(weight buffer, plan table, shared memory bytes) of a cluster of C for
+    the kernel, built once per pack and cluster size and kept in ``meta``."""
+    cache = meta.setdefault("cluster", {})
+    if C not in cache:
+        plan = mega_plan(meta, C)
+        w = arrays["w"].cpu()
+        wk = torch.zeros(plan["wk_len"], dtype=w.dtype)
+        for off, pi, n0, nc in plan["slabs"]:
+            p = plan["products"][pi]
+            parts = []
+            for name, col in p["srcs"]:
+                base, shape = meta["slices_w"][name]
+                m = w[base: base + math.prod(shape)].view(shape[0], -1)
+                parts.append(m[:, col + n0: col + n0 + nc])
+            wk[off: off + p["K"] * len(parts) * nc] = torch.stack(parts, dim=1).reshape(-1)
+        dev = arrays["w"].device
+        cache[C] = (wk.to(dev), torch.tensor(plan["table"], dtype=torch.int32, device=dev),
+                    plan["smem"])
+    return cache[C]
+
+
+# --------------------------------------------------------------------------
 # Plain PyTorch version (the CPU path; the reference on the card)
 # --------------------------------------------------------------------------
 
@@ -475,6 +717,30 @@ def mega_stream_step_ref(x_norm, state, arrays, meta):
     return {"enc": enc_new, "dec": dec_new, "bottleneck": bott}, xd[:, :, 0].to(out_dtype)
 
 
+def mega_stream_frame_ref(state, new_samples, arrays, meta, normalize):
+    """The whole frame with the input normalisation around it, in plain
+    PyTorch (``cleanumamba_tpu/streaming.py::stream_step_mega``): the frame
+    is the tail and the new samples; with ``normalize`` the running std (an
+    EMA of the frame's population std + 1e-3 with weight 1/frames) scales
+    it down before :func:`mega_stream_step_ref` and the output up after.
+    Returns ``(the whole new state, out (B, total_stride))``."""
+    frame = torch.cat([state["input_tail"], new_samples], dim=1)
+    frames = state["frames"] + 1
+    if normalize:
+        inv_n = 1.0 / frames.float()
+        std_now = frame.float().std(dim=1, keepdim=True, correction=0) + 1e-3
+        input_std = std_now * inv_n + (1.0 - inv_n) * state["input_std"]
+        x = frame.float() / input_std
+    else:
+        input_std = state["input_std"]
+        x = frame.float()
+    upd, out = mega_stream_step_ref(x, state, arrays, meta)
+    if normalize:
+        out = out * input_std.to(out.dtype)
+    return {"input_tail": frame[:, meta["total_stride"]:], "input_std": input_std,
+            "frames": frames, **upd}, out
+
+
 # --------------------------------------------------------------------------
 # Kernel wrapper: CUDA tensors launch csrc/stream_mega.cu
 # --------------------------------------------------------------------------
@@ -482,10 +748,35 @@ def mega_stream_step_ref(x_norm, state, arrays, meta):
 @functools.cache
 def _kernel():
     fn = load_library("stream_mega").mega_stream_step
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def clusters_at_once(code: int, cluster: int, smem: int) -> int:
+    """K5's clusters of ``cluster`` blocks that the card holds at once."""
+    fn = load_library("stream_mega").mega_clusters_at_once
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    n = fn(code, cluster, _THREADS, smem)
+    if n < 0:
+        raise RuntimeError(f"mega_clusters_at_once: CUDA error {-n}")
+    return n
+
+
+@functools.cache
+def fit_cluster(code: int, B: int, smem: int) -> int:
+    """The largest cluster (8, 4, 2 or 1 blocks a stream) with which B
+    streams take no more waves than blocks alone would: a cluster needs all
+    its SMs free at once in one part of the card."""
+    def waves(c):
+        at_once = clusters_at_once(code, c, smem)
+        return _cdiv(B, at_once) if at_once > 0 else float("inf")
+
+    least = waves(1)
+    return next(c for c in CLUSTERS if waves(c) <= least)
 
 
 def _checked(what, device, t, shape, name, dtype=torch.float32):
@@ -495,6 +786,17 @@ def _checked(what, device, t, shape, name, dtype=torch.float32):
                          f"{tuple(shape)} {dtype}")
     require_cuda(what, device, **{name: t})
     return t
+
+
+def _rows(what, device, t, shape, name):
+    """An fp32 tensor of ``shape`` on ``device`` whose rows are contiguous
+    (a slice of columns of a larger tensor will do): its row stride."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32:
+        raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype}, expected "
+                         f"{tuple(shape)} torch.float32")
+    if t.device != device or t.stride(1) != 1:
+        raise ValueError(f"{what}: {name} must lie on {device} with contiguous rows")
+    return t.stride(0)
 
 
 def _bottleneck_io(what, device, meta, cache, B):
@@ -529,34 +831,24 @@ def _bottleneck_io(what, device, meta, cache, B):
     return pairs, new, None
 
 
-def mega_stream_step(x_norm, state, arrays, meta):
-    """K5.  One whole block-1 frame.
-
-    x_norm: (B, frame_length) normalised input; ``state``: the streaming
-    state of ``streaming.py`` (its ``enc``, ``dec`` and ``bottleneck``
-    leaves are read); ``arrays, meta``: ``pack_mega``'s.  Returns
-    ``({"enc", "dec", "bottleneck"}, out (B, total_stride))``: the new state
-    leaves in newly allocated tensors (a step is repeatable) and the frame's
-    output; the caller keeps the normalisation scalars.
-
-    The kernel for CUDA tensors (fp32 input and state, contiguous), the plain
-    version for CPU tensors.
-    """
-    if x_norm.device.type == "cpu":
-        return mega_stream_step_ref(x_norm, state, arrays, meta)
-    if x_norm.device.type != "cuda":
-        raise ValueError(f"mega_stream_step: no kernel for device {x_norm.device}")
-    what = "mega_stream_step"
-    dev = x_norm.device
-    D, S = meta["D"], meta["S"]
-    B = x_norm.shape[0]
-    if tuple(x_norm.shape) != (B, meta["frame_length"]) or x_norm.dtype != torch.float32:
-        raise ValueError(f"{what}: x is {tuple(x_norm.shape)} {x_norm.dtype}, expected "
-                         f"(B, {meta['frame_length']}) torch.float32")
+def _launch(what, tail, new, state, arrays, meta, norm=None):
+    """One launch of K5 on ``B`` streams: the frame is ``tail`` (B,
+    frame_length - total_stride) and ``new`` (B, total_stride), each with
+    contiguous rows.  ``norm``: None (the frame is already normalised; the
+    kernel writes no tail, std or count), or ``(input_std, frames,
+    normalize)``: the kernel writes the new tail, std and count and, with
+    ``normalize``, scales the frame and its output.  Returns ``(upd, out)``,
+    upd the new ``enc``, ``dec``, ``bottleneck`` (and ``input_tail``,
+    ``input_std``, ``frames`` with ``norm``) leaves in new tensors."""
+    dev = new.device
+    D, S, FL, TS = meta["D"], meta["S"], meta["frame_length"], meta["total_stride"]
+    B = new.shape[0]
+    ld_tail = _rows(what, dev, tail, (B, FL - TS), "input tail")
+    ld_new = _rows(what, dev, new, (B, TS), "new samples")
     if arrays["w"].dtype != meta["cdt"] or arrays["w"].dtype not in DTYPE_CODES:
         raise TypeError(f"{what}: pack dtype {arrays['w'].dtype}, expected {meta['cdt']} "
                         "(float32 or bfloat16)")
-    require_cuda(what, dev, x=x_norm, **arrays)
+    require_cuda(what, dev, **arrays)
 
     ptrs = [0] * _MAX_PTRS
     enc_new, dec_new = [], []
@@ -578,17 +870,70 @@ def mega_stream_step(x_norm, state, arrays, meta):
     if pos is not None:
         ptrs[4 * D + 6 * L], ptrs[4 * D + 6 * L + 1] = pos[0].data_ptr(), pos[1].data_ptr()
 
-    out = torch.empty((B, meta["total_stride"]), dtype=torch.float32, device=dev)
+    out = torch.empty((B, TS), dtype=torch.float32, device=dev)
+    upd = {"enc": enc_new, "dec": dec_new, "bottleneck": bott_new}
+    io = [0] * 6  # std in, frames in, tail out, std out, frames out; normalize
+    if norm is not None:
+        std, frames, normalize = norm
+        _checked(what, dev, std, (B, 1), "input_std")
+        _checked(what, dev, frames, (B, 1), "frames", torch.int32)
+        upd = {"input_tail": torch.empty((B, FL - TS), dtype=torch.float32, device=dev),
+               "input_std": torch.empty_like(std), "frames": torch.empty_like(frames), **upd}
+        io = [std.data_ptr(), frames.data_ptr(), upd["input_tail"].data_ptr(),
+              upd["input_std"].data_ptr(), upd["frames"].data_ptr(), int(bool(normalize))]
     if B == 0:
-        return {"enc": enc_new, "dec": dec_new, "bottleneck": bott_new}, out
+        return upd, out
+    code = DTYPE_CODES[meta["cdt"]]
+    cluster = fit_cluster(code, B, _smem_layout(meta)["smem"])
+    wk, plan, smem = _cluster_pack(arrays, meta, cluster)
     status = _kernel()(
-        DTYPE_CODES[meta["cdt"]], x_norm.data_ptr(), out.data_ptr(), arrays["w"].data_ptr(),
-        arrays["f"].data_ptr(), arrays["table"].data_ptr(),
-        (ctypes.c_void_p * _MAX_PTRS)(*ptrs), _MAX_PTRS, B, _THREADS, meta["smem_bytes"],
+        code, tail.data_ptr(), ld_tail, new.data_ptr(), ld_new, *io, out.data_ptr(),
+        wk.data_ptr(), arrays["w"].data_ptr(), arrays["f"].data_ptr(), arrays["table"].data_ptr(),
+        plan.data_ptr(),
+        (ctypes.c_void_p * _MAX_PTRS)(*ptrs), _MAX_PTRS, B, cluster, _THREADS, smem,
         stream_ptr(dev))
     check(status, what)
     mega_stream_step.launches += 1
-    return {"enc": enc_new, "dec": dec_new, "bottleneck": bott_new}, out
+    return upd, out
 
 
+def mega_stream_step(x_norm, state, arrays, meta):
+    """K5.  One whole block-1 frame, the JAX package's contract.
+
+    x_norm: (B, frame_length) normalised input; ``state``: the streaming
+    state of ``streaming.py`` (its ``enc``, ``dec`` and ``bottleneck``
+    leaves are read); ``arrays, meta``: ``pack_mega``'s.  Returns
+    ``({"enc", "dec", "bottleneck"}, out (B, total_stride))``: the new state
+    leaves in newly allocated tensors (a step is repeatable) and the frame's
+    output; the caller keeps the normalisation scalars.
+
+    The kernel for CUDA tensors (fp32 input and state, contiguous), the plain
+    version for CPU tensors.  The kernel is the one of
+    :func:`mega_stream_frame` with the normalisation off, the frame split
+    into its tail and new samples where it lies.
+    """
+    if x_norm.device.type == "cpu":
+        return mega_stream_step_ref(x_norm, state, arrays, meta)
+    if x_norm.device.type != "cuda":
+        raise ValueError(f"mega_stream_step: no kernel for device {x_norm.device}")
+    cut = meta["frame_length"] - meta["total_stride"]
+    return _launch("mega_stream_step", x_norm[:, :cut], x_norm[:, cut:], state, arrays, meta)
+
+
+def mega_stream_frame(state, new_samples, arrays, meta, normalize):
+    """K5 with the input normalisation inside the launch: the single-frame
+    step of ``streaming.stream_step_mega`` from the raw tail
+    (``state["input_tail"]``), the new samples (B, total_stride), the running
+    std and the frame count.  Returns ``(the whole new state, out)``, every
+    leaf in a new tensor.  One launch for CUDA tensors;
+    :func:`mega_stream_frame_ref` for CPU tensors."""
+    if new_samples.device.type == "cpu":
+        return mega_stream_frame_ref(state, new_samples, arrays, meta, normalize)
+    if new_samples.device.type != "cuda":
+        raise ValueError(f"mega_stream_frame: no kernel for device {new_samples.device}")
+    return _launch("mega_stream_frame", state["input_tail"], new_samples, state, arrays, meta,
+                   norm=(state["input_std"], state["frames"], normalize))
+
+
+# launches of the kernel, through either entry point
 mega_stream_step.launches = 0

@@ -51,7 +51,7 @@ from cleanumamba_tpu_torch.ops.cuda.stream_fused import (
     pack_stream_params,
 )
 from cleanumamba_tpu_torch.ops.cuda.stream_mega import level_lengths as _level_lengths
-from cleanumamba_tpu_torch.ops.cuda.stream_mega import mega_stream_step, pack_mega
+from cleanumamba_tpu_torch.ops.cuda.stream_mega import mega_stream_frame, pack_mega
 from cleanumamba_tpu_torch.ops.norms import gated_rms_norm
 from cleanumamba_tpu_torch.params import prepare_weight_view, resolve_device, to_device, tree_map
 
@@ -303,27 +303,15 @@ def stream_step(params, cfg: CleanUMambaConfig, state, new_samples,
 
 
 def stream_step_mega(cfg: CleanUMambaConfig, state, new_samples, mega):
-    """The single-frame step through the whole-frame kernel (K5 on CUDA, its
-    plain version on the CPU): the same function as :func:`stream_step` in
-    fp32; only the normalisation EMA before and the rescale after it stay
-    plain torch.  ``mega``: ``(arrays, meta)`` from ``pack_mega``."""
-    arrays, meta = mega
-    frame = torch.cat([state["input_tail"], new_samples], dim=1)
-    frames = state["frames"] + 1
-    if cfg.normalize_input:
-        inv_n = 1.0 / frames.float()
-        input_std = _std(frame, 1) * inv_n + (1.0 - inv_n) * state["input_std"]
-        x = frame.float() / input_std
-    else:
-        input_std = state["input_std"]
-        x = frame.float()
+    """The single-frame step through the whole-frame kernel: the same function
+    as :func:`stream_step` in fp32, the normalisation EMA before and the
+    rescale after included.  On CUDA one launch of K5; on the CPU its plain
+    version.  ``mega``: ``(arrays, meta)`` from ``pack_mega``."""
     # a state left by stream_prime or stream_step holds slices of larger tensors
-    upd, out = mega_stream_step(
-        x.contiguous(), tree_map(lambda t: t.contiguous(), state), arrays, meta)
-    if cfg.normalize_input:
-        out = out * input_std.to(out.dtype)
-    return {"input_tail": frame[:, cfg.total_stride:], "input_std": input_std,
-            "frames": frames, **upd}, out
+    # (the kernel takes the tail and the new samples with any row stride)
+    state = {k: (v if k == "input_tail" else tree_map(lambda t: t.contiguous(), v))
+             for k, v in state.items()}
+    return mega_stream_frame(state, new_samples, *mega, normalize=cfg.normalize_input)
 
 
 def _stack_strided_frames(window, starts, length):
