@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``cleanumamba_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA device
-    python3 chip_smoke.py --fused-only   # K3/K4 alone: their part of phases 3-5
+    python3 chip_smoke.py --fused-only   # K3/K4 alone: their part of phases 3-5, and 13
     python3 chip_smoke.py --scan-only    # K1/K2 alone: their part of phases 3, 6 and 8
     python3 chip_smoke.py --base-k5 DIR  # phase 12 also times DIR's K5 (an earlier checkout)
 
@@ -71,7 +71,26 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     width and bottleneck layers, per family and pack and at batch 2, 8 and
     32 (with ``--base-k5 DIR``, another checkout's K5 in the same trace, in
     turns); a ``torch.profiler`` window of the mega path (device busy per
-    frame, idle share, and one kernel a frame, asserted).
+    frame, idle share, and one kernel a frame, asserted);
+13. K3/K4 with int8 weights (E8 quantized at ``quant_min_size=4096``, bf16
+    compute; two levels mix a dense conv with an int8 mix) against their
+    plain versions on the same packs: every E8 level at block 1, batch 1, 2
+    and 8, with and without ``prev``; every ragged level of both
+    ``artifacts/*.pkl`` at batch 2; a repeated call bit for bit; then the
+    device time of one frame's 16 int8 level calls from a trace beside the
+    bf16 packs' 16 calls in the same trace, the bytes and the bounds;
+14. the int8 serving path: E8 ``Streamer(weights="int8", fused=True)`` over
+    2 s in 256-sample hops and a flush resolves to "fused", launches the
+    int8 K3/K4 at every level of every frame stepped, and equals the same
+    ``Streamer`` on the CPU (plain versions) within the bf16 bound;
+    ``fused="auto"`` with int8 resolves to "plain";
+15. ``SessionMultiplexer`` on E8: three staggered sessions equal each
+    streamed alone; slots 8 at block 16 (K1 launched) and slots 1 and 8 at
+    block 1, each with bf16 and int8 weights: wall, device busy and kernels
+    per tick of its traffic, and the batched step's audio-s/s with every
+    slot live (``cli/serve.py --bench`` in process); then ``cli/serve.py``
+    (bench and demo), ``cli/denoise.py`` on a reference-format checkpoint
+    and ``cli/stream_demo.py --synthetic`` as subprocesses.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernels' summary as JSON: each kernel's launches on its path, error, time,
@@ -85,7 +104,9 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -156,10 +177,11 @@ class Report:
         self.ms = {}
         self.bound = {}
 
-    def check(self, kernel, label, got, ref, tol):
+    def check(self, kernel, label, got, ref, tol, quiet=False):
         err, rel = _rel_err(got, ref)
         self.err[kernel] = max(self.err.get(kernel, 0.0), err)
-        print(f"  {kernel} {label}: max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g})")
+        if not quiet:
+            print(f"  {kernel} {label}: max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g})")
         if not rel <= tol:
             raise AssertionError(f"{kernel} {label}: relative error {rel:.3e} > {tol:g}")
 
@@ -657,7 +679,7 @@ def run_slice(dev, cfg, params32, counters):
     from cleanumamba_tpu_torch.params import prepare_weight_view
     from cleanumamba_tpu_torch.streaming import Streamer, stream_prime, stream_step_block
 
-    params16 = prepare_weight_view(params32, "bf16")
+    params16 = prepare_weight_view(params32, "bf16")[0]
     ts, fl = cfg.total_stride, cfg.frame_length
     n_blocks, per_block = 64, 16
     rng = np.random.default_rng(0)
@@ -763,7 +785,7 @@ def trace_block1(dev, cfg, params32, smi):
     from cleanumamba_tpu_torch.params import prepare_weight_view
     from cleanumamba_tpu_torch.streaming import stream_prime, stream_step
 
-    view = prepare_weight_view(params32, "bf16")
+    view = prepare_weight_view(params32, "bf16")[0]
     packs = pack_stream_params(view, cfg, torch.bfloat16)
     ts, fl = cfg.total_stride, cfg.frame_length
     n_warm, n_prof = 10, 40
@@ -807,7 +829,7 @@ def trace_offline(dev, cfg, params32, smi):
 
     x = _noise(dev, 2, 10 * SR, seed=5, scale=0.1)
     n_prof = 5
-    for name, params in (("fp32", params32), ("bf16", prepare_weight_view(params32, "bf16"))):
+    for name, params in (("fp32", params32), ("bf16", prepare_weight_view(params32, "bf16")[0])):
         with torch.no_grad():
             for _ in range(3):
                 y = forward(params, x, cfg)
@@ -1151,7 +1173,7 @@ def _mega_vs_plain(rep, label, params, cfg, cdt, B, dev, n_frames=8, wrap_ring=F
     from cleanumamba_tpu_torch.params import prepare_weight_view, tree_leaves
     from cleanumamba_tpu_torch.streaming import stream_prime
 
-    view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")
+    view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")[0]
     mega = pack_mega(view, cfg, cdt)
     if mega is None:
         raise AssertionError(f"{label}: the model does not pack")
@@ -1436,7 +1458,7 @@ def time_mega(dev, models, rep: Report, smi, base=None):
         state = _contiguous(state)
         frame = torch.cat([state["input_tail"], new], 1).contiguous()
         for cdt_name, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")
+            view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")[0]
             mega = pack_mega(view, cfg, cdt)
             packs = pack_stream_params(view, cfg, cdt)
             runs = {
@@ -1538,7 +1560,7 @@ def time_mega(dev, models, rep: Report, smi, base=None):
             cfg, torch.Generator().manual_seed(0), dev)), torch.float32, 1))
     turns = {}
     for label, (cfg, params), cdt, B in cases:
-        view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")
+        view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")[0]
         mega = pack_mega(view, cfg, cdt)
         fns = {"new": k5_call(new_k5, mega, cfg, params, B)}
         if base is not None:
@@ -1587,6 +1609,370 @@ def time_mega(dev, models, rep: Report, smi, base=None):
           f"the wrapper) and {n_kernels - len(k5)} other kernels among the {n_kernels} traced, "
           f"device busy {busy / len(k5):.4f} ms a traced frame (idle share "
           f"{1 - busy / len(k5) * n_prof / wall:.3f}), K5 {k5_ms:.4f} ms of device time per launch")
+
+
+# --------------------------------------------------------------------------
+# Phases 13-15: int8 weights in K3/K4, the int8 serving path, the multiplexer
+# --------------------------------------------------------------------------
+
+INT8_MIN_SIZE = 4096  # quant_min_size of Streamer and SessionMultiplexer
+
+
+def _stored_level_bytes(sf, pk):
+    """Bytes of a level pack's weights as they are stored (int8 values and
+    their per-column scales, or bf16) and its biases, at their logical size."""
+    arrays, meta = pk
+    n = sum(arrays[k].numel() * 4 for k in sf._BIASES if k in arrays)
+    kind, dims = sf._level_dims(meta)  # the output widths of the two products: dims[1:]
+    for name, N in zip(("cw", "mw") if kind == "enc" else ("mw", "ctw"), dims[1:]):
+        mats = sf._untile(arrays[name], N)
+        n += sum(m.numel() * m.element_size() for m in mats)
+        if name + "_scale" in arrays:
+            n += len(mats) * N * 4
+    return n
+
+
+def _int8_levels(sf, cfg, q):
+    """Every level of an int8 tree packed (bf16 compute): (encoder packs,
+    decoder packs, levels whose two products mix a dense and an int8 weight)."""
+    D = cfg.encoder_n_layers
+    enc = [sf.pack_encoder_level(ep, cfg, i, torch.bfloat16) for i, ep in enumerate(q["encoder"])]
+    dec = [sf.pack_decoder_level(dp, cfg, D - 1 - j, torch.bfloat16)
+           for j, dp in enumerate(q["decoder"])]
+    mixed = sum(len({w.dtype for w in sf._level_weights(a)}) == 2 for a, _ in enc + dec)
+    return enc, dec, mixed
+
+
+def check_fused_int8(dev, cfg, params32, rep: Report, smi):
+    """Phase 13: K3/K4 with int8 weights (E8 quantized at min_size 4096, bf16
+    compute) against their plain versions on the same pack: every level at
+    block 1, batch 1, 2 and 8, the decoder with and without prev; every level
+    of both pruned checkpoints, batch 2; a repeated call bit for bit.  Then
+    the device time of one frame's 16 int8 level calls from a trace, beside
+    the bf16 packs' 16 calls in the same trace, and the bounds."""
+    from cleanumamba_tpu_torch.ops.cuda import stream_fused as sf
+    from cleanumamba_tpu_torch.params import load_checkpoint, prepare_weight_view
+    from cleanumamba_tpu_torch.quant import quantize_params
+
+    D, S = cfg.encoder_n_layers, cfg.stride
+    g = torch.Generator().manual_seed(13)
+    rn = lambda *s: (torch.randn(*s, generator=g) * 0.5).to(dev)  # noqa: E731
+    names = ("fused_encoder_level_int8", "fused_decoder_level_int8")
+
+    def check_level(kind, pk, B, T, has_prev, label, relu=True):
+        """Kernel vs plain on one call; returns the call's inputs."""
+        if kind == "enc":
+            win = _enc_case(pk, B, T, rn)
+            rep.check(names[0], label, sf.fused_encoder_level(win, *pk),
+                      sf.fused_encoder_level_plain(win, *pk), BF16_TOL, quiet=True)
+            return (win, pk)
+        x, skip, prev = _dec_case(pk, B, T, rn, has_prev)
+        got = sf.fused_decoder_level(x, skip, prev, *pk, relu=relu)
+        want = sf.fused_decoder_level_plain(x, skip, prev, *pk, relu=relu)
+        rep.check(names[1], label + " out", got[0], want[0], BF16_TOL, quiet=True)
+        rep.check(names[1], label + " tail", got[1], want[1], BF16_TOL, quiet=True)
+        return (x, skip, prev, pk, relu)
+
+    enc, dec, mixed = _int8_levels(sf, cfg, quantize_params(params32, INT8_MIN_SIZE))
+    if mixed < 2:
+        raise AssertionError(f"E8 int8: {mixed} levels mix a dense and an int8 weight, expected 2")
+    enc_calls, dec_calls, deep_dec = [], [], None
+    for B in (1, 2, 8):
+        for i, pk in enumerate(enc):
+            call = check_level("enc", pk, B, S ** (D - 1 - i), False, f"level {i} B={B}")
+            if B == 1:
+                enc_calls.append(call)
+        for j, pk in enumerate(dec):
+            for has_prev in (False, True):
+                call = check_level("dec", pk, B, S ** j, has_prev,
+                                   f"level {j} B={B} prev={has_prev}", relu=j != D - 1)
+                if B == 1 and has_prev:
+                    dec_calls.append(call)
+                if B == 8 and j == 1 and has_prev:
+                    deep_dec = call
+    print(f"  E8 int8 packs (min_size {INT8_MIN_SIZE}, {mixed} levels mixing dense and int8 "
+          f"weights): 8 + 16 level calls at batch 1, 2 and 8 vs plain, max_abs_err K3 "
+          f"{rep.err[names[0]]:.3e} K4 {rep.err[names[1]]:.3e} (tol {BF16_TOL:g} of max|ref|)")
+    for ckpt in ("artifacts/pruned_473k_finetuned.pkl", "artifacts/capstone_724k_scratch.pkl"):
+        cfg_r, params_r = load_checkpoint(ckpt, dev)
+        Dr, Sr = cfg_r.encoder_n_layers, cfg_r.stride
+        enc_r, dec_r, mixed_r = _int8_levels(sf, cfg_r, quantize_params(params_r, INT8_MIN_SIZE))
+        for i, pk in enumerate(enc_r):
+            check_level("enc", pk, 2, Sr ** (Dr - 1 - i), False, f"{ckpt} level {i}")
+        for j, pk in enumerate(dec_r):
+            check_level("dec", pk, 2, Sr ** j, True, f"{ckpt} level {j}", relu=j != Dr - 1)
+        if mixed_r < 1:
+            raise AssertionError(f"{ckpt}: no level mixes dense and int8 weights")
+        print(f"  {ckpt} int8 (ragged, {mixed_r} mixed levels): every level at B=2 vs plain, "
+              f"passed (tol {BF16_TOL:g})")
+
+    win, pk = enc_calls[D - 1]
+    first = sf.fused_encoder_level(win, *pk).clone()
+    x, skip, prev, dpk, relu = deep_dec
+    first_dec = [t.clone() for t in sf.fused_decoder_level(x, skip, prev, *dpk, relu=relu)]
+    for _ in range(3):
+        again = sf.fused_decoder_level(x, skip, prev, *dpk, relu=relu)
+        if not (torch.equal(sf.fused_encoder_level(win, *pk), first)
+                and all(torch.equal(a, b) for a, b in zip(again, first_dec))):
+            raise AssertionError("int8 K3/K4: a repeated call differs")
+    print("  int8 K3 (level 7, B=1) and K4 (level 1, B=8): 3 repeated calls bitwise equal")
+
+    # the bf16 packs of the same weights and inputs, for the same trace
+    bf = prepare_weight_view(params32, "bf16")[0]
+    bf_enc = [(w, sf.pack_encoder_level(bf["encoder"][i], cfg, i, torch.bfloat16))
+              for i, (w, _) in enumerate(enc_calls)]
+    bf_dec = [(x, s, p, sf.pack_decoder_level(bf["decoder"][j], cfg, D - 1 - j, torch.bfloat16), r)
+              for j, (x, s, p, _, r) in enumerate(dec_calls)]
+
+    def work(kind, call):
+        pk = call[1] if kind == "enc" else call[3]
+        w = sf.unpack_level(*pk)
+        if kind == "enc":
+            M = call[0].shape[0] * call[0].shape[1]
+            return (_stored_level_bytes(sf, pk) + _nbytes(call[0]) + M * (pk[1]["C2"] // 2) * 2,
+                    2 * M * (w["cw"].numel() + w["mwa"].numel() + w["mwb"].numel()))
+        x = call[0]
+        M = x.shape[0] * x.shape[1]
+        return (_stored_level_bytes(sf, pk) + _nbytes(*call[:3])
+                + (M + x.shape[0]) * S * pk[1]["Cout"] * 2,
+                2 * M * sum(w[k].numel() for k in ("mwa", "mwb", "cwlo", "cwhi")))
+
+    for name, kind, calls in ((names[0], "enc", enc_calls), (names[1], "dec", dec_calls)):
+        wk = [work(kind, c) for c in calls]
+        rep.bound[name] = _bound(sum(b for b, _ in wk), sum(f for _, f in wk), torch.bfloat16)
+    mb = {k: sum(work(k, c)[0] for c in calls) / 1e6
+          for k, calls in (("enc", enc_calls), ("dec", dec_calls))}
+    mb_bf = {k: sum(work(k, c)[0] for c in calls) / 1e6
+             for k, calls in (("enc", bf_enc), ("dec", bf_dec))}
+
+    def enc_fn(win, pk):
+        return lambda: sf.fused_encoder_level(win, *pk)
+
+    def dec_fn(x, s, p, pk, r):
+        return lambda: sf.fused_decoder_level(x, s, p, *pk, relu=r)
+
+    frames = {"int8": [enc_fn(*c) for c in enc_calls] + [dec_fn(*c) for c in dec_calls],
+              "bf16": [enc_fn(*c) for c in bf_enc] + [dec_fn(*c) for c in bf_dec]}
+    traced = _trace_calls(frames["int8"] + frames["bf16"], 2)
+    total = {}
+    for c, (kernels, busy, span) in enumerate(traced):
+        wt, rest = ("int8", c) if c < 2 * D else ("bf16", c - 2 * D)
+        short = "K3" if rest < D else "K4"
+        total[short, wt] = total.get((short, wt), 0.0) + busy
+        if wt == "int8":
+            print(f"  int8 {short} level {rest % D} B=1, device us on {smi}: launch 1 "
+                  f"{kernels[0]:.2f}, launch 2 {kernels[1]:.2f}, busy {busy:.2f} (bf16 pack in the "
+                  f"same trace: {traced[c + 2 * D][1]:.2f})")
+    plains = (lambda: [sf.fused_encoder_level_plain(w, *pk) for w, pk in enc_calls],
+              lambda: [sf.fused_decoder_level_plain(x, s, p, *pk, relu=r)
+                       for x, s, p, pk, r in dec_calls])
+    for name, short, kind, plain in ((names[0], "K3", "enc", plains[0]),
+                                     (names[1], "K4", "dec", plains[1])):
+        plain_ms = _time_ms(plain)
+        rep.ms[name] = (total[short, "int8"] / 1e3, plain_ms)
+        print(f"  {short} int8, all 8 E8 levels at block 1, on {smi}: device "
+              f"{total[short, 'int8'] / 1e3:.4f} ms against the bf16 packs' "
+              f"{total[short, 'bf16'] / 1e3:.4f} ms in the same trace; must move "
+              f"{mb[kind]:.2f} MB (bf16 {mb_bf[kind]:.2f}); bound {rep.bound[name][0]:.4f} ms; "
+              f"plain {plain_ms:.4f} ms")
+
+
+def run_int8_streamer(dev, cfg, params32):
+    """Phase 14: E8 ``Streamer(weights="int8", fused=True)`` over 2 s in
+    256-sample hops and a flush: mode "fused", the int8 K3/K4 launched at every
+    level of every frame stepped, the output equal to the same Streamer on the
+    CPU (plain versions); "auto" with int8 resolves to "plain".  Returns the
+    int8 K3/K4 launches of the run."""
+    from cleanumamba_tpu_torch.ops.cuda import stream_fused as sf
+    from cleanumamba_tpu_torch.params import to_device
+    from cleanumamba_tpu_torch.streaming import Streamer
+
+    D = cfg.encoder_n_layers
+    audio = _noise(dev, 1, 2 * SR, seed=14, scale=0.1).cpu().numpy()
+    s = Streamer(params32, cfg, weights="int8", fused=True)  # the default device: the card
+    if s.fused_mode != "fused" or s.device.type != "cuda":
+        raise AssertionError(f"int8 Streamer: fused_mode={s.fused_mode!r} on {s.device}")
+    kernels = (sf.fused_encoder_level, sf.fused_decoder_level)
+    for k in kernels:
+        k.launches = k.int8_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, n_single = _stream(s, audio, cfg.total_stride)
+    wall = time.perf_counter() - t0
+    launches = {f"{k.__name__}_int8": k.int8_launches for k in kernels}
+    dense = sum(k.launches for k in kernels)
+    if any(n != D * n_single for n in launches.values()) or dense or n_single <= 0:
+        raise AssertionError(f"int8 Streamer: launches {launches} (dense {dense}) for "
+                             f"{n_single} frames of {D} levels")
+    s_cpu = Streamer(to_device(params32, "cpu"), cfg, "cpu", weights="int8", fused=True)
+    ref, _ = _stream(s_cpu, audio, cfg.total_stride)
+    if got.shape != audio.shape or not np.isfinite(got).all():
+        raise AssertionError(f"int8 Streamer: bad output {got.shape}")
+    err, rel = _rel_err(torch.from_numpy(got), torch.from_numpy(ref))
+    print(f"  E8 Streamer(weights='int8', fused=True): mode fused, {n_single} frames, launches "
+          f"{launches}; 2 s + flush in {wall:.2f} s wall ({wall / n_single * 1e3:.2f} ms a hop); "
+          f"vs the CPU's plain versions max_abs_err={err:.3e} rel={rel:.3e} (tol {BF16_TOL:g})")
+    if not rel <= BF16_TOL:
+        raise AssertionError(f"int8 Streamer on the card vs the CPU: rel {rel:.3e}")
+    auto = Streamer(params32, cfg, weights="int8")
+    if auto.fused_mode != "plain":
+        raise AssertionError(f"int8 Streamer(fused='auto'): {auto.fused_mode!r}, expected 'plain'")
+    print("  E8 Streamer(weights='int8') with fused='auto': mode plain (the JAX package's policy)")
+    return launches
+
+
+def _serve_solo(view, cfg, audio, dev):
+    """One session streamed alone at batch 1 (prime and single steps)."""
+    from cleanumamba_tpu_torch.streaming import stream_prime, stream_step
+
+    fl, ts = cfg.frame_length, cfg.total_stride
+    x = torch.from_numpy(audio[None]).to(dev)
+    state, out = stream_prime(view, cfg, x[:, :fl])
+    outs, pos = [out[0]], fl
+    while pos + ts <= audio.shape[0]:
+        state, out = stream_step(view, cfg, state, x[:, pos:pos + ts])
+        outs.append(out[0])
+        pos += ts
+    return torch.cat(outs).cpu().numpy()
+
+
+def run_multiplexer(dev, cfg, params32, smi, scan):
+    """Phase 15: ``SessionMultiplexer`` on E8 at full width.  Three staggered
+    sessions (int8 weights, fp32 state) equal each streamed alone; slots 8 at
+    block 16 (K1 launched) and slots 1 and 8 at block 1, each in bf16 and
+    int8: traffic through the multiplexer (one tick a feed), its wall and
+    device-busy per tick, and the batched step's throughput with every slot
+    live (``cli/serve.py``'s bench, in process); then the serving CLIs as
+    subprocesses.  Returns K1's launches on the multiplexer's block-16 runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cleanumamba_tpu_torch.cli import serve as serve_cli
+    from cleanumamba_tpu_torch.params import prepare_weight_view
+    from cleanumamba_tpu_torch.serve import SessionMultiplexer
+
+    fl, ts = cfg.frame_length, cfg.total_stride
+    rng = np.random.default_rng(15)
+    audios = [(rng.normal(size=fl + n * ts) * 0.1).astype(np.float32) for n in (10, 8, 6)]
+    mux = SessionMultiplexer(params32, cfg, slots=4, weights="int8")
+    if mux.device.type != "cuda":
+        raise AssertionError(f"SessionMultiplexer on {mux.device}")
+    sids = [mux.open() for _ in audios]
+    outs = {s: [mux.feed(s, a[: fl + (2 - k) * ts])] for k, (s, a) in enumerate(zip(sids, audios))}
+    pos = {s: fl + (2 - k) * ts for k, s in enumerate(sids)}
+    while any(pos[s] < a.shape[0] for s, a in zip(sids, audios)):
+        for k, (s, a) in enumerate(zip(sids, audios)):
+            if pos[s] < a.shape[0]:
+                nxt = min(pos[s] + (k + 1) * ts, a.shape[0])
+                outs[s].append(mux.feed(s, a[pos[s]:nxt]))
+                pos[s] = nxt
+    stored, view = prepare_weight_view(params32, "int8")
+    worst = 0.0
+    for s, a in zip(sids, audios):
+        got = np.concatenate(outs[s] + [mux._drain(s)])
+        ref = _serve_solo(view(stored), cfg, a, dev)
+        if got.shape != ref.shape:
+            raise AssertionError(f"multiplexed session {s}: {got.shape} vs alone {ref.shape}")
+        worst = max(worst, _rel_err(torch.from_numpy(got), torch.from_numpy(ref))[1])
+    print(f"  3 staggered E8 sessions (int8, fp32 state, {mux.ticks} ticks) == each alone: "
+          f"worst rel {worst:.3e} (tol {FP32_TOL:g}: batch width changes cuBLAS's sum order)")
+    if not worst <= FP32_TOL:
+        raise AssertionError("multiplexed sessions differ from each streamed alone")
+
+    k1 = 0
+    for slots, block, rounds in ((8, 16, 3), (1, 1, 24), (8, 1, 4)):
+        for weights in ("bf16", "int8"):
+            dtype = torch.bfloat16 if weights == "bf16" else torch.float32
+            mux = SessionMultiplexer(params32, cfg, slots=slots, block=block, dtype=dtype,
+                                     weights=weights)
+            tick = mux.tick_samples
+            sess = [mux.open() for _ in range(slots)]
+            x = (rng.normal(size=(slots, fl + 3 * rounds * tick)) * 0.1).astype(np.float32)
+            for s in sess:
+                mux.feed(s, x[s, :fl])  # admitted: primed, no tick yet
+            scan.launches = 0
+
+            def feed_rounds(r0):
+                for r in range(r0, r0 + rounds):
+                    for s in sess:
+                        mux.feed(s, x[s, fl + r * tick: fl + (r + 1) * tick])
+
+            feed_rounds(0)  # warm-up
+            torch.cuda.synchronize()
+            t0, n0 = time.perf_counter(), mux.ticks
+            feed_rounds(rounds)
+            torch.cuda.synchronize()
+            wall, n_ticks = time.perf_counter() - t0, mux.ticks - n0
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                feed_rounds(2 * rounds)
+                torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+            busy, n_kernels = _device_busy(prof)
+            if block > 1:
+                if scan.launches <= 0:
+                    raise AssertionError(f"slots {slots} block {block}: K1 not launched")
+                k1 += scan.launches
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                serve_cli.main(["--ckpt", "flagship", "--slots", str(slots), "--sessions", "1",
+                                "--block", str(block), "--weights", weights, "--bench",
+                                "--seconds", "4" if block > 1 else "1", "--reps", "3"])
+            bench = json.loads(buf.getvalue().strip().splitlines()[-1])
+            print(f"  multiplexer E8 slots {slots} block {block} {weights} on {smi}: traffic "
+                  f"of one tick a feed: {n_ticks} ticks, wall {wall / n_ticks * 1e3:.2f} ms a "
+                  f"tick ({n_ticks * tick / SR / wall:.1f} audio-s/s); traced "
+                  f"{traced / n_ticks * 1e3:.2f} ms a tick, device busy {busy / n_ticks:.3f} ms "
+                  f"a tick (idle share {1 - busy / (traced * 1e3):.3f}), "
+                  f"{n_kernels / n_ticks:.0f} kernels a tick; every slot live (bench): tick "
+                  f"{bench['tick_ms']} ms, {bench['value']} audio-s/s together")
+
+    # the serving CLIs as their users start them
+    with tempfile.TemporaryDirectory() as tmp:
+        from cleanumamba_tpu_torch.convert import save_reference_checkpoint
+        from cleanumamba_tpu_torch.data.wavio import write_wav
+        from cleanumamba_tpu_torch.params import load_checkpoint
+
+        cfg_r, params_r = load_checkpoint(CKPT, "cpu")
+        ref_path = os.path.join(tmp, "reference.pkl")
+        save_reference_checkpoint(ref_path, params_r, cfg_r)
+        os.makedirs(os.path.join(tmp, "wavs"))
+        for i in range(2):
+            write_wav(os.path.join(tmp, "wavs", f"n{i}.wav"),
+                      (rng.normal(size=SR + 4000 * i) * 0.1).astype(np.float32), SR)
+        py = [sys.executable, "-m"]
+        cmds = {
+            "serve --bench": py + ["cleanumamba_tpu_torch.cli.serve", "--ckpt", "flagship",
+                                   "--slots", "8", "--block", "16", "--bench", "--seconds", "8",
+                                   "--reps", "3"],
+            "serve demo": py + ["cleanumamba_tpu_torch.cli.serve", "--ckpt", "flagship",
+                                "--slots", "4", "--sessions", "3", "--weights", "int8"],
+            "denoise": py + ["cleanumamba_tpu_torch.cli.denoise", "--ckpt", ref_path, "--input",
+                             os.path.join(tmp, "wavs"), "--output", os.path.join(tmp, "out")],
+            "stream_demo": py + ["cleanumamba_tpu_torch.cli.stream_demo", "--ckpt", CKPT,
+                                 "--synthetic", "--seconds", "2"],
+        }
+        with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+            jobs = {k: pool.submit(subprocess.run, c, capture_output=True, text=True, timeout=600)
+                    for k, c in cmds.items()}
+            done = {k: j.result() for k, j in jobs.items()}
+        for k, r in done.items():
+            if r.returncode != 0:
+                raise AssertionError(f"{k}: exit {r.returncode}\n{r.stderr[-3000:]}")
+        bench = json.loads(done["serve --bench"].stdout.strip().splitlines()[-1])
+        if bench["backend"] != "cuda" or bench["value"] <= 0:
+            raise AssertionError(f"serve --bench: {bench}")
+        if "3 sessions" not in done["serve demo"].stdout \
+                or "offline throughput on cuda" not in done["denoise"].stdout \
+                or sorted(os.listdir(os.path.join(tmp, "out"))) != ["enhanced_n0.wav",
+                                                                   "enhanced_n1.wav"] \
+                or "x realtime" not in done["stream_demo"].stdout:
+            raise AssertionError("a serving CLI did not finish its work:\n"
+                                 + "\n".join(r.stdout[-500:] for r in done.values()))
+        print(f"  CLIs as subprocesses (run together): serve --bench {json.dumps(bench)}; "
+              f"serve demo: {done['serve demo'].stdout.strip().splitlines()[-1]}; denoise (a "
+              f"reference-format checkpoint): {done['denoise'].stdout.strip().splitlines()[-1]}; "
+              f"stream_demo: {done['stream_demo'].stdout.strip().splitlines()[-1]}")
+    return k1
 
 
 def _base_k5(checkout):
@@ -1673,6 +2059,8 @@ def main() -> int:
         check_block_equals_steps(dev, cfg, params32)
         trace_block1(dev, cfg, params32, smi)
         check_real_weights(dev)
+        print("phase 13 K3/K4 with int8 weights vs their plain versions:", flush=True)
+        check_fused_int8(dev, cfg, params32, rep, smi)
         print("fused-only run: K3/K4 checks passed (no result lines)")
         return 0
     check_scan(dev, rep)
@@ -1704,8 +2092,15 @@ def main() -> int:
         dev, models, params32, cfg, (fused_encoder_level, fused_decoder_level))
     print("phase 12 times of the block-1 path:", flush=True)
     time_mega(dev, models, rep, smi, _base_k5(args.base_k5) if args.base_k5 else None)
+    print("phase 13 K3/K4 with int8 weights vs their plain versions:", flush=True)
+    check_fused_int8(dev, cfg, params32, rep, smi)
+    print("phase 14 the int8 serving path (E8 Streamer, int8 K3/K4):", flush=True)
+    launches.update(run_int8_streamer(dev, cfg, params32))
+    print("phase 15 SessionMultiplexer on E8, and the serving CLIs:", flush=True)
+    launches["selective_scan"] += run_multiplexer(dev, cfg, params32, smi, selective_scan)
 
-    # launches: each path's own run (serving, phase 4; training, phase 7)
+    # launches: each path's own run (serving, phase 4; training, phase 7; the
+    # int8 serving path, phase 14; the multiplexer's block-16 ticks, phase 15)
     for name, n in train_launches.items():
         launches[name] = launches.get(name, 0) + n
     sources = {
@@ -1722,6 +2117,13 @@ def main() -> int:
                                 "cleanumamba_tpu/ops/pallas/stream_fused.py:365"),
         "mega_stream_step": ("mega_stream_step", "cleanumamba_tpu_torch/csrc/stream_mega.cu",
                              "cleanumamba_tpu/ops/pallas/stream_mega.py:727"),
+        # the int8 weight type of K3/K4 (the TPU kernel's _deq, conv_q/mix_q)
+        "fused_encoder_level_int8": ("fused_encoder_level_int8",
+                                     "cleanumamba_tpu_torch/csrc/stream_fused.cu",
+                                     "cleanumamba_tpu/ops/pallas/stream_fused.py:297"),
+        "fused_decoder_level_int8": ("fused_decoder_level_int8",
+                                     "cleanumamba_tpu_torch/csrc/stream_fused.cu",
+                                     "cleanumamba_tpu/ops/pallas/stream_fused.py:365"),
     }
     kernels = []
     for fn_name, (kname, src, replaces) in sources.items():

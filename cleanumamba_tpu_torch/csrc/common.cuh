@@ -11,8 +11,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-// dtype codes shared with the Python wrappers
-enum DType { kF32 = 0, kBF16 = 1 };
+// dtype codes shared with the Python wrappers (kI8: a stored int8 weight,
+// never an activation)
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

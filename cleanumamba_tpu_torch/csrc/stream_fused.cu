@@ -10,8 +10,12 @@
 //      lo  = g @ cwlo, hi = g @ cwhi                   (ConvTranspose, K = 2S taps)
 //      out[0] = lo[0] + cb + prev, out[t] = lo[t] + hi[t-1] + cb, optional ReLU
 //      tail   = hi[T-1]                                (stored without the bias)
-//   Weights are fp32 or bf16 (the pack's compute dtype); activations enter in
-//   their own dtype (fp32 or bf16); products accumulate in fp32.
+//   Weights are fp32 or bf16 (the pack's compute dtype), or, product by
+//   product, int8 with a per-column fp32 scale in a bf16 pack: the TPU
+//   kernel's _deq (:238) makes each weight bf16(float(q) * scale[col]) before
+//   the product, and so does load_w2 here (applying the scale once in the
+//   epilogue would round differently).  Activations enter in their own dtype
+//   (fp32 or bf16); products accumulate in fp32.
 //
 // What bounds them on this card: at block 1 a level sees T = 1..128 tokens
 // (B*T rows) against weights of up to 3072x768 + 768x1536 (encoder) and
@@ -49,7 +53,11 @@
 //    adjacent columns and up to R = 2, 4 or 8 rows of fp32 partial sums (R is
 //    the smallest that covers the block's rows; more rows loop over the slab,
 //    which stays in shared memory).  `load_w2` is the one place where a staged
-//    weight becomes fp32.
+//    weight becomes fp32.  An int8 slab carries its tile's NW x kTile scales,
+//    staged by a second bulk copy on the same mbarrier; a lane keeps its two
+//    columns' scales in registers and load_w2 decodes each pair.  int8 halves
+//    a slab's bytes; the wrapper still splits the product as it splits a bf16
+//    one (fewer splits left a level with 1/8 of the blocks, 1.6-1.9x slower).
 //  * Partial sums are reduced in one fixed order and without atomics: across
 //    the warps through shared memory, then across the cluster through
 //    distributed shared memory.  After one cluster barrier each block takes
@@ -70,6 +78,8 @@
 //    so the overlap-add and the tail (t = T) come out of one epilogue.
 // Output layouts match stream_fused.py's packs: the decoder's grouped
 // (B, T, S*Cout) with column order k*Cout + cout.  No library GEMM is used.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -108,11 +118,18 @@ struct Split {
 };
 
 // Two adjacent staged weights as fp32: the one place a weight type is decoded.
-__device__ __forceinline__ float2 load_w2(const float* p) {
+// s: the two columns' scales (read by the int8 overload only).
+__device__ __forceinline__ float2 load_w2(const float* p, float2) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 load_w2(const __nv_bfloat16* p) {
+__device__ __forceinline__ float2 load_w2(const __nv_bfloat16* p, float2) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+// int8 weights compute in bf16: bf16(float(q) * scale), as the TPU kernel's _deq.
+__device__ __forceinline__ float2 load_w2(const int8_t* p, float2 s) {
+  const char2 q = *reinterpret_cast<const char2*>(p);
+  return make_float2(round_to<__nv_bfloat16>(__fmul_rn(static_cast<float>(q.x), s.x)),
+                     round_to<__nv_bfloat16>(__fmul_rn(static_cast<float>(q.y), s.y)));
 }
 
 template <int R> __device__ __forceinline__ void load_rows(const float* p, float (&x)[R]) {
@@ -128,35 +145,43 @@ template <int R> __device__ __forceinline__ void load_rows(const float* p, float
   }
 }
 
+// esize 1: int8 weights, with their NW x kTile fp32 scales staged beside them.
 constexpr size_t smem_bytes(int NW, int NI, int R, int kblk, int rpb, size_t esize) {
   return kHeader + (size_t)kblk * NW * kTile * esize +
-         ((size_t)NI * R * kblk + (size_t)(kWarps * R + rpb) * NW * kTile) * sizeof(float);
+         ((esize == 1 ? (size_t)NW * kTile : 0) + (size_t)NI * R * kblk +
+          (size_t)(kWarps * R + rpb) * NW * kTile) * sizeof(float);
 }
 
 // v[w] = sum_k src(set(w), row, k) * W[w][k, n] over the whole contraction, for
 // the rows of this block's group and the kTile columns of its tile, then
 // epi(row, n, v, b) on this block's share of them.  NW weights per staged row
-// (wt tiled [tile][K][NW][kTile]); NI == 1: every weight reads input set 0,
-// NI == NW: weight w reads set w.  src returns the input already rounded.
+// (wt tiled [tile][K][NW][kTile], of type TS; an int8 wt has its scales tiled
+// [tile][NW][kTile] in wscale, null otherwise); NI == 1: every weight reads
+// input set 0, NI == NW: weight w reads set w.  src returns the input already
+// rounded.
 // bias: NB vectors over the N columns; a thread's epilogue column is fixed,
 // so it loads its biases at the start and epi gets them as b.
 // The grid is (tiles, splits, groups) in clusters of (1, splits, 1).
-template <int R, int NW, int NI, typename TW, int NB, typename Src, typename Epi>
-__device__ __forceinline__ void split_product(const TW* __restrict__ wt, int K, int N, int rows,
-                                              const Split& sp, const float* const (&bias)[NB],
-                                              Src&& src, Epi&& epi) {
+template <int R, int NW, int NI, typename TS, int NB, typename Src, typename Epi>
+__device__ __forceinline__ void split_product(const TS* __restrict__ wt,
+                                              const float* __restrict__ wscale, int K, int N,
+                                              int rows, const Split& sp,
+                                              const float* const (&bias)[NB], Src&& src,
+                                              Epi&& epi) {
   static_assert(R == 2 || R == 4 || R == 8, "row tile");
   static_assert(NI == 1 || NI == NW, "input sets");
   static_assert(kThreads % kTile == 0, "a thread's epilogue column is fixed");
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kRow = NW * kTile;  // staged elements per contraction row
+  constexpr bool kScaled = std::is_same_v<TS, int8_t>;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tile = blockIdx.x, split = blockIdx.y, group = blockIdx.z;  // split: cluster rank
   const int k0 = split * sp.kblk, kn = max(0, min(sp.kblk, K - k0));
 
   const uint32_t full = smem_addr(smem);  // the mbarrier the slab's copy completes on
-  TW* slab = reinterpret_cast<TW*>(smem + kHeader);
-  float* xs = reinterpret_cast<float*>(smem + kHeader + (size_t)sp.kblk * kRow * sizeof(TW));
+  TS* slab = reinterpret_cast<TS*>(smem + kHeader);
+  float* scales = reinterpret_cast<float*>(smem + kHeader + (size_t)sp.kblk * kRow * sizeof(TS));
+  float* xs = scales + (kScaled ? kRow : 0);
   float* red = xs + (size_t)NI * R * sp.kblk;  // [warp][row][weight][column]
   float* part = red + kWarps * R * kRow;       // this block's sums: [group row][weight][column]
 
@@ -165,9 +190,11 @@ __device__ __forceinline__ void split_product(const TW* __restrict__ wt, int K, 
     mbar_init(full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    const uint32_t bytes = (uint32_t)(kn * kRow * sizeof(TW));
-    mbar_expect_tx(full, bytes);
+    const uint32_t bytes = (uint32_t)(kn * kRow * sizeof(TS));
+    mbar_expect_tx(full, bytes + (kScaled ? (uint32_t)(kRow * sizeof(float)) : 0u));
     bulk_copy(smem_addr(slab), wt + ((size_t)tile * K + k0) * kRow, bytes, full);
+    if constexpr (kScaled)
+      bulk_copy(smem_addr(scales), wscale + (size_t)tile * kRow, kRow * sizeof(float), full);
   }
   // this block's share of the group's rpb * kTile outputs, and its biases
   const int share = (sp.rpb * kTile + sp.splits - 1) / sp.splits;
@@ -193,7 +220,15 @@ __device__ __forceinline__ void split_product(const TW* __restrict__ wt, int K, 
     __syncthreads();
 
     float acc[NW][R][2] = {};
-    if (kn > 0) mbar_wait(full, 0);  // the slab has landed (at once after the first pass)
+    float2 sc[NW] = {};  // this lane's two columns' scales, per weight (int8)
+    if (kn > 0) {
+      mbar_wait(full, 0);  // the slab has landed (at once after the first pass)
+      if constexpr (kScaled) {
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+          sc[w] = *reinterpret_cast<const float2*>(scales + w * kTile + 2 * lane);
+      }
+    }
 #pragma unroll 2
     for (int k = warp; k < kn; k += kWarps) {
       float x[NI][R];
@@ -201,7 +236,7 @@ __device__ __forceinline__ void split_product(const TW* __restrict__ wt, int K, 
       for (int s = 0; s < NI; ++s) load_rows<R>(xs + ((size_t)s * sp.kblk + k) * R, x[s]);
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
-        const float2 wv = load_w2(slab + (size_t)k * kRow + w * kTile + 2 * lane);
+        const float2 wv = load_w2(slab + (size_t)k * kRow + w * kTile + 2 * lane, sc[w]);
         const int s = NI == 1 ? 0 : w;
 #pragma unroll
         for (int i = 0; i < R; ++i) {
@@ -259,15 +294,16 @@ __device__ __forceinline__ void split_product(const TW* __restrict__ wt, int K, 
   if (sp.splits > 1) cluster_sync();  // nobody reads this block's sums any more
 }
 
-// out (M, N) = relu(x (M, K) @ w (K, N) + bias), x rounded to TW first.
-template <typename TX, typename TW, int R>
+// out (M, N) = relu(x (M, K) @ w (K, N) + bias), x rounded to TW first; w
+// stored as TS (TW, or int8 with scales in a bf16 pack).
+template <typename TX, typename TW, typename TS, int R>
 __global__ void __launch_bounds__(kThreads)
-conv_relu_kernel(const TX* __restrict__ x, const TW* __restrict__ wt,
-                 const float* __restrict__ bias, TW* __restrict__ out, int M, int K, int N,
-                 Split sp) {
+conv_relu_kernel(const TX* __restrict__ x, const TS* __restrict__ wt,
+                 const float* __restrict__ wscale, const float* __restrict__ bias,
+                 TW* __restrict__ out, int M, int K, int N, Split sp) {
   const float* const biases[1] = {bias};
-  split_product<R, 1, 1, TW>(
-      wt, K, N, M, sp, biases,
+  split_product<R, 1, 1, TS>(
+      wt, wscale, K, N, M, sp, biases,
       [&](int, int row, int k) { return round_to<TW>(to_f32(x[(size_t)row * K + k])); },
       [&](int row, int n, const float(&v)[1], const float(&b)[1]) {
         if (n < N) out[(size_t)row * N + n] = from_f32<TW>(fmaxf(v[0] + b[0], 0.f));
@@ -276,14 +312,15 @@ conv_relu_kernel(const TX* __restrict__ x, const TW* __restrict__ wt,
 
 // out (M, N) = (xin @ wa + ba) * act(xin @ wb + bb), xin = TW(x + skip) (skip
 // may be null), the GLU with its 1x1 mix split into value and gate halves.
-template <typename TX, typename TW, int R>
+template <typename TX, typename TW, typename TS, int R>
 __global__ void __launch_bounds__(kThreads)
-glu_kernel(const TX* __restrict__ x, const TX* __restrict__ skip, const TW* __restrict__ wt,
-           const float* __restrict__ ba, const float* __restrict__ bb, int act,
-           TW* __restrict__ out, int M, int K, int N, Split sp) {
+glu_kernel(const TX* __restrict__ x, const TX* __restrict__ skip, const TS* __restrict__ wt,
+           const float* __restrict__ wscale, const float* __restrict__ ba,
+           const float* __restrict__ bb, int act, TW* __restrict__ out, int M, int K, int N,
+           Split sp) {
   const float* const biases[2] = {ba, bb};
-  split_product<R, 2, 1, TW>(
-      wt, K, N, M, sp, biases,
+  split_product<R, 2, 1, TS>(
+      wt, wscale, K, N, M, sp, biases,
       [&](int, int row, int k) {
         const size_t off = (size_t)row * K + k;
         float v = to_f32(x[off]);
@@ -301,14 +338,15 @@ glu_kernel(const TX* __restrict__ x, const TX* __restrict__ skip, const TW* __re
 // and hi taps with N = S*Cout.  For t < T:
 //   out[b, t] = g[b, t] @ wlo + g[b, t-1] @ whi + cb (+ prev[b] at t = 0),
 // then ReLU if asked; for t = T: tail[b] = g[b, T-1] @ whi (no bias).
-template <typename TX, typename TW, int R>
+template <typename TX, typename TW, typename TS, int R>
 __global__ void __launch_bounds__(kThreads)
-convt_kernel(const TW* __restrict__ g, const TW* __restrict__ wt, const float* __restrict__ cb,
+convt_kernel(const TW* __restrict__ g, const TS* __restrict__ wt,
+             const float* __restrict__ wscale, const float* __restrict__ cb,
              const TX* __restrict__ prev, int relu, TW* __restrict__ out,
              TW* __restrict__ tail, int Bsz, int T, int K, int N, Split sp) {
   const float* const biases[1] = {cb};
-  split_product<R, 2, 2, TW>(
-      wt, K, N, Bsz * (T + 1), sp, biases,
+  split_product<R, 2, 2, TS>(
+      wt, wscale, K, N, Bsz * (T + 1), sp, biases,
       [&](int set, int r, int k) {
         const int b = r / (T + 1), t = r % (T + 1);
         const size_t row = (size_t)b * T + t;  // g row of (b, t)
@@ -398,51 +436,69 @@ cudaError_t launch(int tiles, const Split& sp, size_t smem, cudaStream_t st, boo
     __VA_ARGS__                                             \
   }
 
-template <typename TX, typename TW>
+// Calls f with a null `const TS*`, TS the stored weight type of `code` in a
+// pack of compute type TW: TW itself, or int8 in a bf16 pack.
+template <typename TW, typename F>
+cudaError_t with_weight(int code, F&& f) {
+  if (code == (std::is_same_v<TW, float> ? kF32 : kBF16)) return f(static_cast<const TW*>(nullptr));
+  if constexpr (std::is_same_v<TW, __nv_bfloat16>) {
+    if (code == kI8) return f(static_cast<const int8_t*>(nullptr));
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The stored weight type named by a with_weight tag.
+template <typename Tag> using Stored = std::remove_const_t<std::remove_pointer_t<Tag>>;
+
+template <typename TX, typename TW, typename TS>
 cudaError_t launch_conv_relu(const Plan& p, cudaStream_t st, bool overlap, const void* x,
-                             const void* wt, const void* bias, void* out, int M, int K, int N) {
+                             const void* wt, const void* ws, const void* bias, void* out, int M,
+                             int K, int N) {
   DISPATCH_ROWS(p.R, R, {
-    return launch<conv_relu_kernel<TX, TW, R>>(
-        cdiv(N, kTile), p.sp, smem_bytes(1, 1, R, p.sp.kblk, p.sp.rpb, sizeof(TW)), st, overlap,
-        static_cast<const TX*>(x), static_cast<const TW*>(wt), static_cast<const float*>(bias),
-        static_cast<TW*>(out), M, K, N, p.sp);
+    return launch<conv_relu_kernel<TX, TW, TS, R>>(
+        cdiv(N, kTile), p.sp, smem_bytes(1, 1, R, p.sp.kblk, p.sp.rpb, sizeof(TS)), st, overlap,
+        static_cast<const TX*>(x), static_cast<const TS*>(wt), static_cast<const float*>(ws),
+        static_cast<const float*>(bias), static_cast<TW*>(out), M, K, N, p.sp);
   })
 }
 
-template <typename TX, typename TW>
+template <typename TX, typename TW, typename TS>
 cudaError_t launch_glu(const Plan& p, cudaStream_t st, bool overlap, const void* x,
-                       const void* skip, const void* wt, const void* ba, const void* bb,
-                       int act, void* out, int M, int K, int N) {
+                       const void* skip, const void* wt, const void* ws, const void* ba,
+                       const void* bb, int act, void* out, int M, int K, int N) {
   DISPATCH_ROWS(p.R, R, {
-    return launch<glu_kernel<TX, TW, R>>(
-        cdiv(N, kTile), p.sp, smem_bytes(2, 1, R, p.sp.kblk, p.sp.rpb, sizeof(TW)), st, overlap,
-        static_cast<const TX*>(x), static_cast<const TX*>(skip), static_cast<const TW*>(wt),
-        static_cast<const float*>(ba), static_cast<const float*>(bb), act,
-        static_cast<TW*>(out), M, K, N, p.sp);
+    return launch<glu_kernel<TX, TW, TS, R>>(
+        cdiv(N, kTile), p.sp, smem_bytes(2, 1, R, p.sp.kblk, p.sp.rpb, sizeof(TS)), st, overlap,
+        static_cast<const TX*>(x), static_cast<const TX*>(skip), static_cast<const TS*>(wt),
+        static_cast<const float*>(ws), static_cast<const float*>(ba),
+        static_cast<const float*>(bb), act, static_cast<TW*>(out), M, K, N, p.sp);
   })
 }
 
-template <typename TX, typename TW>
+template <typename TX, typename TW, typename TS>
 cudaError_t launch_convt(const Plan& p, cudaStream_t st, bool overlap, const void* g,
-                         const void* wt, const void* cb, const void* prev, int relu, void* out,
-                         void* tail, int Bsz, int T, int K, int N) {
+                         const void* wt, const void* ws, const void* cb, const void* prev,
+                         int relu, void* out, void* tail, int Bsz, int T, int K, int N) {
   DISPATCH_ROWS(p.R, R, {
-    return launch<convt_kernel<TX, TW, R>>(
-        cdiv(N, kTile), p.sp, smem_bytes(2, 2, R, p.sp.kblk, p.sp.rpb, sizeof(TW)), st, overlap,
-        static_cast<const TW*>(g), static_cast<const TW*>(wt), static_cast<const float*>(cb),
-        static_cast<const TX*>(prev), relu, static_cast<TW*>(out), static_cast<TW*>(tail), Bsz,
-        T, K, N, p.sp);
+    return launch<convt_kernel<TX, TW, TS, R>>(
+        cdiv(N, kTile), p.sp, smem_bytes(2, 2, R, p.sp.kblk, p.sp.rpb, sizeof(TS)), st, overlap,
+        static_cast<const TW*>(g), static_cast<const TS*>(wt), static_cast<const float*>(ws),
+        static_cast<const float*>(cb), static_cast<const TX*>(prev), relu,
+        static_cast<TW*>(out), static_cast<TW*>(tail), Bsz, T, K, N, p.sp);
   })
 }
 
 }  // namespace
 
-// K3.  tx: dtype code of win; tw: of the packed weights, h and out.
+// K3.  tx: dtype code of win; tw: of the pack's compute type (h and out);
+// w1, w2: of the two products' stored weights (tw, or kI8 in a bf16 pack).
 // win (M, KC); cw tiled (KC, C); cb (C); mw tiled pair (C, N2); mba, mbb (N2);
-// h (M, C) scratch; out (M, N2).  plan: 5 ints per product (splits, groups,
-// kblk, rows per group, row tile).  Returns the first CUDA error (0: none).
-extern "C" int fused_encoder_level(int tx, int tw, const void* win, const void* cw,
-                                   const void* cb, const void* mw, const void* mba,
+// cws, mws: an int8 weight's tiled scales, else null; h (M, C) scratch; out
+// (M, N2).  plan: 5 ints per product (splits, groups, kblk, rows per group,
+// row tile).  Returns the first CUDA error (0: none).
+extern "C" int fused_encoder_level(int tx, int tw, int w1, int w2, const void* win,
+                                   const void* cw, const void* cws, const void* cb,
+                                   const void* mw, const void* mws, const void* mba,
                                    const void* mbb, int act, void* h, void* out, int M, int KC,
                                    int C, int N2, const int* plan, void* stream) {
   if (M == 0) return 0;
@@ -450,32 +506,45 @@ extern "C" int fused_encoder_level(int tx, int tw, const void* win, const void* 
   const Plan p1 = read_plan(plan), p2 = read_plan(plan + 5);
   if (!plan_ok(p1, KC) || !plan_ok(p2, C)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH_DTYPE(tx, TX, DISPATCH_DTYPE(tw, TW, {
-    cudaError_t e = launch_conv_relu<TX, TW>(p1, st, false, win, cw, cb, h, M, KC, C);
+    cudaError_t e = with_weight<TW>(w1, [&](auto tag) {
+      return launch_conv_relu<TX, TW, Stored<decltype(tag)>>(p1, st, false, win, cw, cws, cb, h,
+                                                             M, KC, C);
+    });
     if (e != cudaSuccess) return static_cast<int>(e);
-    e = launch_glu<TW, TW>(p2, st, true, h, nullptr, mw, mba, mbb, act, out, M, C, N2);
+    e = with_weight<TW>(w2, [&](auto tag) {
+      return launch_glu<TW, TW, Stored<decltype(tag)>>(p2, st, true, h, nullptr, mw, mws, mba,
+                                                       mbb, act, out, M, C, N2);
+    });
     if (e != cudaSuccess) return static_cast<int>(e);
   }))
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4.  tx: dtype code of x, skip and prev; tw: of the packed weights, g, out
-// and tail.  x, skip (Bsz*T, Cx); mw tiled pair (Cx, C); mba, mbb (C); g
-// (Bsz*T, C) scratch; ctw tiled pair lo, hi (C, SC); cb (SC); prev (Bsz, SC)
-// or null; out (Bsz, T, SC); tail (Bsz, SC).  plan as for K3.
-extern "C" int fused_decoder_level(int tx, int tw, const void* x, const void* skip,
-                                   const void* mw, const void* mba, const void* mbb, int act,
-                                   void* g, const void* ctw, const void* cb, const void* prev,
-                                   int relu, void* out, void* tail, int Bsz, int T, int Cx,
-                                   int C, int SC, const int* plan, void* stream) {
+// K4.  tx: dtype code of x, skip and prev; tw: of the pack's compute type (g,
+// out and tail); w1, w2 as for K3.  x, skip (Bsz*T, Cx); mw tiled pair (Cx,
+// C); mba, mbb (C); g (Bsz*T, C) scratch; ctw tiled pair lo, hi (C, SC); mws,
+// ctws: int8 scales or null; cb (SC); prev (Bsz, SC) or null; out (Bsz, T,
+// SC); tail (Bsz, SC).  plan as for K3.
+extern "C" int fused_decoder_level(int tx, int tw, int w1, int w2, const void* x,
+                                   const void* skip, const void* mw, const void* mws,
+                                   const void* mba, const void* mbb, int act, void* g,
+                                   const void* ctw, const void* ctws, const void* cb,
+                                   const void* prev, int relu, void* out, void* tail, int Bsz,
+                                   int T, int Cx, int C, int SC, const int* plan, void* stream) {
   if (Bsz == 0 || T == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Plan p1 = read_plan(plan), p2 = read_plan(plan + 5);
   if (!plan_ok(p1, Cx) || !plan_ok(p2, C)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH_DTYPE(tx, TX, DISPATCH_DTYPE(tw, TW, {
-    cudaError_t e = launch_glu<TX, TW>(p1, st, false, x, skip, mw, mba, mbb, act, g, Bsz * T,
-                                       Cx, C);
+    cudaError_t e = with_weight<TW>(w1, [&](auto tag) {
+      return launch_glu<TX, TW, Stored<decltype(tag)>>(p1, st, false, x, skip, mw, mws, mba,
+                                                       mbb, act, g, Bsz * T, Cx, C);
+    });
     if (e != cudaSuccess) return static_cast<int>(e);
-    e = launch_convt<TX, TW>(p2, st, true, g, ctw, cb, prev, relu, out, tail, Bsz, T, C, SC);
+    e = with_weight<TW>(w2, [&](auto tag) {
+      return launch_convt<TX, TW, Stored<decltype(tag)>>(p2, st, true, g, ctw, ctws, cb, prev,
+                                                         relu, out, tail, Bsz, T, C, SC);
+    });
     if (e != cudaSuccess) return static_cast<int>(e);
   }))
   return static_cast<int>(cudaGetLastError());

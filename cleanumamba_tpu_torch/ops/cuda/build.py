@@ -27,8 +27,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Flags of one source.  selective_scan.cu instantiates 54 kernels; nvcc
 # optimises them in parallel threads with -split-compile=0 (64 s against
 # 139 s on the 8 cores beside an NVIDIA H100 80GB HBM3).  stream_mega.cu's
-# two kernels and their shared contraction cores take 20-36 s there.
-SOURCE_FLAGS = {"selective_scan": ("-split-compile=0",), "stream_mega": ("-split-compile=0",)}
+# two kernels and their shared contraction cores take 20-36 s there;
+# stream_fused.cu instantiates 54 kernels since its int8 weight type.
+SOURCE_FLAGS = {name: ("-split-compile=0",)
+                for name in ("selective_scan", "stream_mega", "stream_fused")}
 
 
 def _nvcc() -> str:

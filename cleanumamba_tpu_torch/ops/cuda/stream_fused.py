@@ -10,16 +10,21 @@ A pack is ``(arrays, meta)``: ``arrays`` a dict of contiguous tensors,
 The weight matrices are stored once, tiled for the kernels (``_tile``: per
 tile of ``TILE`` output columns all contraction rows, a GLU's value and gate
 or a ConvTranspose's lo and hi taps interleaved per row, zero padded at the
-ragged edge), in the compute dtype; the biases fp32 in the JAX package's
+ragged edge), in the compute dtype or, for a ``quant.py`` leaf, as its int8
+values with the per-column fp32 scales tiled the same way (``<name>_scale``:
+per tile the NW x ``TILE`` scales); the biases fp32 in the JAX package's
 shapes; beside them the ``scratch`` that holds a level's first product, sized
-at pack time.  ``unpack_level`` gives back
-the logical ``(K, N)`` matrices under the JAX pack's names: the plain versions
-read the weights through it, so the CPU tests hold the layout the kernels
-read.  The decoder's grouped layout ``(B, T, S*Cout)`` with column order
-``k*Cout + cout`` is the JAX package's, so ``prev`` and the tail interchange
-with the per-op path.  The TPU's VMEM budget does not apply here: every level
-that meets the static constraints packs.  int8 packs come with the
-``quant.py`` port.  A pack serves one CUDA stream at a time: its scratch is
+at pack time.  The weight type is per product: at ``min_size=4096`` a level's
+small conv may stay dense while its mix is int8.  An int8 weight computes in
+bf16, as the JAX package's ``_deq`` does: ``bf16(float(q) * scale)`` before
+the product.  ``unpack_level`` gives back
+the logical ``(K, N)`` matrices under the JAX pack's names (an int8 weight
+dequantised so): the plain versions read the weights through it, so the CPU
+tests hold the layout and the values the kernels read.  The decoder's grouped
+layout ``(B, T, S*Cout)`` with column order ``k*Cout + cout`` is the JAX
+package's, so ``prev`` and the tail interchange with the per-op path.  The
+TPU's VMEM budget does not apply here: every level that meets the static
+constraints packs.  A pack serves one CUDA stream at a time: its scratch is
 shared by every call made with it.
 """
 
@@ -40,18 +45,12 @@ from cleanumamba_tpu_torch.ops.cuda.build import (
     require_cuda,
     stream_ptr,
 )
+from cleanumamba_tpu_torch.quant import _Q_TAG, is_quantized
 
 # activation codes of csrc/stream_fused.cu
 _ACT_CODES = {"Sigmoid": 0, "ReLU": 1, "SiLU": 2, "GELU": 3}
-
-_INT8_TODO = "int8 packs come with the quant.py port (ROADMAP Queue 1 item 6)"
-
-
-def _dense(w):
-    if isinstance(w, dict):  # quant.py's {int8_values, scale} leaf
-        raise NotImplementedError(_INT8_TODO)
-    return w
-
+# stored weight types of csrc/stream_fused.cu (kF32, kBF16, kI8 of common.cuh)
+_WEIGHT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # --------------------------------------------------------------------------
 # Weight packing (once, at Streamer init)
@@ -71,7 +70,8 @@ _GROUP_ROWS = 32          # most rows a block takes (its sums wait in shared mem
 _PACK_BATCH = 8  # streams the scratch is sized for at pack time (a larger call grows it)
 _ROW_TILES = (2, 4, 8)
 _BIASES = ("cb", "mba", "mbb", "cb_tiled")
-_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+_WEIGHTS = ("cw", "mw", "ctw")  # each level's (first, second) product: cw, mw or mw, ctw
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 
 
 def _cdiv(a, b):
@@ -89,6 +89,15 @@ def _tile(mats, cdt):
     return w.reshape(K, len(mats), nt, TILE).permute(2, 0, 1, 3).contiguous()
 
 
+def _tile_scales(scales):
+    """NW per-column scales (N,) -> (ceil(N / TILE), NW, TILE) fp32, zero
+    padded: per tile the scales of the slab's NW x TILE columns."""
+    N = scales[0].shape[0]
+    nt = _cdiv(N, TILE)
+    s = torch.nn.functional.pad(torch.stack([x.float() for x in scales]), (0, nt * TILE - N))
+    return s.reshape(len(scales), nt, TILE).permute(1, 0, 2).contiguous()
+
+
 def _untile(t, N):
     """The NW logical (K, N) matrices of a tiled weight (views)."""
     nt, K, NW, _ = t.shape
@@ -96,17 +105,28 @@ def _untile(t, N):
     return [w[:, j, :N] for j in range(NW)]
 
 
+def _unpack_weight(arrays, name, N, cdt):
+    """The NW logical matrices of tiled weight ``name``; an int8 weight
+    dequantised as the kernels decode it: ``cdt(float(q) * scale)``."""
+    mats = _untile(arrays[name], N)
+    if name + "_scale" not in arrays:
+        return mats
+    nt, NW, _ = arrays[name + "_scale"].shape
+    scales = arrays[name + "_scale"].permute(1, 0, 2).reshape(NW, nt * TILE)[:, :N]
+    return [(q.float() * s).to(cdt) for q, s in zip(mats, scales)]
+
+
 def unpack_level(arrays, meta):
     """The logical matrices and biases of a level pack under the JAX pack's
     names (``cw, cb, mwa, mwb, mba, mbb`` or ``mwa, mwb, mba, mbb, cwlo, cwhi,
-    cb_tiled``): what the tiled pack was built from."""
-    half = meta["C2"] // 2
+    cb_tiled``): what the tiled pack was built from, int8 weights dequantised."""
+    half, cdt = meta["C2"] // 2, meta["cdt"]
     out = {k: arrays[k] for k in _BIASES if k in arrays}
-    out["mwa"], out["mwb"] = _untile(arrays["mw"], half)
+    out["mwa"], out["mwb"] = _unpack_weight(arrays, "mw", half, cdt)
     if "cw" in arrays:
-        (out["cw"],) = _untile(arrays["cw"], meta["C"])
+        (out["cw"],) = _unpack_weight(arrays, "cw", meta["C"], cdt)
     else:
-        out["cwlo"], out["cwhi"] = _untile(arrays["ctw"], meta["S"] * meta["Cout"])
+        out["cwlo"], out["cwhi"] = _unpack_weight(arrays, "ctw", meta["S"] * meta["Cout"], cdt)
     return out
 
 
@@ -119,13 +139,19 @@ def _plan(rows, K, N, NW, NI, esize):
     A block owns one of ``ceil(N / TILE)`` column tiles, one of ``splits``
     contraction ranges of ``kblk`` rows (the blocks of a cluster: 1, 2, 4 or
     8) and one of ``groups`` row groups of ``rpb`` rows, taken ``R`` at a time.
-    A contraction whose whole tile is small stays in one block; otherwise it
-    is halved while a range keeps ``_MIN_RANGE`` rows and the grid is short of
-    two blocks an SM.  Rows are split while the grid is short of one block an
-    SM, and down to ``_GROUP_ROWS`` a block.
+    ``esize``: bytes of a stored weight (1: int8, whose NW x TILE fp32 scales
+    are staged beside the slab).
+    A contraction whose whole tile is small (in bf16 bytes) stays in one
+    block; otherwise it is halved while a range keeps ``_MIN_RANGE`` rows and
+    the grid is short of two blocks an SM.  Rows are split while the grid is
+    short of one block an SM, and down to ``_GROUP_ROWS`` a block.
     """
     nt = _cdiv(N, TILE)
     row_bytes = TILE * NW * esize
+    # splitting buys blocks in flight, so an int8 product splits as its bf16
+    # counterpart does (split by its own bytes, E8's K3 level 2 and K4 level 5
+    # took 1.6-1.9x their bf16 time on an H100 in 1/8 of the blocks)
+    split_bytes = K * TILE * NW * max(esize, 2)
     kcap = _SLAB_MAX // row_bytes // 8 * 8
     least = next((s for s in (1, 2, 4, 8) if _cdiv(_cdiv(K, s), 8) * 8 <= kcap), None)
     if least is None:
@@ -137,7 +163,7 @@ def _plan(rows, K, N, NW, NI, esize):
         rpb = _cdiv(rpb, R) * R
         groups = _cdiv(rows, rpb)
         splits = least
-        if K * row_bytes > _SLAB_WHOLE:
+        if split_bytes > _SLAB_WHOLE:
             while (splits < _MAX_SPLITS and nt * groups * splits < 2 * _N_SM
                    and _cdiv(K, 2 * splits) >= _MIN_RANGE):
                 splits *= 2
@@ -145,7 +171,9 @@ def _plan(rows, K, N, NW, NI, esize):
         if rpb <= _GROUP_ROWS and (nt * groups * splits >= _N_SM or rpb <= _ROW_TILES[-1]):
             break
         G *= 2
-    smem = 128 + kblk * row_bytes + (NI * R * kblk + (_WARPS * R + rpb) * NW * TILE) * 4
+    scales = NW * TILE * 4 if esize == 1 else 0
+    smem = (128 + kblk * row_bytes + scales
+            + (NI * R * kblk + (_WARPS * R + rpb) * NW * TILE) * 4)
     assert smem <= _SMEM_LIMIT, (rows, K, N, NW, NI, esize)
     return splits, groups, kblk, rpb, R
 
@@ -160,11 +188,12 @@ def _products(kind, B, T, dims):
 
 
 @functools.lru_cache(maxsize=None)
-def _level_plan(kind, B, T, dims, esize):
+def _level_plan(kind, B, T, dims, esizes):
     """Both products' plans of a level call as the kernels take them (10
     ints), and the elements of scratch (the first product's result) it needs;
-    None if a product does not fit (the level then does not pack)."""
-    plans = [_plan(*p, esize) for p in _products(kind, B, T, dims)]
+    None if a product does not fit (the level then does not pack).
+    ``esizes``: the bytes of each product's stored weight."""
+    plans = [_plan(*p, e) for p, e in zip(_products(kind, B, T, dims), esizes)]
     if None in plans:
         return None
     return (ctypes.c_int * 10)(*plans[0], *plans[1]), B * T * dims[1]
@@ -178,14 +207,20 @@ def _level_dims(meta):
     return "dec", (meta["Cx"], half, meta["S"] * meta["Cout"])
 
 
+def _level_weights(arrays):
+    """The stored weights of a level's two products, in order."""
+    return [arrays[k] for k in _WEIGHTS if k in arrays]
+
+
 def _finish_pack(arrays, meta, device):
     """Allocate the scratch for up to ``_PACK_BATCH`` streams of the level's
     block-1 token count and check the pack once (the wrappers check only the
     activations).  None if the kernels cannot take the level's widths."""
-    if meta["cdt"] not in _ESIZE:
+    if meta["cdt"] not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute dtype {meta['cdt']} not supported (float32 or bfloat16)")
     kind, dims = _level_dims(meta)
-    plans = [_level_plan(kind, B, meta["T"], dims, _ESIZE[meta["cdt"]])
+    esizes = tuple(_ESIZE[w.dtype] for w in _level_weights(arrays))
+    plans = [_level_plan(kind, B, meta["T"], dims, esizes)
              for B in range(1, _PACK_BATCH + 1)]
     if None in plans:
         return None
@@ -199,18 +234,55 @@ def check_pack(arrays, meta):
     one device.  Run once when the pack is made, not per call."""
     device = arrays["scratch"].device
     for name, t in arrays.items():
-        want = torch.float32 if name in _BIASES else meta["cdt"]
+        if name in _BIASES or name.endswith("_scale"):
+            want = torch.float32
+        elif name + "_scale" in arrays:
+            want = torch.int8
+        else:
+            want = meta["cdt"]
         if t.dtype != want:
             raise TypeError(f"pack entry {name} is {t.dtype}, expected {want}")
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"pack entry {name} must be contiguous on {device}")
 
 
+def _matrix(w, K, N):
+    """A weight leaf as a (K, N) matrix: a tensor, or a quant.py leaf as
+    ``(int8 values (K, N), per-column scale (N,))``."""
+    if is_quantized(w):
+        return w[_Q_TAG].reshape(K, N), w["scale"].reshape(N)
+    return w.reshape(K, N)
+
+
+def _cols(m, lo, hi):
+    """Columns [lo, hi) of a :func:`_matrix`."""
+    if isinstance(m, tuple):
+        return m[0][:, lo:hi], m[1][lo:hi]
+    return m[:, lo:hi]
+
+
+def _store(arrays, name, mats, cdt):
+    """Tile the NW matrices of one product under ``name``: dense in ``cdt``, or
+    int8 values with their scales under ``name + "_scale"`` (which compute in
+    bf16: an int8 pack's compute dtype is bf16, as ``Streamer`` makes it)."""
+    if not isinstance(mats[0], tuple):
+        arrays[name] = _tile(mats, cdt)
+        return
+    if cdt != torch.bfloat16:
+        raise TypeError(f"int8 weight {name}: an int8 pack computes in bfloat16, not {cdt}")
+    arrays[name] = _tile([q for q, _ in mats], torch.int8)
+    arrays[name + "_scale"] = _tile_scales([s for _, s in mats])
+
+
+def _weight_shape(w):
+    return w[_Q_TAG].shape if is_quantized(w) else w.shape
+
+
 def _pack_glu(arrays, mix_w, mix_b, C2, cdt):
     """Split the 1x1 GLU mix (..., C2) into value and gate halves."""
     nAB = C2 // 2
-    mw = _dense(mix_w).reshape(-1, C2)
-    arrays["mw"] = _tile([mw[:, :nAB], mw[:, nAB:]], cdt)
+    mw = _matrix(mix_w, _weight_shape(mix_w).numel() // C2, C2)
+    _store(arrays, "mw", [_cols(mw, 0, nAB), _cols(mw, nAB, C2)], cdt)
     mb = mix_b.reshape(1, C2).float()
     arrays["mba"] = mb[:, :nAB].contiguous()
     arrays["mbb"] = mb[:, nAB:].contiguous()
@@ -220,20 +292,19 @@ def pack_encoder_level(ep, cfg, i, compute_dtype=torch.bfloat16):
     """Pack encoder level ``i`` for :func:`fused_encoder_level`; None when the
     level does not meet the static constraints (bypass 0, K == 2S, groups 1)
     or is too wide for the kernels (a 64-column tile of a weight matrix over
-    768 KB)."""
+    768 KB).  Either weight may be a ``quant.py`` int8 leaf."""
     K, S = cfg.kernel_size, cfg.stride
     if cfg.bypass_of_layer(i) != 0 or K != 2 * S or cfg.group_of_layer(i) != 1:
         return None
-    cw = _dense(ep["conv_w"])
-    Kw, Cin, C = cw.shape
-    C2 = _dense(ep["mix_w"]).shape[-1]
-    arrays = {"cw": _tile([cw.reshape(Kw * Cin, C)], compute_dtype),
-              "cb": ep["conv_b"].reshape(1, C).float().contiguous()}
+    Kw, Cin, C = _weight_shape(ep["conv_w"])
+    C2 = _weight_shape(ep["mix_w"])[-1]
+    arrays = {"cb": ep["conv_b"].reshape(1, C).float().contiguous()}
+    _store(arrays, "cw", [_matrix(ep["conv_w"], Kw * Cin, C)], compute_dtype)
     _pack_glu(arrays, ep["mix_w"], ep["mix_b"], C2, compute_dtype)
     meta = {"K": K, "S": S, "Cin": Cin, "C": C, "C2": C2,
             "act": cfg.glu_activation, "cdt": compute_dtype,
             "T": S ** (cfg.encoder_n_layers - 1 - i)}
-    return _finish_pack(arrays, meta, cw.device)
+    return _finish_pack(arrays, meta, arrays["cb"].device)
 
 
 def pack_decoder_level(dp, cfg, enc_i, compute_dtype=torch.bfloat16):
@@ -242,26 +313,31 @@ def pack_decoder_level(dp, cfg, enc_i, compute_dtype=torch.bfloat16):
     The ConvTranspose weight (K, C, Cout), K == 2S, splits into the lo taps
     (k < S, samples inside the current token's stride) and the hi taps
     (k >= S, samples that overlap-add into the next token), each (C, S*Cout)
-    with columns ``k*Cout + cout``, tiled side by side.  None when static
-    constraints fail or the level is too wide for the kernels.
+    with columns ``k*Cout + cout``, tiled side by side; an int8 weight's
+    per-Cout scale repeats K times to match (the JAX package's tiling).  None
+    when static constraints fail or the level is too wide for the kernels.
     """
     K, S = cfg.kernel_size, cfg.stride
     if cfg.bypass_of_layer(enc_i) != 0 or K != 2 * S:
         return None
-    ctw = _dense(dp["convt_w"])
-    Kw, C, Cout = ctw.shape
-    mix_w = _dense(dp["mix_w"])
-    C2 = mix_w.shape[-1]
+    ctw = dp["convt_w"]
+    Kw, C, Cout = _weight_shape(ctw)
+    C2 = _weight_shape(dp["mix_w"])[-1]
     arrays = {}
     _pack_glu(arrays, dp["mix_w"], dp["mix_b"], C2, compute_dtype)
-    full = ctw.permute(1, 0, 2).reshape(C, Kw * Cout)
+    if is_quantized(ctw):  # (K, C, Cout) -> (C, K*Cout), columns k*Cout + cout
+        full = (ctw[_Q_TAG].permute(1, 0, 2).reshape(C, Kw * Cout),
+                ctw["scale"].reshape(Cout).repeat(Kw))
+    else:
+        full = ctw.permute(1, 0, 2).reshape(C, Kw * Cout)
     half = S * Cout
-    arrays["ctw"] = _tile([full[:, :half], full[:, half:]], compute_dtype)
+    _store(arrays, "ctw", [_cols(full, 0, half), _cols(full, half, 2 * half)], compute_dtype)
     arrays["cb_tiled"] = dp["convt_b"].reshape(1, Cout).float().repeat(1, S).contiguous()
-    meta = {"K": K, "S": S, "C": C, "C2": C2, "Cout": Cout, "Cx": mix_w.numel() // C2,
+    meta = {"K": K, "S": S, "C": C, "C2": C2, "Cout": Cout,
+            "Cx": _weight_shape(dp["mix_w"]).numel() // C2,
             "act": cfg.glu_activation, "cdt": compute_dtype,
             "T": S ** (cfg.encoder_n_layers - 1 - enc_i)}
-    return _finish_pack(arrays, meta, ctw.device)
+    return _finish_pack(arrays, meta, arrays["cb_tiled"].device)
 
 
 def pack_stream_params(params, cfg, compute_dtype=torch.bfloat16):
@@ -356,12 +432,12 @@ def _kernels():
     lib = load_library("stream_fused")
     plan_t = ctypes.POINTER(ctypes.c_int)
     enc = lib.fused_encoder_level
-    enc.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int]
+    enc.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 8 + [ctypes.c_int]
                     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [plan_t, ctypes.c_void_p])
     enc.restype = ctypes.c_int
     dec = lib.fused_decoder_level
-    dec.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    dec.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                     + [ctypes.c_int] * 5 + [plan_t, ctypes.c_void_p])
     dec.restype = ctypes.c_int
     empty = lib.empty_launches
@@ -378,10 +454,11 @@ def _plan_for(what, arrays, meta, B, T, device):
     if scratch.device != device:
         raise ValueError(f"{what}: the pack is on {scratch.device}, the activations on {device}")
     kind, dims = _level_dims(meta)
-    plan, need = _level_plan(kind, B, T, dims, _ESIZE[meta["cdt"]])
+    weights = _level_weights(arrays)
+    plan, need = _level_plan(kind, B, T, dims, tuple(_ESIZE[w.dtype] for w in weights))
     if need > scratch.numel():
         arrays["scratch"] = torch.empty(need, dtype=meta["cdt"], device=device)
-    return plan
+    return plan, [_WEIGHT_CODES[w.dtype] for w in weights]
 
 
 def empty_launches(n: int, device) -> None:
@@ -394,7 +471,9 @@ def fused_encoder_level(win, arrays, meta):
     """K3.  win (B, T, K*Cin) gathered windows -> (B, T, C2/2) in the pack's
     compute dtype: relu(win @ cw + cb) -> (h @ mwa + mba) * act(h @ mwb + mbb).
 
-    The kernel for CUDA tensors, the plain version for CPU tensors.
+    The kernel for CUDA tensors, the plain version for CPU tensors.  A call
+    counts in ``launches``, or in ``int8_launches`` if the pack holds an int8
+    weight.
     """
     if win.device.type == "cpu":
         return fused_encoder_level_plain(win, arrays, meta)
@@ -412,17 +491,23 @@ def fused_encoder_level(win, arrays, meta):
     out = torch.empty((B, T, N2), dtype=cdt, device=win.device)
     if M == 0:
         return out
-    plan = _plan_for(what, arrays, meta, B, T, win.device)
+    plan, wcodes = _plan_for(what, arrays, meta, B, T, win.device)
     status = _kernels()[0](
-        tx, DTYPE_CODES[cdt], ptr(win), ptr(arrays["cw"]), ptr(arrays["cb"]), ptr(arrays["mw"]),
-        ptr(arrays["mba"]), ptr(arrays["mbb"]), _ACT_CODES[meta["act"]],
-        ptr(arrays["scratch"]), ptr(out), M, KC, C, N2, plan, stream_ptr(win.device))
+        tx, DTYPE_CODES[cdt], *wcodes, ptr(win), ptr(arrays["cw"]), ptr(arrays.get("cw_scale")),
+        ptr(arrays["cb"]), ptr(arrays["mw"]), ptr(arrays.get("mw_scale")), ptr(arrays["mba"]),
+        ptr(arrays["mbb"]), _ACT_CODES[meta["act"]], ptr(arrays["scratch"]), ptr(out), M, KC, C,
+        N2, plan, stream_ptr(win.device))
     check(status, what)
-    fused_encoder_level.launches += 1
+    if _WEIGHT_CODES[torch.int8] in wcodes:
+        fused_encoder_level.int8_launches += 1
+    else:
+        fused_encoder_level.launches += 1
     return out
 
 
+# launches with dense (fp32 or bf16) packs, and with an int8 weight in the pack
 fused_encoder_level.launches = 0
+fused_encoder_level.int8_launches = 0
 
 
 def fused_decoder_level(x, skip, prev, arrays, meta, relu: bool):
@@ -433,7 +518,7 @@ def fused_decoder_level(x, skip, prev, arrays, meta, relu: bool):
     (B, 1, S*Cout)) in the pack's compute dtype: ``out.reshape(B, T*S, Cout)``
     is the level output after overlap-add (and ReLU), ``tail`` the next
     frame's carry (no bias).  The kernel for CUDA tensors, the plain version
-    for CPU tensors.
+    for CPU tensors.  Counted as :func:`fused_encoder_level` is.
     """
     if x.device.type == "cpu":
         return fused_decoder_level_plain(x, skip, prev, arrays, meta, relu)
@@ -455,17 +540,22 @@ def fused_decoder_level(x, skip, prev, arrays, meta, relu: bool):
     require_cuda(what, x.device, x=x, skip=skip, prev=prev)
     if B == 0 or T == 0:
         return _no_tokens(x, prev, SC, cdt)
-    plan = _plan_for(what, arrays, meta, B, T, x.device)
+    plan, wcodes = _plan_for(what, arrays, meta, B, T, x.device)
     out = torch.empty((B, T, SC), dtype=cdt, device=x.device)
     tail = torch.empty((B, 1, SC), dtype=cdt, device=x.device)
     status = _kernels()[1](
-        tx, DTYPE_CODES[cdt], ptr(x), ptr(skip), ptr(arrays["mw"]), ptr(arrays["mba"]),
-        ptr(arrays["mbb"]), _ACT_CODES[meta["act"]], ptr(arrays["scratch"]), ptr(arrays["ctw"]),
-        ptr(arrays["cb_tiled"]), ptr(prev), int(relu), ptr(out), ptr(tail), B, T, Cx, C, SC,
-        plan, stream_ptr(x.device))
+        tx, DTYPE_CODES[cdt], *wcodes, ptr(x), ptr(skip), ptr(arrays["mw"]),
+        ptr(arrays.get("mw_scale")), ptr(arrays["mba"]), ptr(arrays["mbb"]),
+        _ACT_CODES[meta["act"]], ptr(arrays["scratch"]), ptr(arrays["ctw"]),
+        ptr(arrays.get("ctw_scale")), ptr(arrays["cb_tiled"]), ptr(prev), int(relu), ptr(out),
+        ptr(tail), B, T, Cx, C, SC, plan, stream_ptr(x.device))
     check(status, what)
-    fused_decoder_level.launches += 1
+    if _WEIGHT_CODES[torch.int8] in wcodes:
+        fused_decoder_level.int8_launches += 1
+    else:
+        fused_decoder_level.launches += 1
     return out, tail
 
 
 fused_decoder_level.launches = 0
+fused_decoder_level.int8_launches = 0

@@ -15,11 +15,7 @@ import numpy as np
 import torch
 
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
-
-# Copy of cleanumamba_tpu/quant.py::_SENSITIVE_KEYS (that module imports jax).
-# Leaves under these keys are exponentiated or drive the state dynamics, so
-# they keep fp32 whatever the storage precision of the other weights.
-_SENSITIVE_KEYS = ("A_log", "A_real", "A_imag", "inv_dt", "dt_proj_b")
+from cleanumamba_tpu_torch.quant import _SENSITIVE_KEYS, dequantize_params, quantize_params
 
 
 def default_device() -> torch.device:
@@ -138,20 +134,25 @@ def load_checkpoint(path: str, device=None) -> Tuple[CleanUMambaConfig, Any]:
     return payload_config(payload), from_numpy(payload["params"], device)
 
 
-def prepare_weight_view(params, weights: str):
+def prepare_weight_view(params, weights: str, dtype=torch.float32, quant_min_size: int = 4096):
     """Storage precision of the weights the streaming step reads
     (port of ``cleanumamba_tpu/streaming.py::prepare_weight_view``).
 
-    "fp32" returns ``params`` as they are.  "bf16" casts every fp32 leaf of
-    ndim >= 2 whose path holds no sensitive key; 1-D leaves (biases, norms,
-    ``D``, ``dt_proj_b``) and ``A_log`` stay fp32.  ``bench.py`` casts every
-    fp32 leaf instead, ``A_log`` included; the port follows this function.
+    Returns ``(stored, view)``: ``stored`` is the tree kept resident,
+    ``view(stored)`` the tree the step functions consume, applied inside each
+    prime, step and block call.  "fp32": ``params`` as they are.  "bf16":
+    every fp32 leaf of ndim >= 2 whose path holds no sensitive key cast to
+    bf16; 1-D leaves (biases, norms, ``D``, ``dt_proj_b``) and ``A_log`` stay
+    fp32 (``bench.py`` casts every fp32 leaf instead; the port follows this
+    function).  "int8": ``quant.quantize_params(params, quant_min_size)``,
+    viewed as ``q * scale`` in ``dtype`` (the state dtype) at every call, two
+    launches per quantized leaf on a card.
     """
     if weights == "fp32":
-        return params
+        return params, _identity
     if weights == "int8":
-        raise NotImplementedError(
-            "int8 weights come with the quant.py port (ROADMAP Queue 1 item 6)")
+        return (quantize_params(params, quant_min_size),
+                lambda p: dequantize_params(p, dtype))
     if weights != "bf16":
         raise ValueError(f"weights={weights!r}: expected fp32|bf16|int8")
 
@@ -161,4 +162,8 @@ def prepare_weight_view(params, weights: str):
             return x.to(torch.bfloat16)
         return x
 
-    return _map_with_path(cast, params)
+    return _map_with_path(cast, params), _identity
+
+
+def _identity(p):
+    return p

@@ -53,7 +53,14 @@ from cleanumamba_tpu_torch.ops.cuda.stream_fused import (
 from cleanumamba_tpu_torch.ops.cuda.stream_mega import level_lengths as _level_lengths
 from cleanumamba_tpu_torch.ops.cuda.stream_mega import mega_stream_frame, pack_mega
 from cleanumamba_tpu_torch.ops.norms import gated_rms_norm
-from cleanumamba_tpu_torch.params import prepare_weight_view, resolve_device, to_device, tree_map
+from cleanumamba_tpu_torch.params import (
+    prepare_weight_view,
+    resolve_device,
+    to_device,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 
 def _level_strides(cfg: CleanUMambaConfig) -> List[int]:
@@ -306,12 +313,25 @@ def stream_step_mega(cfg: CleanUMambaConfig, state, new_samples, mega):
     """The single-frame step through the whole-frame kernel: the same function
     as :func:`stream_step` in fp32, the normalisation EMA before and the
     rescale after included.  On CUDA one launch of K5; on the CPU its plain
-    version.  ``mega``: ``(arrays, meta)`` from ``pack_mega``."""
+    version.  ``mega``: ``(arrays, meta)`` from ``pack_mega``.
+
+    K5 reads and writes an fp32 state.  A state of another dtype (a bf16
+    ``Streamer``) is cast to fp32 before the launch and each new leaf back to
+    its old leaf's dtype after it, as the JAX step stores the kernel's new
+    caches in the state's dtype: two more launches a leaf.
+    """
     # a state left by stream_prime or stream_step holds slices of larger tensors
     # (the kernel takes the tail and the new samples with any row stride)
-    state = {k: (v if k == "input_tail" else tree_map(lambda t: t.contiguous(), v))
-             for k, v in state.items()}
-    return mega_stream_frame(state, new_samples, *mega, normalize=cfg.normalize_input)
+    cast = any(t.is_floating_point() and t.dtype != torch.float32 for t in tree_leaves(state))
+    state32 = {k: (v if k == "input_tail" else tree_map(
+        lambda t: (t.float() if cast and t.is_floating_point() else t).contiguous(), v))
+        for k, v in state.items()}
+    new_state, out = mega_stream_frame(state32, new_samples, *mega,
+                                       normalize=cfg.normalize_input)
+    if cast:
+        new_state = {k: tree_unflatten(v, [t.to(old.dtype) for t, old in zip(
+            tree_leaves(v), tree_leaves(state[k]))]) for k, v in new_state.items()}
+    return new_state, out
 
 
 def _stack_strided_frames(window, starts, length):
@@ -446,27 +466,34 @@ class Streamer:
     mamba and mamba2 bottlenecks on CUDA).
 
     fused: "auto" | "mega" | True | False, which single-frame step runs.
-    "mega": the whole frame as one launch (``stream_step_mega``, K5 on CUDA);
-    raises if the model does not pack (``pack_mega``).  True: every U-Net
-    level that packs through the fused level kernels (K3/K4 on CUDA).  False:
-    plain ``stream_step``.  "auto" (the policy is by model, the dispatch by
-    device): mega where the model packs and the state is fp32, else the
-    per-level packs on a CUDA device, else plain.  ``fused_mode`` says what
-    was resolved: "mega" | "fused" | "plain".  On a CPU device the packed
-    paths run their kernels' plain versions.
+    "mega": the whole frame as one launch (``stream_step_mega``, K5 on CUDA),
+    packed from the dense view of the weights; raises if the model does not
+    pack (``pack_mega``).  True: every U-Net level that packs through the
+    fused level kernels (K3/K4 on CUDA), packed from the stored weights (int8
+    packs for ``weights="int8"``).  False: plain ``stream_step``.  "auto" (the
+    policy is by model, the dispatch by device): mega where the model packs,
+    else the per-level packs on a CUDA device, else plain; with int8 weights
+    plain, as the JAX package's "auto" keeps int8 on its per-op path.
+    ``fused_mode`` says what was resolved: "mega" | "fused" | "plain".  On a
+    CPU device the packed paths run their kernels' plain versions.
 
     device: where the model runs; None means ``params.default_device()``
     (the first CUDA device; raises where there is none).
 
-    weights: "fp32" | "bf16", the storage precision of the weight matrices
-    (``prepare_weight_view``); bf16 also makes the packs' compute dtype
-    bf16.  State and activation math run in ``dtype``.
+    weights: "fp32" | "bf16" | "int8", the storage precision of the weight
+    matrices (``prepare_weight_view``; int8 quantizes the leaves of at least
+    ``quant_min_size`` elements).  bf16 and int8 make the packs' compute
+    dtype bf16.  The view is applied inside every prime, step and block
+    call, so the resident weights stay int8.  State and activation math run
+    in ``dtype``.
     """
 
     def __init__(self, params, cfg: CleanUMambaConfig, device=None, batch: int = 1,
-                 dtype=torch.float32, weights: str = "fp32", fused="auto"):
+                 dtype=torch.float32, weights: str = "fp32", quant_min_size: int = 4096,
+                 fused="auto"):
         self.device = resolve_device(device)
-        self.params = prepare_weight_view(to_device(params, self.device), weights)
+        self.params, self.view = prepare_weight_view(
+            to_device(params, self.device), weights, dtype, quant_min_size)
         self.cfg = cfg
         self.dtype = dtype
         self.batch = batch
@@ -474,8 +501,10 @@ class Streamer:
         cdt = torch.float32 if weights == "fp32" else torch.bfloat16
         if fused not in ("auto", "mega", True, False):
             raise ValueError(f"fused={fused!r}: expected 'auto', 'mega', True or False")
-        if fused == "mega" or (fused == "auto" and dtype == torch.float32):
-            self.mega = pack_mega(self.params, cfg, cdt)
+        if fused == "auto" and weights == "int8":
+            fused = False
+        if fused in ("mega", "auto"):
+            self.mega = pack_mega(self.view(self.params), cfg, cdt)
             if self.mega is None and fused == "mega":
                 raise ValueError("fused='mega': the model does not meet the whole-frame "
                                  "kernel's constraints (see pack_mega)")
@@ -484,6 +513,15 @@ class Streamer:
             arrays, meta = pack_stream_params(self.params, cfg, cdt)
             if meta is not None:
                 self.packs = (arrays, meta)
+        # what the single-frame step reads: a packed level's weights are in its
+        # pack, so the view need not dequantize them at every step
+        self._step_params = self.params
+        if self.packs is not None:
+            meta = self.packs[1]
+            self._step_params = dict(self.params, **{
+                name: [None if m is not None else lp
+                       for lp, m in zip(self.params[name], meta[side])]
+                for side, name in (("enc", "encoder"), ("dec", "decoder"))})
         self.fused_mode = ("mega" if self.mega is not None
                            else "fused" if self.packs is not None else "plain")
         self.state = None
@@ -503,7 +541,7 @@ class Streamer:
         outs = []
         fl, ts = self.cfg.frame_length, self.cfg.total_stride
         if self.state is None and self.pending.shape[1] >= fl:
-            self.state, out = stream_prime(self.params, self.cfg,
+            self.state, out = stream_prime(self.view(self.params), self.cfg,
                                            self._tensor(self.pending[:, :fl]), self.dtype)
             outs.append(out)
             self.pending = self.pending[:, ts:]
@@ -514,11 +552,11 @@ class Streamer:
             if n_frames == 1 and self.mega is not None:
                 self.state, out = stream_step_mega(self.cfg, self.state, new, self.mega)
             elif n_frames == 1:
-                self.state, out = stream_step(self.params, self.cfg, self.state, new,
-                                              self.dtype, packs=self.packs)
+                self.state, out = stream_step(self.view(self._step_params), self.cfg,
+                                              self.state, new, self.dtype, packs=self.packs)
             else:
-                self.state, out = stream_step_block(self.params, self.cfg, self.state, new,
-                                                    self.dtype)
+                self.state, out = stream_step_block(self.view(self.params), self.cfg,
+                                                    self.state, new, self.dtype)
             outs.append(out)
             self.pending = self.pending[:, n_frames * ts:]
         if not outs:

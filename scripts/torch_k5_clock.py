@@ -229,7 +229,7 @@ def main() -> int:
             cfg = _fullmini(family, **kw)
             params = init_params(cfg, torch.Generator().manual_seed(0), dev)
             for cdt in (torch.float32, torch.bfloat16):
-                view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")
+                view = params if cdt == torch.float32 else prepare_weight_view(params, "bf16")[0]
                 mega = sm.pack_mega(view, cfg, cdt)
                 st, _ = stream_prime(params, cfg, torch.zeros(1, cfg.frame_length, device=dev))
                 st = tree_map(lambda t: t.contiguous(), st)

@@ -131,8 +131,11 @@ def test_pack_static_constraints_and_int8(params):
     assert tsf.pack_decoder_level(pt["decoder"][0], cfg_bp, D - 1) is None
     q = dict(pt["encoder"][0], conv_w={"int8_values": torch.zeros(4, 1, 8, dtype=torch.int8),
                                        "scale": torch.ones(1, 1, 8)})
-    with pytest.raises(NotImplementedError, match="quant.py"):
-        tsf.pack_encoder_level(q, CFG, 0)
+    arrays, _ = tsf.pack_encoder_level(q, CFG, 0)  # int8 packs, with its scales beside it
+    assert arrays["cw"].dtype == torch.int8 and arrays["cw_scale"].dtype == torch.float32
+    assert arrays["mw"].dtype == torch.bfloat16 and "mw_scale" not in arrays  # dense mix
+    with pytest.raises(TypeError, match="bfloat16"):  # an int8 pack computes in bf16
+        tsf.pack_encoder_level(q, CFG, 0, torch.float32)
 
 
 def test_decoder_without_tokens_carries_the_tail(params):
@@ -236,7 +239,7 @@ def test_scratch_covers_batch_8(params, pruned, model):
         k, dims = tsf._level_dims(meta)
         assert k == kind
         for B in range(1, 9):
-            plan, scratch = tsf._level_plan(kind, B, meta["T"], dims, 2)
+            plan, scratch = tsf._level_plan(kind, B, meta["T"], dims, (2, 2))
             assert scratch == B * meta["T"] * dims[1] <= arrays["scratch"].numel()
             first, second = tsf._products(kind, B, meta["T"], dims)
             assert tuple(plan) == tsf._plan(*first, 2) + tsf._plan(*second, 2)
@@ -270,7 +273,7 @@ def test_too_wide_a_level_does_not_pack(params):
     """A tile whose weights exceed a cluster's shared memory has no plan, and
     the level then stays on the per-op path (its pack is None)."""
     assert tsf._plan(1, 7000, 64, 1, 1, 4) is None
-    assert tsf._level_plan("enc", 1, 1, (7000, 64, 64), 4) is None
+    assert tsf._level_plan("enc", 1, 1, (7000, 64, 64), (4, 4)) is None
     _, pt = params
     wide = dict(pt["encoder"][D - 1], conv_w=torch.zeros(4, 1750, 16))
     assert tsf.pack_encoder_level(wide, CFG, D - 1, torch.float32) is None

@@ -149,7 +149,7 @@ def test_bf16_pack_tracks_fp32(models, family):
     """bf16 packs track the fp32 step within 0.05 of max|ref| (tests/test_stream_mega.py)."""
     jcfg, _, pt = models(family)
     cfg = CleanUMambaConfig(**dataclasses.asdict(jcfg))
-    mega = sm.pack_mega(tparams.prepare_weight_view(pt, "bf16"), cfg, torch.bfloat16)
+    mega = sm.pack_mega(tparams.prepare_weight_view(pt, "bf16")[0], cfg, torch.bfloat16)
     fl, tsd = cfg.frame_length, cfg.total_stride
     x = torch.from_numpy(_audio(cfg, 1, 3, seed=32))
     s_ref, _ = ts.stream_prime(pt, cfg, x[:, :fl])
@@ -232,8 +232,9 @@ def test_fused_policy(models):
     assert ts.Streamer(pt, cfg, "cpu", fused=False).fused_mode == "plain"
     assert ts.Streamer(pt, cfg, "cpu", fused=True).fused_mode == "fused"
     assert ts.Streamer(pt, cfg, "cpu", fused="mega").fused_mode == "mega"
-    # bf16 state: the whole-frame kernel keeps fp32 state, so "auto" stays plain
-    assert ts.Streamer(pt, cfg, "cpu", dtype=torch.bfloat16).fused_mode == "plain"
+    # bf16 state: "auto" takes the whole frame too, as the JAX package does
+    # (stream_step_mega casts the state to fp32 around the launch)
+    assert ts.Streamer(pt, cfg, "cpu", dtype=torch.bfloat16).fused_mode == "mega"
     with pytest.raises(ValueError, match="fused"):
         ts.Streamer(pt, cfg, "cpu", fused="level")
     big = CleanUMambaConfig(**BIG_LANE)

@@ -110,7 +110,7 @@ def test_cluster_plan_covers_and_fits(geometry):
     """Every cluster size, fp32 and bf16 packs."""
     cfg, params = _model(geometry)
     for cdt in (torch.float32, torch.bfloat16):
-        view = params if cdt == torch.float32 else tparams.prepare_weight_view(params, "bf16")
+        view = params if cdt == torch.float32 else tparams.prepare_weight_view(params, "bf16")[0]
         packed = sm.pack_mega(view, cfg, cdt)
         assert packed is not None, geometry
         for C in sm.CLUSTERS:
@@ -157,7 +157,7 @@ def test_cluster_plan_cuts_the_outer_levels():
     assert all(r[1] == 1 for r in by_name["e7c"]["ranks"])  # one token: columns only
     assert not any(p["mma"] for p in plan["products"] if not p["multi"])
     # bf16 packs keep the SIMT path's sum order
-    bf16 = sm.pack_mega(tparams.prepare_weight_view(params, "bf16"), cfg, torch.bfloat16)[1]
+    bf16 = sm.pack_mega(tparams.prepare_weight_view(params, "bf16")[0], cfg, torch.bfloat16)[1]
     assert not any(p["mma"] for p in sm.mega_plan(bf16, 8)["products"])
 
 
@@ -261,3 +261,20 @@ def test_frame_kernel_matches_plain_on_cuda(family, normalize):
                 assert float((a.float() - b.float()).abs().max()) <= 1e-4 * max(
                     float(b.float().abs().max()), 1e-30)
         st = want
+
+
+def test_pack_budget_refuses_what_jax_refuses():
+    """The port's 16 MiB budget counts its own pack, which has none of the TPU
+    pack's lane padding and selection matrices: the wide-lane geometry that
+    JAX's 24 MiB budget refuses (11.3 M parameters, 22.4 MiB as the port packs
+    it in bf16) is refused here too, and the released small geometry packs in
+    both."""
+    big = dict(channels_H=64, max_H=768, encoder_n_layers=2, tsfm_n_head=8, tsfm_d_model=512,
+               tsfm_d_inner=2048)
+    for spec, packs in ((big, False), (FULLMINI, True)):
+        cfg = CleanUMambaConfig(**spec)
+        ours = sm.pack_mega(tm.init_params(cfg, torch.Generator().manual_seed(1), "cpu"), cfg,
+                            torch.bfloat16)
+        jcfg = JaxConfig(**spec)
+        theirs = jax_pack_mega(jax_init_params(jax.random.PRNGKey(1), jcfg), jcfg, jnp.bfloat16)
+        assert (ours is not None) == (theirs is not None) == packs, spec

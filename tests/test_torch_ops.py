@@ -132,13 +132,16 @@ def test_from_numpy_gives_contiguous_copies():
 
 def test_prepare_weight_view_bf16_keeps_sensitive_and_1d_leaves_fp32():
     t = tparams.from_numpy(_tree(), "cpu")
-    v = tparams.prepare_weight_view(t, "bf16")
+    v, view = tparams.prepare_weight_view(t, "bf16")
+    assert view(v) is v  # bf16 is stored as it is viewed
     assert v["a"][0].dtype == torch.bfloat16  # 2-D weight
     assert v["a"][1]["A_log"].dtype == torch.float32  # sensitive key
     assert v["a"][1]["b"].dtype == torch.float32  # 1-D
-    assert tparams.prepare_weight_view(t, "fp32") is t
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tparams.prepare_weight_view(t, "int8")
+    stored, view = tparams.prepare_weight_view(t, "fp32")
+    assert stored is t and view(stored) is t
+    stored, view = tparams.prepare_weight_view(t, "int8", quant_min_size=1)
+    assert isinstance(stored["a"][0], dict) and view(stored)["a"][0].dtype == torch.float32
+    assert stored["a"][1]["A_log"] is t["a"][1]["A_log"]  # sensitive key: never quantized
     with pytest.raises(ValueError):
         tparams.prepare_weight_view(t, "fp16")
 

@@ -241,5 +241,24 @@ def test_streamer_weight_views(small):
     x = _audio(cfg, 1, 6, seed=11)
     out = _feed_all(ts.Streamer(pt, cfg, "cpu", weights="bf16"), x, [cfg.frame_length])
     assert out.shape == x.shape and np.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.Streamer(pt, cfg, "cpu", weights="int8")
+    s8 = ts.Streamer(pt, cfg, "cpu", weights="int8", quant_min_size=64)
+    out8 = _feed_all(s8, x, [cfg.frame_length])
+    assert out8.shape == x.shape and np.isfinite(out8).all()
+    assert s8.fused_mode == "plain"  # "auto" keeps int8 on the per-op path, as JAX does
+
+
+def test_auto_takes_mega_for_any_state_dtype(small):
+    """"auto" resolves to the whole-frame path whatever the state dtype, as
+    the JAX package's does: a bf16 state is cast to fp32 around K5's launch and
+    each new leaf back to bf16.  It tracks the plain bf16 step within 2e-2 of
+    max|ref| (bf16 state rounding on both sides, fp32 inside the frame)."""
+    cfg, _, pt = small
+    x = _audio(cfg, 1, 12, seed=12)
+    s = ts.Streamer(pt, cfg, "cpu", dtype=torch.bfloat16)
+    assert s.fused_mode == "mega"
+    plain = ts.Streamer(pt, cfg, "cpu", dtype=torch.bfloat16, fused=False)
+    hops = [cfg.frame_length] + [cfg.total_stride] * 12
+    got, want = _feed_all(s, x, hops), _feed_all(plain, x, hops)
+    _rel(torch.from_numpy(got), want, rel=2e-2)
+    assert all(t.dtype == u.dtype for t, u in zip(tparams.tree_leaves(s.state),
+                                                  tparams.tree_leaves(plain.state)))
