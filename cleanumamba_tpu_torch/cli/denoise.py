@@ -6,7 +6,8 @@ of noisy wavs in, ``enhanced_*.wav`` out.
 
 Reads either this project's checkpoints or the reference's PyTorch pickles
 (:func:`load_any_checkpoint`).  Runs on ``cuda:0`` unless ``--device`` names
-another device.
+another device.  Before each file, ``prepare_for_length`` extends a mamba_s4
+model's kernels to the file's length where they are shorter.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from cleanumamba_tpu_torch.convert import convert_payload
 from cleanumamba_tpu_torch.data.dataset import NoisyOnlyDataset
 from cleanumamba_tpu_torch.data.wavio import write_wav
-from cleanumamba_tpu_torch.models.cleanumamba import forward
+from cleanumamba_tpu_torch.models.cleanumamba import forward, prepare_for_length
 from cleanumamba_tpu_torch.params import from_numpy, payload_config, resolve_device, tree_map
 
 
@@ -80,6 +81,7 @@ def main(argv=None):
         if args.pad_to_sec:
             target = int(args.pad_to_sec * args.sample_rate)
             x = np.pad(noisy, (0, max(0, target - L)))[:target]
+        params = prepare_for_length(params, cfg, len(x))  # mamba_s4: kernels cover len(x)
         t0 = time.perf_counter()
         with torch.no_grad():
             xin = torch.from_numpy(np.ascontiguousarray(x[None], np.float32)).to(device)

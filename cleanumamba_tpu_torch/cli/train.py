@@ -6,10 +6,14 @@
 Same flags and checkpoint layout as the JAX CLI: resumes from the newest
 ``{log_directory}/{exp_path}/checkpoint/{n}.pkl``, logs
 ``iter N: loss=... rec=... sc=... mag=... gnorm=...`` every ``--log-every``
-iterations, and saves every ``iters_per_ckpt`` and at the end.  Runs on
-``cuda:0`` unless ``--device`` names another device, and raises where there
-is no CUDA device and none was named.  Not yet ported, and refused:
-more than one device, ``--model-parallel`` > 1, and mid-training validation.
+iterations, validates every ``iters_per_valid`` (``eval.validate`` on
+``valid_max_items`` utterances padded to the crop length), and saves every
+``iters_per_ckpt`` and at the end.  Train and valid rows go to
+``{log_directory}/{exp_path}/metrics.jsonl`` (``utils.MetricsLogger``) under
+the run id that the checkpoints carry, so a resumed run appends to its own
+record.  Runs on ``cuda:0`` unless ``--device`` names another device, and
+raises where there is no CUDA device and none was named.  Not yet ported,
+and refused: more than one device and ``--model-parallel`` > 1.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from cleanumamba_tpu_torch.data import (
     SyntheticDenoiseDataset,
     make_training_loader,
 )
+from cleanumamba_tpu_torch.eval.validate import validate
 from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
 from cleanumamba_tpu_torch.params import resolve_device
 from cleanumamba_tpu_torch.train.checkpoint import (
@@ -35,12 +40,7 @@ from cleanumamba_tpu_torch.train.checkpoint import (
 )
 from cleanumamba_tpu_torch.train.optim import make_optimizer
 from cleanumamba_tpu_torch.train.trainer import make_device_data_steps, make_train_step
-
-
-def _first_valid_iter(start: int, every: int) -> int:
-    """The first iteration >= start at which the JAX CLI would validate."""
-    first = max(start, every)
-    return -(-first // every) * every
+from cleanumamba_tpu_torch.utils import MetricsLogger
 
 
 def main(argv=None):
@@ -102,13 +102,11 @@ def main(argv=None):
         t_prev = ck.get("training_time_seconds", 0.0)
         print(f"resumed from iter {ck['iter']}")
 
-    max_iters = args.max_iters or opt.n_iters
-    if _first_valid_iter(start_iter, tc.iters_per_valid) < max_iters:
-        raise NotImplementedError(
-            f"mid-training validation at iter {_first_valid_iter(start_iter, tc.iters_per_valid)}"
-            " comes with eval/validate (ROADMAP Queue 1 item 11): set iters_per_valid "
-            "beyond the run or lower --max-iters")
+    sink = MetricsLogger.for_run(os.path.join(tc.log_directory, exp_path),
+                                 run_id=run_id, config=raw_exp)
+    run_id = sink.run_id
 
+    max_iters = args.max_iters or opt.n_iters
     L = int(tc.crop_length_sec * tc.sample_rate)
     step_fn = make_train_step(cfg, tc.loss, optimizer, bf16=opt.bf16, remat=opt.remat)
     stepper = loader = None
@@ -116,15 +114,19 @@ def main(argv=None):
         stepper = make_device_data_steps(step_fn, per_step_batch, L, args.device_data,
                                          accum=accum)
         gen = torch.Generator(device=dev).manual_seed(1234 + start_iter)
+    if args.synthetic or not tc.data_root or not os.path.isdir(tc.data_root):
+        if not args.synthetic:
+            print(f"data root {tc.data_root!r} not found -> synthetic dataset")
+        ds = SyntheticDenoiseDataset(crop_length_sec=tc.crop_length_sec,
+                                     sample_rate=tc.sample_rate)
+        val_ds = SyntheticDenoiseDataset(n_items=16, crop_length_sec=tc.crop_length_sec,
+                                         sample_rate=tc.sample_rate, seed=1234)
     else:
-        if args.synthetic or not tc.data_root or not os.path.isdir(tc.data_root):
-            if not args.synthetic:
-                print(f"data root {tc.data_root!r} not found -> synthetic dataset")
-            ds = SyntheticDenoiseDataset(crop_length_sec=tc.crop_length_sec,
-                                         sample_rate=tc.sample_rate)
-        else:
-            ds = CleanNoisyPairDataset(tc.data_root, "training", tc.crop_length_sec,
-                                       tc.sample_rate, dataset=tc.dataset)
+        ds = CleanNoisyPairDataset(tc.data_root, "training", tc.crop_length_sec,
+                                   tc.sample_rate, dataset=tc.dataset)
+        val_ds = CleanNoisyPairDataset(tc.data_root, "testing", sample_rate=tc.sample_rate,
+                                       dataset=tc.dataset)
+    if stepper is None:
         loader = make_training_loader(ds, per_step_batch * accum)
 
     n_iter = start_iter
@@ -148,6 +150,12 @@ def main(argv=None):
                   f"sc={float(aux.get('stft_sc', 0)):.4f} "
                   f"mag={float(aux.get('stft_mag', 0)):.4f} "
                   f"gnorm={float(aux['grad_norm']):.3f} ({time.time() - t0:.0f}s)", flush=True)
+            sink.log({k: float(v) for k, v in aux.items()}, step=n_iter, kind="train")
+        if crossed(tc.iters_per_valid) and n_iter >= tc.iters_per_valid:
+            metrics = validate(params, cfg, val_ds, max_items=tc.valid_max_items, pad_to=L)
+            print(f"iter {n_iter}: valid " + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()),
+                  flush=True)
+            sink.log(metrics, step=n_iter, kind="valid")
         if crossed(tc.iters_per_ckpt) and n_iter >= tc.iters_per_ckpt:
             path = save_checkpoint(ckpt_dir, n_iter, params, opt_state, cfg, run_id=run_id,
                                    training_time_seconds=time.time() - t0)
@@ -157,6 +165,7 @@ def main(argv=None):
     path = save_checkpoint(ckpt_dir, n_iter - 1, params, opt_state, cfg, run_id=run_id,
                            training_time_seconds=time.time() - t0)
     print(f"saved {path}")
+    sink.close()
 
 
 if __name__ == "__main__":

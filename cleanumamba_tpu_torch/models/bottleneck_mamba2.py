@@ -8,7 +8,9 @@
 The scalar-per-head decay is a special case of the selective scan with
 ``A[i, s] = a_head(i // headdim)``, so the step and the block of tokens
 (``streaming._mamba2_mixer_tokens``, K1 on CUDA) share the (d_inner, d_state)
-state.  The offline ``mixer_forward`` (``ssd_scan``) is not ported yet.
+state.  The offline ``mixer_forward`` runs the SSD form (``ops/scan.py::
+ssd_scan_grad``: masked matmuls, a hand-written backward), or with
+``use_ssd=False`` the plain selective scan on the broadcast parameters.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from cleanumamba_tpu_torch.models.bottleneck_mamba import uniform
+from cleanumamba_tpu_torch.ops.conv import causal_depthwise_conv
 from cleanumamba_tpu_torch.ops.norms import gated_rms_norm
-from cleanumamba_tpu_torch.ops.scan import selective_scan_step
+from cleanumamba_tpu_torch.ops.scan import selective_scan, selective_scan_step, ssd_scan_grad
 
 
 def mixer_geometry(p):
@@ -50,6 +53,31 @@ def ssm_inputs(p, xBC, dt_h):
     A = A_head.repeat_interleave(headdim)[:, None].expand(d_inner, d_state).contiguous()
     D = p["D"].float().repeat_interleave(headdim)
     return xs, dt, A, Bm, Cm, D
+
+
+def mixer_forward(p, x, chunk: int = 32, use_ssd: bool = True):
+    """Offline forward.  x: (B, T, d_model) -> (B, T, d_model).
+
+    ``use_ssd``: the SSD scan over heads at chunk ``min(2 * chunk, 64)``,
+    whose gradient is the hand-written backward (autograd through the
+    chunked form would save every (B, T, T, H) decay mask); otherwise the
+    plain selective scan at ``chunk`` on per-channel dt, A and D."""
+    _, d_inner, d_state, n_heads, headdim = mixer_geometry(p)
+    z, xBC, dt_h = split_zxbcdt(p, x @ p["in_proj"].to(x.dtype))
+    xBC = F.silu(causal_depthwise_conv(xBC, p["conv_w"], p["conv_b"]))
+    if use_ssd:
+        Bsz, T, _ = xBC.shape
+        xh = xBC[..., :d_inner].reshape(Bsz, T, n_heads, headdim)
+        Bm, Cm = xBC[..., d_inner : d_inner + d_state], xBC[..., d_inner + d_state :]
+        dt_h = F.softplus(dt_h.float() + p["dt_bias"].float())
+        A_head = -torch.exp(p["A_log"].float())
+        y, _ = ssd_scan_grad(xh, dt_h, A_head, Bm, Cm, p["D"], None, min(chunk * 2, 64))
+        y = y.reshape(Bsz, T, d_inner)
+    else:
+        xs, dt, A, Bm, Cm, D = ssm_inputs(p, xBC, dt_h)
+        y, _ = selective_scan(xs, dt, A, Bm, Cm, D, chunk=chunk)
+    y = gated_rms_norm(y, z, p["norm_w"])
+    return y @ p["out_proj"].to(y.dtype)
 
 
 def mixer_init_cache(p, batch_size: int, dtype=torch.float32, device="cpu"):

@@ -1,7 +1,9 @@
 """CleanUMamba: causal time-domain U-Net around a sequence-model bottleneck
 (port of ``cleanumamba_tpu/models/cleanumamba.py``).  The offline forward
-runs the ``"mamba"``, ``"lstm"`` and ``"mha"`` families; ``"mamba2"`` and
-``"mamba_s4"`` have their single-token step (streaming) only so far.
+runs all five bottleneck families: ``"mamba"``, ``"mamba2"`` and
+``"mamba_s4"`` (pre-norm residual stacks), ``"lstm"`` and ``"mha"``.  A
+``"mamba_s4"`` model's DPLR kernels must cover the bottleneck length:
+:func:`prepare_for_length` extends them.
 
 Activations are channels-last ``(B, L, C)``; the strided K=4/S=2 encoder
 conv and the decoder's transposed conv are matmuls; the residual stream
@@ -36,10 +38,6 @@ from cleanumamba_tpu_torch.ops.norms import layer_norm, rms_norm
 from cleanumamba_tpu_torch.params import resolve_device, tree_leaves, tree_map
 
 Params = Dict[str, Any]
-
-OFFLINE_TODO = ("the offline forward of the {} bottleneck comes with ROADMAP Queue 1 "
-                "item 8 (ssd_scan / the S4 kernel and FFT convolution); this port "
-                "streams it (its single-token step) only")
 
 # the residual pre-norm families and their mixer modules
 STEP_MIXERS = {"mamba": bottleneck_mamba, "mamba2": bottleneck_mamba2,
@@ -101,10 +99,23 @@ def bottleneck_forward(params: Params, x, cfg: CleanUMambaConfig):
         return bottleneck_lstm.forward(params["layers"], x)
     if cfg.bottleneck == "mha":
         return bottleneck_mha.forward(params, x, cfg)
-    if cfg.bottleneck != "mamba":
-        raise NotImplementedError(OFFLINE_TODO.format(cfg.bottleneck))
-    return residual_stack(params, x, cfg,
-                          lambda l, mp, h: bottleneck_mamba.mixer_forward(mp, h))
+    mixer = STEP_MIXERS[cfg.bottleneck]
+    return residual_stack(params, x, cfg, lambda l, mp, h: mixer.mixer_forward(mp, h))
+
+
+def prepare_for_length(params: Params, cfg: CleanUMambaConfig, L: int) -> Params:
+    """Make params valid for inputs of length L: for the mamba_s4 bottleneck,
+    extend each layer's attuned kernel length (host-side) to the bottleneck
+    length ``valid_length(L) // total_stride``; the other families need
+    nothing.  Like the JAX package, it replaces the kernel dicts inside the
+    given tree and returns that tree."""
+    if cfg.bottleneck != "mamba_s4":
+        return params
+    bott_len = cfg.valid_length(L) // cfg.total_stride
+    for layer in params["bottleneck"]["layers"]:
+        layer["mixer"]["kernel"] = bottleneck_s4.extend_kernel_length(
+            layer["mixer"]["kernel"], bott_len)
+    return params
 
 
 def forward(params: Params, noisy, cfg: CleanUMambaConfig, return_skips: bool = False):

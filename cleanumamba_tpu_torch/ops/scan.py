@@ -12,7 +12,9 @@ input dtype; y comes back in u's dtype and h_last in fp32.
 
 These are the plain versions: the CPU path, and the references the CUDA
 kernels (``ops/cuda/selective_scan.py``: K1 forward, K2 backward) are held
-against on the card.
+against on the card.  The Mamba2 SSD form (``ssd_scan``, ``ssd_scan_grad``:
+one scalar decay per head, chunked masked matmuls) has no kernel in either
+package and runs as plain torch on both devices.
 """
 
 from __future__ import annotations
@@ -161,3 +163,173 @@ def selective_scan_step(h, u, dt, A, B, C, D=None):
     if D is not None:
         y = y + uf * D.float()
     return h, y.to(u.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mamba2 SSD: the chunked masked-matmul form of a scan whose decay is one
+# scalar per head and step (a_t = exp(dt_t * A_h)).  Plain torch (einsum on
+# cuBLAS); the JAX package computes it outside any Pallas kernel too.
+# --------------------------------------------------------------------------
+
+def _ssd_pad_chunks(chunk, *tensors):
+    """Zero-pad dim 1 to a multiple of ``chunk`` and split it into
+    (n_chunks, B, chunk, ...) views, fp32."""
+    L = tensors[0].shape[1]
+    pad = -L % chunk
+    out = []
+    for t in tensors:
+        t = t.float()
+        if pad:
+            t = F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+        out.append(t.reshape(t.shape[0], -1, chunk, *t.shape[2:]).transpose(0, 1))
+    return out
+
+
+def _ssd_chunk_parts(xc, dtc, Bc, Cc, Ah, chunk):
+    """Per-chunk quantities shared by the SSD forward and backward:
+    (s, M, G, dx, decay_to_end) with
+      s: (B, T, H) in-chunk cumsum of dt * A_h,
+      M: (B, T, T, H) causal decay mask exp(s_t - s_tau), zero above the diagonal,
+      G: (B, T, T) C B^T,
+      dx: (B, T, H, P) dt-scaled inputs,
+      decay_to_end: (B, T, H) exp(s_T - s_t).
+    The mask is applied before the exponential (-inf above the diagonal),
+    so no inf is formed there; the values equal exp-then-mask."""
+    s = torch.cumsum(dtc * Ah, dim=1)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=s.device).tril()
+    diff = s[:, :, None, :] - s[:, None, :, :]
+    M = torch.exp(diff.masked_fill(~causal[None, :, :, None], float("-inf")))
+    G = torch.einsum("btn,bsn->bts", Cc, Bc)
+    dx = dtc[..., None] * xc
+    decay_to_end = torch.exp(s[:, -1:, :] - s)
+    return s, M, G, dx, decay_to_end
+
+
+def _ssd_forward(x, dt, A_head, B, C, D_head, h0, chunk, keep_starts):
+    Bsz, L, H, P = x.shape
+    h = (x.new_zeros((Bsz, H, P, B.shape[-1]), dtype=torch.float32) if h0 is None
+         else h0.float())
+    Ah = A_head.float()
+    ys, starts = [], []
+    for xc, dtc, Bc, Cc in zip(*_ssd_pad_chunks(chunk, x, dt, B, C)):
+        s, M, G, dx, decay_to_end = _ssd_chunk_parts(xc, dtc, Bc, Cc, Ah, chunk)
+        y = torch.einsum("btsh,bshp->bthp", G[..., None] * M, dx)
+        y = y + torch.exp(s)[..., None] * torch.einsum("btn,bhpn->bthp", Cc, h)
+        if keep_starts:
+            starts.append(h)  # the chunk's INCOMING state
+        h = torch.exp(s[:, -1, :])[:, :, None, None] * h + torch.einsum(
+            "bth,bthp,btn->bhpn", decay_to_end, dx, Bc)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :L] if ys else x.new_zeros(x.shape, dtype=torch.float32)
+    if D_head is not None:
+        y = y + x.float() * D_head.float()[None, None, :, None]
+    return y.to(x.dtype), h, starts
+
+
+def ssd_scan(x, dt, A_head, B, C, D_head=None, h0=None, chunk: int = 64):
+    """Mamba2 SSD chunked scan (Dao & Gu 2024, "state-space duality").
+
+    With s_t = cumsum(dt * A_h) inside a chunk:
+
+        Y_intra = (M o (C B^T)) (dt . X),   M[t, tau] = exp(s_t - s_tau), tau <= t
+        Y_state[t] = exp(s_t) . C_t h_in
+        h_out = exp(s_T) h_in + sum_tau exp(s_T - s_tau) B_tau (x) (dt_tau x_tau)
+
+    Chunks are walked in order carrying the fp32 state.
+
+    x: (B, L, H, P); dt: (B, L, H) softplus'd; A_head: (H,) negative;
+    B, C: (B, L, N) shared by the heads; D_head: (H,) or None; h0:
+    (B, H, P, N) or None.  Returns (y (B, L, H, P) in x's dtype,
+    h_last (B, H, P, N) fp32).  Autograd through this function saves every
+    chunk's (B, T, T, H) mask: train through :func:`ssd_scan_grad`.
+    """
+    y, h, _ = _ssd_forward(x, dt, A_head, B, C, D_head, h0, chunk, keep_starts=False)
+    return y, h
+
+
+class SSDScanFn(torch.autograd.Function):
+    """:func:`ssd_scan` with the hand-derived backward of the JAX package's
+    ``ssd_scan_grad``: the forward saves only each chunk's incoming state,
+    the backward recomputes the chunk's internals and runs the transposed
+    masked matmuls right to left:
+
+        gdx   = W^T gy + decay_to_end * (gH B)
+        gG    = sum_hp M * (gy dx^T)          -> gC += gG B, gB += gG^T C
+        gs    = collected from every exp(s ...) factor; gdt / gA from its
+                reverse cumsum (s = cumsum(dt * A_h))
+        gh_in = sum_t exp(s_t) C_t (x) gy_t + exp(s_T) gH   (the reverse carry)
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, A_head, B, C, D_head, h0, chunk):
+        y, h_last, starts = _ssd_forward(x, dt, A_head, B, C, D_head, h0, chunk,
+                                         keep_starts=True)
+        ctx.chunk = chunk
+        ctx.has_D, ctx.has_h0 = D_head is not None, h0 is not None
+        ctx.save_for_backward(x, dt, A_head, B, C, D_head, h0, torch.stack(starts))
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, gy, gh_last):
+        x, dt, A_head, B, C, D_head, h0, h_starts = ctx.saved_tensors
+        chunk = ctx.chunk
+        Bsz, L, H, P = x.shape
+        if gy is None:
+            gy = torch.zeros_like(x)
+        gH = (torch.zeros_like(h_starts[0]) if gh_last is None else gh_last.float())
+        Ah = A_head.float()
+        gA = torch.zeros_like(Ah)
+        chunks = list(zip(*_ssd_pad_chunks(chunk, x, dt, B, C, gy)))
+        parts = []
+        for c in reversed(range(len(chunks))):
+            xc, dtc, Bc, Cc, gyc = chunks[c]
+            h_in = h_starts[c]
+            s, M, G, dx, decay_to_end = _ssd_chunk_parts(xc, dtc, Bc, Cc, Ah, chunk)
+            es = torch.exp(s)  # (B, T, H)
+            eT = es[:, -1, :]  # (B, H) = exp(s_T)
+
+            # dx adjoint: W^T gy + decay_to_end * (gH B)
+            W = G[..., None] * M
+            gdx = torch.einsum("btsh,bthp->bshp", W, gyc)
+            gdx = gdx + decay_to_end[..., None] * torch.einsum("bhpn,btn->bthp", gH, Bc)
+
+            # G adjoint (contracting heads and headdim), then the B / C adjoints
+            E = torch.einsum("bthp,bshp->btsh", gyc, dx)  # gy_t . dx_tau
+            gG = torch.einsum("btsh,btsh->bts", E, M)
+            gC = torch.einsum("bts,bsn->btn", gG, Bc)
+            gB = torch.einsum("bts,btn->bsn", gG, Cc)
+            gC = gC + torch.einsum("bth,bthp,bhpn->btn", es, gyc, h_in)
+            gB = gB + torch.einsum("bth,bthp,bhpn->btn", decay_to_end, dx, gH)
+
+            # s adjoint from every exp(s ...) factor
+            gMM = E * G[..., None] * M
+            gs = gMM.sum(dim=2) - gMM.sum(dim=1)  # + at t, - at tau
+            gs = gs + es * torch.einsum("bthp,btn,bhpn->bth", gyc, Cc, h_in)
+            w_state = decay_to_end * torch.einsum("bthp,btn,bhpn->bth", dx, Bc, gH)
+            gs = gs - w_state
+            gs[:, -1, :] += w_state.sum(dim=1) + eT * torch.einsum("bhpn,bhpn->bh", gH, h_in)
+
+            # dt / A adjoints: s = cumsum(dt * A_h) -> gv = reverse cumsum of gs
+            gv = gs.flip(1).cumsum(1).flip(1)
+            gdt = Ah * gv + torch.einsum("bthp,bthp->bth", gdx, xc)
+            gA = gA + torch.einsum("bth,bth->h", dtc, gv)
+            parts.append((dtc[..., None] * gdx, gdt, gB, gC))
+
+            # reverse state carry: the adjoint of this chunk's incoming state
+            gH = torch.einsum("bth,btn,bthp->bhpn", es, Cc, gyc) + eT[:, :, None, None] * gH
+
+        gx, gdt, gB, gC = (torch.cat(list(t[::-1]), dim=1)[:, :L] for t in zip(*parts))
+        gD = None
+        if ctx.has_D:
+            gyf = gy.float()
+            gx = gx + gyf * D_head.float()[None, None, :, None]
+            gD = torch.einsum("bthp,bthp->h", gyf, x.float()).to(D_head.dtype)
+        gh0 = gH.to(h0.dtype) if ctx.has_h0 else None
+        return (gx.to(x.dtype), gdt.to(dt.dtype), gA.to(A_head.dtype), gB.to(B.dtype),
+                gC.to(C.dtype), gD, gh0, None)
+
+
+def ssd_scan_grad(x, dt, A_head, B, C, D_head=None, h0=None, chunk: int = 64):
+    """:func:`ssd_scan` whose gradient is the memory-bounded hand-written
+    backward of :class:`SSDScanFn` (the JAX package's ``ssd_scan_grad``)."""
+    return SSDScanFn.apply(x, dt, A_head, B, C, D_head, h0, chunk)

@@ -59,10 +59,18 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tensor_leaves(tree):
+    """The tensor leaves of ``tree`` in ``tree_leaves`` order: what a gradient
+    or an optimizer reads.  Other leaves (an S4 kernel's ``l_kernel`` int,
+    its ``mode``/``disc`` strings) are static tags, as in the JAX pytree."""
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
 def tree_unflatten(tree, leaves):
-    """A tree of ``tree``'s structure with ``leaves`` (in ``tree_leaves`` order)."""
+    """A tree of ``tree``'s structure with its tensor leaves replaced by
+    ``leaves`` (in ``tensor_leaves`` order); other leaves are kept."""
     it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
+    return tree_map(lambda x: next(it) if isinstance(x, torch.Tensor) else x, tree)
 
 
 def from_numpy(tree, device, dtype=None):

@@ -11,8 +11,9 @@ In order, as optax chains it:
 5. times -schedule(k) for update k (0-based).
 
 The state is a plain pytree ``{"count": int, "mu": tree, "nu": tree}`` with
-the params' structure; :func:`cleanumamba_tpu_torch.params.to_numpy` makes
-it picklable.  A step that :func:`make_train_step` skips leaves it as it is.
+the params' structure (a non-tensor leaf, such as an S4 kernel's
+``l_kernel``, is carried as it is and never updated);
+:func:`cleanumamba_tpu_torch.params.to_numpy` makes it picklable.  A step that :func:`make_train_step` skips leaves it as it is.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Callable
 import torch
 
 from cleanumamba_tpu_torch.config import OptimizationConfig
-from cleanumamba_tpu_torch.params import tree_leaves, tree_map, tree_unflatten
+from cleanumamba_tpu_torch.params import tensor_leaves, tree_map, tree_unflatten
 from cleanumamba_tpu_torch.train.schedule import linear_warmup_cosine_decay
 
 
@@ -46,12 +47,13 @@ class Optimizer:
     weight_decay: float = 0.0
 
     def init(self, params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        zeros = lambda p: (torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+                           if isinstance(p, torch.Tensor) else p)
         return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     def update(self, grads, state, params):
-        g = [x.float() for x in tree_leaves(grads)]
-        p = tree_leaves(params)
+        g = [x.float() for x in tensor_leaves(grads)]
+        p = tensor_leaves(params)
         norm = global_norm(g)
         clip = norm >= self.clip_norm  # optax: identity below the limit
         g = [torch.where(clip, x / norm * self.clip_norm, x) for x in g]
@@ -62,9 +64,9 @@ class Optimizer:
         elif self.optimizer != "adamw":
             raise ValueError(self.optimizer)
         count = int(state["count"]) + 1
-        mu = [(1 - self.b1) * x + self.b1 * m for x, m in zip(g, tree_leaves(state["mu"]))]
+        mu = [(1 - self.b1) * x + self.b1 * m for x, m in zip(g, tensor_leaves(state["mu"]))]
         nu = [(1 - self.b2) * x.square() + self.b2 * v
-              for x, v in zip(g, tree_leaves(state["nu"]))]
+              for x, v in zip(g, tensor_leaves(state["nu"]))]
         c1, c2 = 1 - self.b1 ** count, 1 - self.b2 ** count
         upd = [(m / c1) / (torch.sqrt(v / c2) + self.eps) for m, v in zip(mu, nu)]
         if self.optimizer == "adamw" and wd:
@@ -79,7 +81,7 @@ class Optimizer:
 def apply_updates(params, updates):
     """params + updates, leaf by leaf, in each param's dtype."""
     return tree_unflatten(params, [(w + u).to(w.dtype)
-                                   for w, u in zip(tree_leaves(params), tree_leaves(updates))])
+                                   for w, u in zip(tensor_leaves(params), tensor_leaves(updates))])
 
 
 def make_optimizer(opt_cfg: OptimizationConfig, schedule=None) -> Optimizer:

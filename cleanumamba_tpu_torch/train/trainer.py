@@ -25,7 +25,7 @@ from cleanumamba_tpu_torch.config import CleanUMambaConfig, LossConfig
 from cleanumamba_tpu_torch.data.synth_device import synth_batch
 from cleanumamba_tpu_torch.losses import loss_fn
 from cleanumamba_tpu_torch.models.cleanumamba import forward
-from cleanumamba_tpu_torch.params import tree_leaves, tree_map, tree_unflatten
+from cleanumamba_tpu_torch.params import tensor_leaves, tree_map, tree_unflatten
 from cleanumamba_tpu_torch.train.optim import Optimizer, apply_updates, global_norm
 
 
@@ -44,8 +44,8 @@ def make_grad_fn(model_cfg: CleanUMambaConfig, loss_cfg: LossConfig, bf16: bool 
     def micro_loss(params, clean, noisy):
         p = params
         if bf16:
-            p = tree_map(lambda x: x.to(torch.bfloat16) if x.dtype == torch.float32 else x,
-                         params)
+            p = tree_map(lambda x: x.to(torch.bfloat16) if isinstance(x, torch.Tensor)
+                         and x.dtype == torch.float32 else x, params)
             noisy = noisy.to(torch.bfloat16)
         denoised = checkpoint(fwd, p, noisy, use_reentrant=False) if remat else fwd(p, noisy)
         return loss_fn(denoised.float(), clean.float(), loss_cfg)
@@ -53,9 +53,10 @@ def make_grad_fn(model_cfg: CleanUMambaConfig, loss_cfg: LossConfig, bf16: bool 
     def grad_fn(params, clean, noisy):
         grads, auxs = None, []
         for c, n in zip(clean, noisy):
-            leaf_params = tree_map(lambda x: x.detach().requires_grad_(), params)
+            leaf_params = tree_map(lambda x: x.detach().requires_grad_()
+                                   if isinstance(x, torch.Tensor) else x, params)
             loss, aux = micro_loss(leaf_params, c, n)
-            g = torch.autograd.grad(loss, tree_leaves(leaf_params))
+            g = torch.autograd.grad(loss, tensor_leaves(leaf_params))
             grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
             auxs.append({k: v.detach() for k, v in aux.items()})
         grads = tree_unflatten(params, [g / clean.shape[0] for g in grads])
@@ -79,7 +80,7 @@ def make_train_step(model_cfg: CleanUMambaConfig, loss_cfg: LossConfig, optimize
 
     def train_step(params, opt_state, batch):
         grads, aux = grad_fn(params, *batch)
-        aux["grad_norm"] = global_norm(tree_leaves(grads))
+        aux["grad_norm"] = global_norm(tensor_leaves(grads))
         aux["grads_finite"] = torch.isfinite(aux["grad_norm"])
         if skip_nonfinite_updates and not bool(aux["grads_finite"]):
             return params, opt_state, aux

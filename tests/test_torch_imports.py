@@ -139,3 +139,21 @@ def test_training_cli_takes_the_gpu_by_default(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(["-c", str(ROOT / "configs" / "train_synth.json"), "-e", str(exp),
                    "--synthetic", "--max-iters", "1"])
+
+
+def test_new_modules_are_covered():
+    """The evaluation slice's modules are among the sources checked above."""
+    names = {str(p.relative_to(ROOT / "cleanumamba_tpu_torch")) for p in SOURCES
+             if "cleanumamba_tpu_torch" in p.parts}
+    assert {"eval/__init__.py", "eval/metrics.py", "eval/pesq_p862.py", "eval/synth.py",
+            "eval/validate.py", "utils.py", "cli/evaluate.py"} <= names
+
+
+def test_evaluate_cli_takes_the_gpu_by_default():
+    from cleanumamba_tpu_torch.cli import evaluate as tevaluate
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is taken, nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tevaluate.main(["--ckpt", str(ROOT / "artifacts" / "pruned_473k_finetuned.pkl"),
+                        "--synthetic", "--max-items", "1"])

@@ -155,13 +155,20 @@ def test_init_params_distributions(small_params):
 
 
 def test_other_bottleneck_families_raise():
-    """The offline forward of mamba2 and mamba_s4 is not ported yet and says
-    so; their single-token steps and lstm/mha are (test_torch_bottlenecks.py)."""
+    """A family name that is none of the five is refused by the config;
+    mamba2 and mamba_s4, which once raised here, run their own params (a
+    mamba checkpoint's bottleneck is not theirs: it lacks their leaves)."""
     _, pt = tparams.load_checkpoint(CKPTS[0], "cpu")
+    with pytest.raises(ValueError, match="not supported"):
+        dataclasses.replace(SMALL, bottleneck="gru")
     for family in ("mamba2", "mamba_s4"):
         cfg = dataclasses.replace(SMALL, bottleneck=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(KeyError):
             tm.bottleneck_forward(pt["bottleneck"], torch.zeros(1, 3, 292), cfg)
+        own = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        own = tm.prepare_for_length(own, cfg, 3 * cfg.total_stride)
+        y = tm.bottleneck_forward(own["bottleneck"], torch.zeros(1, 3, cfg.tsfm_d_model), cfg)
+        assert y.shape == (1, 3, cfg.tsfm_d_model) and torch.isfinite(y).all()
 
 
 def test_checkpoint_roundtrip(tmp_path):

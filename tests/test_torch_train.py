@@ -311,10 +311,34 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     args = _cli_files(tmp_path)
     with pytest.raises(NotImplementedError, match="item 12"):
         tcli.main(args + ["--model-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tcli.main(_cli_files(tmp_path, iters_per_valid=1) + ["--max-iters", "3"])
     cfg = json.loads(open(args[1]).read())
     cfg["train_config"]["optimization"]["n_gpus"] = 2
     (tmp_path / "config2.json").write_text(json.dumps(cfg))
     with pytest.raises(NotImplementedError, match="item 7"):
         tcli.main(["-c", str(tmp_path / "config2.json")] + args[2:])
+
+
+def test_cli_validates_mid_run_and_logs_to_the_metrics_sink(tmp_path, capsys):
+    """iters_per_valid inside the run: valid rows at iterations 2 and 4 (the
+    second after a resume) in metrics.jsonl beside the train rows, one run
+    id across the resume, as the JAX CLI writes them."""
+    from cleanumamba_tpu_torch.utils import read_history
+
+    log = {"iters_per_valid": 2, "valid_max_items": 1}
+    args = _cli_files(tmp_path, **log)
+    tcli.main(args + ["--max-iters", "3"])
+    out = capsys.readouterr().out
+    assert "iter 2: valid " in out and "pesq_wb=" in out
+    tcli.main(args + ["--max-iters", "5", "--device-data", "1"])
+    assert "iter 4: valid " in capsys.readouterr().out
+    path = tmp_path / "logs" / "tiny" / "metrics.jsonl"
+    rows = read_history(str(path))
+    assert len({r["_run_id"] for r in rows}) == 1
+    assert [r["_kind"] for r in rows].count("config") == 1
+    valid = [r for r in rows if r["_kind"] == "valid"]
+    assert [r["_step"] for r in valid] == [2, 4]
+    assert all(np.isfinite(r["pesq_wb"]) and np.isfinite(r["si_sdr"]) for r in valid)
+    train = [r["_step"] for r in rows if r["_kind"] == "train"]
+    assert train == [0, 1, 2, 3, 4] and "loss" in rows[1] and "grad_norm" in rows[1]
+    ck = tck.load_checkpoint(str(tmp_path / "logs" / "tiny" / "checkpoint" / "4.pkl"), "cpu")
+    assert ck["run_id"] == rows[0]["_run_id"]
