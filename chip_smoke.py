@@ -5,6 +5,7 @@
     python3 chip_smoke.py --fused-only   # K3/K4 alone: their part of phases 3-5, and 13
     python3 chip_smoke.py --scan-only    # K1/K2 alone: their part of phases 3, 6 and 8
     python3 chip_smoke.py --base-k5 DIR  # phase 12 also times DIR's K5 (an earlier checkout)
+    python3 chip_smoke.py --prune-only   # K1/K2 built, phase 18 alone (pruning and finetune)
 
 Phases, each printed as it passes; any failure raises (non-zero exit):
 
@@ -105,7 +106,24 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     s per utterance; ``cli/evaluate.py`` on the pruned checkpoint on the card
     and on the CPU (subprocesses), every metric agreeing; ``cli/train.py``
     on phase 8's small config validating every 2 iterations, a ``valid``
-    row at 2 and at 4 in ``metrics.jsonl``, one run id across a resume.
+    row at 2 and at 4 in ``metrics.jsonl``, one run id across a resume;
+18. structured channel pruning: (a) ``prune.driver.pruning_pipeline`` on E8
+    at full width (random fp32 weights, seed 0; ``configs/prune_e8_synth.json``,
+    batch 2 x 10 s synthetic crops, 32 iterations, prune events at 15 and
+    31): the parameter count falls at each event, every group checks, K1
+    and K2 launched (counted), ms per fp32 gradient before and after each
+    event, the host's ms for the importances and ``apply_pruning``'s ms per
+    event, peak and allocated memory; then K1 and K2 against their plain
+    versions at every pruned layer's (2, 625, d_inner, d_state), fp32 and
+    bf16, all seven gradients; (b) one prune event of phase 8's small config
+    on the card and on the CPU: every group's importances within 1e-3 of its
+    largest, the same selection wherever the two devices order the values
+    it reads alike (the near-ties counted), the pruned forward within 1e-4;
+    (c) ``cli/prune.py`` on ``artifacts/pruned_473k_finetuned.pkl`` with
+    ``configs/prune_2m_synth.json`` (2 s crops) to 16 iterations and resumed
+    to 32 under one run id, ``cli/finetune.py`` 4 iterations on its output
+    (and with ``--device-data 2``), ``cli/evaluate.py`` on the finetuned
+    checkpoint and ``cli/calibrate.py`` on the artifact, as subprocesses.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernels' summary as JSON: each kernel's launches on its path, error, time,
@@ -253,20 +271,23 @@ def _same_bits(name, first, again):
             raise AssertionError(f"{name}: output {i} of a repeated call differs")
 
 
-def check_scan(dev, rep: Report):
+def check_scan(dev, rep: Report, cases=None):
     """K1 against its plain version: every lane split the plan can pick,
     d_state 1..256, batch 1, 2 and 8, L from 1 to 2,500 (a 40 s clip), ragged
     widths (the pruned checkpoint's mixers), with and without h0 and D, a
-    repeated call bit for bit."""
+    repeated call bit for bit.  ``cases`` ((B, L, d_inner, d_state, h0 and
+    D) tuples) replaces that list."""
     from cleanumamba_tpu_torch.ops.cuda import selective_scan as kscan
 
     g = torch.Generator().manual_seed(1)
-    cases = [(*SERVE_SHAPE, True), (2, 63, 2048, 64, False), (1, 37, 48, 8, True),
-             (8, 17, 2048, 64, True), (*TRAIN_SHAPE, True), (1, 2500, 2048, 64, True),
-             (2, 15, 512, 128, True), (1, 1, 2048, 16, True), (8, 16, 256, 8, False),
-             (1, 5, 33, 1, False), (2, 9, 130, 100, True), (1, 4, 20, 256, True),
-             (8, 33, 2048, 16, True)]
-    cases += [(2, 40, di, 64, True) for di in _pruned_d_inner(dev)]
+    every_split = cases is None
+    if every_split:
+        cases = [(*SERVE_SHAPE, True), (2, 63, 2048, 64, False), (1, 37, 48, 8, True),
+                 (8, 17, 2048, 64, True), (*TRAIN_SHAPE, True), (1, 2500, 2048, 64, True),
+                 (2, 15, 512, 128, True), (1, 1, 2048, 16, True), (8, 16, 256, 8, False),
+                 (1, 5, 33, 1, False), (2, 9, 130, 100, True), (1, 4, 20, 256, True),
+                 (8, 33, 2048, 16, True)]
+        cases += [(2, 40, di, 64, True) for di in _pruned_d_inner(dev)]
     lanes_seen = set()
     for Bsz, L, Di, Ds, state in cases:
         lanes_seen.add(kscan.scan_plan(Bsz, Di, Ds).lanes)
@@ -288,18 +309,37 @@ def check_scan(dev, rep: Report):
                        kscan.selective_scan(**args, return_starts=True))
             y, h = kscan.selective_scan(**args)  # the serving launch: no chunk states
             _same_bits("selective_scan_fwd without chunk states " + label, got[:2], (y, h))
-    if lanes_seen != set(kscan.LANE_CHOICES):
+    if every_split and lanes_seen != set(kscan.LANE_CHOICES):
         raise AssertionError(f"the cases reach lane splits {lanes_seen} of {kscan.LANE_CHOICES}")
     print(f"  selective_scan_fwd: {len(cases)} shapes x 2 dtypes, repeated calls bitwise equal, "
           f"with and without chunk states; lane splits {sorted(lanes_seen)}")
+
+
+def _event_us(fn, iters):
+    """Device us per call of ``fn`` from CUDA events around ``iters`` calls,
+    the device held busy (~5 ms of spinning) while the host queues them, so
+    that they run back to back and no launch gap of the host is counted."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / iters
 
 
 def _trace_scan(fn, iters=20, warmup=3, attempts=3):
     """Device time of K1's and K2's kernels in one call of ``fn``, from a
     ``torch.profiler`` trace of ``iters`` calls: {kernel name: (launches per
     call, median us per launch)}.  A trace that comes back holding fewer
-    than half of the launches (once, on one machine, it held none) is taken
-    again, up to ``attempts`` traces in all."""
+    than half of the launches is taken again, up to ``attempts`` traces in
+    all; each starts with a kernel of torch's own and a synchronisation
+    before the calls.  On the H100 a trace of K1 alone came back empty in
+    about one run in three, in one run three times in a row; when every
+    trace is short, the call is timed with CUDA events instead and comes
+    back as {"all launches (CUDA events)": (1, us per call)}."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -307,6 +347,8 @@ def _trace_scan(fn, iters=20, warmup=3, attempts=3):
     torch.cuda.synchronize()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -319,8 +361,10 @@ def _trace_scan(fn, iters=20, warmup=3, attempts=3):
         if spans and min(len(v) for v in spans.values()) >= iters // 2:
             return {k: (round(len(v) / iters), _median(v)) for k, v in spans.items()}
         print(f"  (a trace held {({k: len(v) for k, v in spans.items()})} scan kernels for "
-              f"{iters} calls: tracing again)", flush=True)
-    raise AssertionError(f"{attempts} traces held too few scan kernels for {iters} calls")
+              f"{iters} calls)", flush=True)
+    us = _event_us(fn, iters)
+    print(f"  ({attempts} traces short: {us:.2f} us per call from CUDA events)", flush=True)
+    return {"all launches (CUDA events)": (1, us)}
 
 
 def _scan_bounds(shape, tensors, bwd):
@@ -416,7 +460,7 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
-def _trace_calls(calls, per_call, iters=20, warmup=3):
+def _trace_calls(calls, per_call, iters=20, warmup=3, attempts=3):
     """Device time of each of ``calls`` (thunks that launch ``per_call`` K3/K4
     kernels each) from a ``torch.profiler`` trace of ``iters`` rounds through
     all of them in order, so that a level finds its weights where a frame
@@ -424,25 +468,33 @@ def _trace_calls(calls, per_call, iters=20, warmup=3):
     (median us of each kernel, median us the device is busy with them: the
     union of their intervals, which counts an overlap once and no gap that the
     host left between two launches; median us from the first kernel's start
-    to the last one's end, gaps included)."""
+    to the last one's end, gaps included).  A short trace is taken again, as
+    in ``_trace_scan``, up to ``attempts`` traces in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         for fn in calls:
             fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            for fn in calls:
-                fn()
-        torch.cuda.synchronize()
-    ev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and any(k in e.name for k in FUSED_KERNELS))
     per_round = per_call * len(calls)
-    rounds = len(ev) // per_round
-    if rounds < iters // 2:  # a trace may miss the first launches after it starts
-        raise AssertionError(f"the trace holds {len(ev)} kernels for {iters} rounds of {per_round}")
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                for fn in calls:
+                    fn()
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(k in e.name for k in FUSED_KERNELS))
+        rounds = len(ev) // per_round
+        if rounds >= iters // 2:  # a trace may miss the first launches after it starts
+            break
+        print(f"  (a trace held {len(ev)} kernels for {iters} rounds of {per_round})", flush=True)
+    else:
+        raise AssertionError(f"{attempts} traces held too few kernels for {iters} rounds of "
+                             f"{per_round}")
     ev = ev[len(ev) - rounds * per_round:]
     out = []
     for c in range(len(calls)):
@@ -907,19 +959,21 @@ def check_real_weights(dev):
 GRAD_NAMES = ("gu", "gdt", "gA", "gB", "gC", "gD", "gh0")
 
 
-def check_scan_bwd(dev, rep: Report):
+def check_scan_bwd(dev, rep: Report, cases=None):
     """K2 (and the chunk states K1 hands it) against the plain versions: all
     seven gradients at every lane split, d_state 1..128, batch 1, 2 and 8,
     L from 1 to 2,500, ragged widths, h0 and gh_last zero and non-zero, a
-    repeated call bit for bit."""
+    repeated call bit for bit.  ``cases`` replaces that list."""
     from cleanumamba_tpu_torch.ops.cuda import selective_scan as kscan
 
     g = torch.Generator().manual_seed(6)
-    cases = [(*TRAIN_SHAPE, False), (1, 37, 48, 8, True), (*SERVE_SHAPE, True),
-             (8, 17, 2048, 64, True), (1, 2500, 2048, 64, True), (2, 15, 512, 128, True),
-             (1, 1, 2048, 16, True), (8, 16, 256, 8, True), (1, 5, 33, 1, True),
-             (2, 40, 130, 100, True), (8, 33, 2048, 16, True), (2, 625, 512, 128, True)]
-    cases += [(2, 40, di, 64, True) for di in _pruned_d_inner(dev)]
+    every_split = cases is None
+    if every_split:
+        cases = [(*TRAIN_SHAPE, False), (1, 37, 48, 8, True), (*SERVE_SHAPE, True),
+                 (8, 17, 2048, 64, True), (1, 2500, 2048, 64, True), (2, 15, 512, 128, True),
+                 (1, 1, 2048, 16, True), (8, 16, 256, 8, True), (1, 5, 33, 1, True),
+                 (2, 40, 130, 100, True), (8, 33, 2048, 16, True), (2, 625, 512, 128, True)]
+        cases += [(2, 40, di, 64, True) for di in _pruned_d_inner(dev)]
     lanes_seen = set()
     for Bsz, L, Di, Ds, state in cases:
         chunk = kscan.scan_chunk(Bsz, Di, Ds)
@@ -940,7 +994,7 @@ def check_scan_bwd(dev, rep: Report):
                 rep.check("selective_scan_bwd", f"{label} {name}", x, r, tol)
             _same_bits("selective_scan_bwd " + label, got,
                        kscan.selective_scan_bwd(*args[:6], hs, a["gy"], a["gh_last"]))
-    if lanes_seen != set(kscan.LANE_CHOICES):
+    if every_split and lanes_seen != set(kscan.LANE_CHOICES):
         raise AssertionError(f"the cases reach lane splits {lanes_seen} of {kscan.LANE_CHOICES}")
     print(f"  selective_scan_bwd: {len(cases)} shapes x 2 dtypes, all seven gradients of a "
           f"repeated call bitwise equal; lane splits {sorted(lanes_seen)}")
@@ -2243,6 +2297,369 @@ def _check_train_cli_validation(tmp, runs):
           f"iterations 2 and 4 under one run id across the resume; {line}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# Phase 18: structured channel pruning and finetune
+# --------------------------------------------------------------------------
+
+PRUNE_E8 = "configs/prune_e8_synth.json"
+PRUNE_2M = "configs/prune_2m_synth.json"
+# a group's importances, card against CPU, relative to its largest value: a
+# taylor importance squares the gradient, which phase 8 holds to GRAD_TOL
+IMP_TOL = 1e-3
+
+
+def _pruning_config(path, **kw):
+    from cleanumamba_tpu_torch.prune.driver import PruningConfig
+
+    with open(path) as f:
+        return PruningConfig(**{**json.load(f)["pruning_config"], **kw})
+
+
+@contextlib.contextmanager
+def _wrapped(module, name, wrapper):
+    """``module.name`` replaced by ``wrapper(original)`` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, wrapper(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _importance_spy(store):
+    """A wrapper of ``get_prune_channels`` that records each group's
+    importance vector and the selection made from it."""
+    from cleanumamba_tpu_torch.prune.importance import calc_importance, group_importances
+
+    def wrap(real):
+        def run(groups, params, grads, metric, **kw):
+            vecs = {g.name: np.asarray(calc_importance(group_importances(params, g, grads),
+                                                       metric), np.float64) for g in groups}
+            out = real(groups, params, grads, metric, **kw)
+            store.append((vecs, out[0]))
+            return out
+        return run
+    return wrap
+
+
+def run_pruning(dev, cfg, params32, counters, smi, rep: Report):
+    """Phase 18 (a): ``pruning_pipeline`` on E8 at full width (random fp32
+    weights, seed 0) with ``configs/prune_e8_synth.json``'s phases, batch 2
+    x 10 s synthetic crops, 32 iterations: prune events at 15 and 31, every
+    iteration an fp32 gradient through K1 and K2.  Then K1 and K2 against
+    their plain versions at every pruned layer's shape.  Returns the
+    launches of the pipeline's run."""
+    from cleanumamba_tpu_torch.config import LossConfig
+    from cleanumamba_tpu_torch.data import SyntheticDenoiseDataset, make_loader
+    from cleanumamba_tpu_torch.models.bottleneck_mamba import mixer_dims
+    from cleanumamba_tpu_torch.models.cleanumamba import count_params
+    from cleanumamba_tpu_torch.prune import driver
+    from cleanumamba_tpu_torch.prune.groups import build_groups
+    from cleanumamba_tpu_torch.train.trainer import make_grad_fn
+
+    pcfg = _pruning_config(PRUNE_E8)
+    ds = SyntheticDenoiseDataset(crop_length_sec=10.0)
+    loader = make_loader(ds, 2)
+    stamps, mem = [], []
+
+    def timed_data():  # the loop takes one batch an iteration: stamp each start
+        while True:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            mem.append(torch.cuda.memory_allocated())
+            yield next(loader)
+
+    events = []
+
+    def time_selection(real):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            events.append({"select_ms": (time.perf_counter() - t0) * 1e3, "selection": out[0]})
+            return out
+        return run
+
+    def time_apply(real):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            events[-1].update(apply_ms=(time.perf_counter() - t0) * 1e3,
+                              peak=torch.cuda.max_memory_allocated(),
+                              shapes=[mixer_dims(lp["mixer"])[1:3]
+                                      for lp in out[0]["bottleneck"]["layers"]])
+            return out
+        return run
+
+    n0 = count_params(params32)
+    n_iters = 32
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _wrapped(driver, "get_prune_channels", time_selection), \
+            _wrapped(driver, "apply_pruning", time_apply):
+        params, _, history, stopped = driver.pruning_pipeline(
+            params32, cfg, LossConfig(), timed_data(), pcfg, batch_size=2, max_iters=n_iters)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    mem.append(torch.cuda.memory_allocated())  # after the loop: its params and Adam state
+
+    if stopped is not None or [h["n_iter"] for h in history] != [15, 31]:
+        raise AssertionError(f"expected prune events at 15 and 31, got "
+                             f"{[h['n_iter'] for h in history]} (stopped: {stopped})")
+    counts = [n0] + [h["params"] for h in history]
+    if not all(a > b for a, b in zip(counts, counts[1:])):
+        raise AssertionError(f"the parameter count did not fall at each event: {counts}")
+    if not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"non-finite loss at a prune event: {history}")
+    for g in build_groups(params, cfg):
+        g.check(params)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the pruning path")
+    it_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]  # iteration i: it_ms[i]
+    loop = {"before event 1": [it_ms[i] for i in range(1, 15)],
+            "after it": [it_ms[i] for i in range(16, 31)]}
+    # the gradient alone at each width (no prune phase trains, so the
+    # params after event 1 are the first selection applied to the start):
+    # synced wall a gradient, then a traced one's device busy and kernels
+    from torch.profiler import ProfilerActivity, profile
+
+    grad_fn = make_grad_fn(cfg, LossConfig(), bf16=False)
+    clean, noisy = (torch.from_numpy(x).to(dev)[None] for x in next(loader))
+    widths = {"at the start": params32,
+              "after event 1": driver.apply_pruning(params32, events[0]["selection"], cfg)[0],
+              "after event 2": params}
+    grads = {}
+    for name, p in widths.items():
+        wall = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grad_fn(p, clean, noisy)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t1) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            grad_fn(p, clean, noisy)
+            torch.cuda.synchronize()
+        busy, n_kernels = _device_busy(prof)
+        grads[name] = (_median(wall[1:]), busy, n_kernels)
+    del widths
+    synth_ms = []  # what the loader's thread spends on one batch of 2 x 10 s
+    for i in range(4):
+        t1 = time.perf_counter()
+        [ds[2 * i + k] for k in range(2)]
+        synth_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"  E8 pruning_pipeline ({PRUNE_E8}, batch 2 x 10 s, fp32 gradient), {n_iters} "
+          f"iterations on {smi}: {total:.1f} s in all; the loop's ms an iteration (median; "
+          f"batch, gradient, accumulation) " + ", ".join(
+              f"{k} {_median(v):.1f} ({min(v):.1f}-{max(v):.1f})" for k, v in loop.items())
+          + "; a gradient alone (synced wall median of 5 / device busy / kernels) " + ", ".join(
+              f"{k} {w:.1f} / {b:.1f} ms / {n}" for k, (w, b, n) in grads.items())
+          + f"; the host synthesizes a batch in {_median(synth_ms):.1f} ms ("
+          + " ".join(f"{t:.1f}" for t in synth_ms) + ")"
+          + f"; K1 {launches['selective_scan']}, K2 {launches['selective_scan_bwd']} launches "
+          f"({launches['selective_scan'] / n_iters:.1f} and "
+          f"{launches['selective_scan_bwd'] / n_iters:.1f} per iteration); peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    for i, (h, e) in enumerate(zip(history, events)):
+        print(f"  event {i + 1} at iteration {h['n_iter']}: params {counts[i]:,} -> "
+              f"{h['params']:,}, channels {h['channels']}, loss {h['loss']:.4f}; importances "
+              f"and selection on the host {e['select_ms']:.1f} ms, apply_pruning "
+              f"{e['apply_ms']:.1f} ms; peak memory so far {e['peak'] / 2**30:.2f} GiB, "
+              f"allocated after it {mem[h['n_iter'] + 1] / 2**30:.3f} GiB; (d_inner, d_state) "
+              f"by layer {e['shapes']}; pruned {h['pruned']}", flush=True)
+    # allocated at an iteration's start: iteration 1 and 16 each hold the
+    # params, the Adam state and an accumulator of their width; nothing of
+    # the old width may stay behind an event
+    print(f"  allocated at iterations 0 / 1 / 16 / 31 and after the loop: "
+          + " / ".join(f"{mem[i] / 2**30:.3f}" for i in (0, 1, 16, 31, 32)) + " GiB", flush=True)
+    if not mem[16] <= mem[1]:
+        raise AssertionError(f"device memory grew across an event: {mem[1]} -> {mem[16]}")
+
+    shapes = sorted({s for e in events for s in e["shapes"]})
+    cases = [(2, 625, di, ds, True) for di, ds in shapes]
+    check_scan(dev, rep, cases)
+    check_scan_bwd(dev, rep, cases)
+    return launches
+
+
+def check_prune_card_vs_cpu(dev):
+    """Phase 18 (b): one prune event of phase 8's small config on the card
+    and on the CPU, from the same weights and batch (seed 8, fixed before
+    the first run): importances, selections and the pruned forward."""
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig, LossConfig
+    from cleanumamba_tpu_torch.models.cleanumamba import forward, init_params
+    from cleanumamba_tpu_torch.params import from_numpy, to_numpy
+    from cleanumamba_tpu_torch.prune import driver
+    from cleanumamba_tpu_torch.prune.pruner import apply_pruning
+
+    cfg = CleanUMambaConfig(channels_H=8, max_H=16, encoder_n_layers=3, tsfm_n_layers=2,
+                            tsfm_d_model=32, tsfm_n_head=4, tsfm_d_inner=64)
+    weights = to_numpy(init_params(cfg, torch.Generator().manual_seed(8), "cpu"))
+    rng = np.random.default_rng(8)
+    clean = (rng.normal(size=(2, 4096)) * 0.3).astype(np.float32)
+    noisy = (clean + 0.1 * rng.normal(size=clean.shape)).astype(np.float32)
+    # one prune at iteration 0: a batch of gradient, 20 % of the channels
+    pcfg = driver.PruningConfig(training_samples=2, pruning_grad_samples=2, pruning_repeats=1,
+                                steps_per_valid=1, perc_prune_channels_per_iter=0.2,
+                                max_prune_importance_per_iter=None, min_channels_per_group=4,
+                                min_total_channels=10)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        rec = []
+        with _wrapped(driver, "get_prune_channels", _importance_spy(rec)):
+            params, _, _, _ = driver.pruning_pipeline(
+                from_numpy(weights, d), cfg, LossConfig(), iter([(clean, noisy)]), pcfg,
+                batch_size=2, max_iters=1)
+        runs.append((params, *rec[0]))
+    (p_gpu, v_gpu, s_gpu), (p_cpu, v_cpu, s_cpu) = runs
+    worst, dev_abs = 0.0, {}
+    for name, ref in v_cpu.items():
+        err = np.abs(v_gpu[name] - ref).max()
+        dev_abs[name] = err
+        worst = max(worst, err / max(np.abs(ref).max(), 1e-30))
+        if not err <= IMP_TOL * np.abs(ref).max():
+            raise AssertionError(f"importances of {name}: card vs CPU {err:.3e} > {IMP_TOL:g} "
+                                 f"of {np.abs(ref).max():.3e}")
+    # near-ties: pairs among the values the selection reads (each group's
+    # n_prune + 1 smallest) that the two devices order differently
+    total = sum(len(v) for v in v_cpu.values())
+    n_read = max(4, int(total * pcfg.perc_prune_channels_per_iter)) + 1
+    idx = {k: np.union1d(np.argsort(v_cpu[k])[:n_read], np.argsort(v_gpu[k])[:n_read])
+           for k in v_cpu}
+    owner = np.concatenate([[k] * len(i) for k, i in idx.items()])
+    a = np.concatenate([v_gpu[k][i] for k, i in idx.items()])
+    b = np.concatenate([v_cpu[k][i] for k, i in idx.items()])
+    flips = np.argwhere(np.sign(a[:, None] - a[None, :]) != np.sign(b[:, None] - b[None, :]))
+    for i, j in flips:  # a flip is a near-tie: the pair's gap is within the deviation
+        if not abs(b[i] - b[j]) <= dev_abs[owner[i]] + dev_abs[owner[j]]:
+            raise AssertionError(f"{owner[i]} / {owner[j]}: the order flipped across a gap of "
+                                 f"{abs(b[i] - b[j]):.3e}, beyond the deviation")
+    ties = {owner[i] for i, _ in flips} | {owner[j] for _, j in flips}
+    for name in v_cpu:
+        if name not in ties and sorted(s_gpu.get(name, [])) != sorted(s_cpu.get(name, [])):
+            raise AssertionError(f"selection of {name}: card {s_gpu.get(name)} vs CPU "
+                                 f"{s_cpu.get(name)}")
+    same = s_gpu == s_cpu
+    if not same:  # a near-tie moved a channel: prune the card's weights as the CPU did
+        p_gpu, _, _ = apply_pruning(from_numpy(weights, dev), s_cpu, cfg)
+    x = torch.from_numpy(noisy)
+    with torch.no_grad():
+        y_gpu = forward(p_gpu, x.to(dev), cfg).cpu()
+        y_cpu = forward(p_cpu, x, cfg)
+    _, rel = _rel_err(y_gpu, y_cpu)
+    if not rel <= FP32_TOL:
+        raise AssertionError(f"pruned forward, card vs CPU: {rel:.3e} > {FP32_TOL:g}")
+    print(f"  small config, one prune event on the card and on the CPU: importances agree to "
+          f"{worst:.3e} of each group's largest (tol {IMP_TOL:g}); {sum(map(len, s_cpu.values()))}"
+          f" channels in {len(s_cpu)} groups selected, {'the same on both' if same else 'not the same'}; "
+          f"{len(ties)} groups left out as near-ties ({len(flips) // 2} flipped pairs); pruned "
+          f"forward {rel:.3e} of max|ref| (tol {FP32_TOL:g})", flush=True)
+
+
+def _run(cmd, root, timeout=600):
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[2:])}: exit {r.returncode}\n{r.stdout[-2000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def run_prune_clis(dev):
+    """Phase 18 (c): the prune, finetune, evaluate and calibrate CLIs as
+    subprocesses on ``artifacts/pruned_473k_finetuned.pkl``: prune to 16
+    iterations and resume to 32 under one run id, finetune the result 4
+    iterations (and again 4 with ``--device-data 2``), evaluate the
+    finetuned checkpoint, and the calibration experiment on the artifact."""
+    from cleanumamba_tpu_torch.models.cleanumamba import forward
+    from cleanumamba_tpu_torch.params import load_checkpoint, tensor_leaves
+    from cleanumamba_tpu_torch.prune.groups import build_groups
+    from cleanumamba_tpu_torch.utils import read_history
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    py = [sys.executable, "-m"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        ck_dir = os.path.join(out, "Prune-2M-synth", "checkpoint")
+        prune = py + ["cleanumamba_tpu_torch.cli.prune", "-t", CKPT, "-e", PRUNE_2M,
+                      "--synthetic", "--crop-sec", "2", "--out", out]
+        final = os.path.join(ck_dir, "31.pkl")
+        ft = [os.path.join(tmp, d, "checkpoint") for d in ("ft", "ft_device_data")]
+        finetune = py + ["cleanumamba_tpu_torch.cli.finetune", "--ckpt", final, "--synthetic",
+                         "--crop-sec", "2", "--iters", "4"]
+        cal_out = os.path.join(tmp, "cal")
+
+        def chain():
+            logs = [_run(prune + ["--max-iters", "16"], root),
+                    _run(prune + ["--max-iters", "32"], root),
+                    _run(finetune + ["--log-every", "1", "--out", ft[0]], root),
+                    _run(finetune + ["--device-data", "2", "--log-every", "2", "--out", ft[1]],
+                         root),
+                    _run(py + ["cleanumamba_tpu_torch.cli.evaluate", "--ckpt",
+                               os.path.join(ft[0], "3.pkl"), "--synthetic", "--max-items", "2",
+                               "--pad-to-sec", "2", "--json"], root)]
+            return logs
+
+        calibrate = py + ["cleanumamba_tpu_torch.cli.calibrate", "--ckpt", CKPT, "--n-batches",
+                          "2", "--sample-size", "2", "--out", cal_out]
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            job = pool.submit(chain)
+            cal_log = pool.submit(_run, calibrate, root).result()
+            logs = job.result()
+        names = ("prune to 16", "prune resumed to 32", "finetune 4", "finetune 4 --device-data 2",
+                 "evaluate")
+        for name, (_, secs) in zip(names + ("calibrate",), logs + [cal_log]):
+            print(f"  cli: {name}: {secs:.1f} s", flush=True)
+        if "teacher:" not in logs[0][0] or "resumed pruning from iter 15" not in logs[1][0]:
+            raise AssertionError(f"prune CLI did not start and resume as expected:\n"
+                                 f"{logs[0][0][-1500:]}\n{logs[1][0][-1500:]}")
+        if sorted(os.listdir(ck_dir)) != ["15.pkl", "31.pkl"]:
+            raise AssertionError(f"prune CLI checkpoints: {sorted(os.listdir(ck_dir))}")
+        rows = read_history(os.path.join(out, "Prune-2M-synth", "metrics.jsonl"))
+        prunes = [r for r in rows if r["_kind"] == "prune"]
+        if [r["_step"] for r in prunes] != [15, 31] or len({r["_run_id"] for r in rows}) != 1 \
+                or [r["_kind"] for r in rows].count("summary") != 2:
+            raise AssertionError("prune CLI metrics.jsonl: " + str(
+                [(r["_kind"], r.get("_step"), r["_run_id"]) for r in rows]))
+        cfg0, p0 = load_checkpoint(CKPT, dev)
+        cfg, pruned = load_checkpoint(final, dev)
+        for g in build_groups(pruned, cfg):
+            g.check(pruned)
+        shapes = [tuple(x.shape) for x in tensor_leaves(pruned)]
+        for d in ft:
+            if sorted(os.listdir(d)) != ["3.pkl"]:
+                raise AssertionError(f"finetune CLI wrote {os.listdir(d)} into {d}")
+            cfg_f, p_f = load_checkpoint(os.path.join(d, "3.pkl"), dev)
+            if [tuple(x.shape) for x in tensor_leaves(p_f)] != shapes:
+                raise AssertionError("finetune changed a ragged shape")
+            x = torch.from_numpy((np.random.default_rng(9).normal(size=(1, SR)) * 0.1)
+                                 .astype(np.float32)).to(dev)
+            with torch.no_grad():
+                _finite(f"forward of {d}/3.pkl", forward(p_f, x, cfg_f))
+            rows = read_history(os.path.join(os.path.dirname(d), "metrics.jsonl"))
+            if not [r for r in rows if r["_kind"] == "train"]:
+                raise AssertionError(f"finetune CLI logged no train row in {os.path.dirname(d)}")
+        metrics = json.loads(logs[4][0].strip().splitlines()[-1])
+        if not {"segsnr", "si_sdr", "pesq_wb"} <= set(metrics):
+            raise AssertionError(f"evaluate CLI: {metrics}")
+        n_groups = len(build_groups(p0, cfg0))
+        cal = [r for r in read_history(os.path.join(cal_out, "metrics.jsonl"))
+               if r["_kind"] == "calibration_experiment"]
+        if len(cal) != 2 * n_groups or not all(np.isfinite(r["loss_change"]) for r in cal):
+            raise AssertionError(f"calibrate CLI: {len(cal)} rows for {n_groups} groups")
+        print(f"  cli: {CKPT} ({sum(x.numel() for x in tensor_leaves(p0)):,} params) pruned to "
+              f"{sum(x.numel() for x in tensor_leaves(pruned)):,} at iterations 15 and 31 under "
+              f"one run id; finetuned 4 iterations twice (loader, --device-data 2), every ragged "
+              f"shape kept, forward finite; evaluate {json.dumps(metrics)}; calibrate "
+              f"{len(cal)} probes over {n_groups} groups", flush=True)
+
+
 def _base_k5(checkout):
     """The K5 wrapper module of another checkout, launching that checkout's kernel."""
     import importlib.util
@@ -2267,6 +2684,9 @@ def main() -> int:
     parser.add_argument("--scan-only", action="store_true",
                         help="build and check K1/K2 only (phase 3's scan part, phase 6 with "
                              "its times, phase 8) and print no result lines")
+    parser.add_argument("--prune-only", action="store_true",
+                        help="build K1/K2 only and run phase 18 (pruning and finetune) and "
+                             "print no result lines")
     parser.add_argument("--base-k5", metavar="DIR",
                         help="a checkout of an earlier version (e.g. the parent commit unpacked "
                              "with git archive): phase 12 times its K5 beside this one's in "
@@ -2297,8 +2717,9 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    sources = ("stream_fused",) if args.fused_only else ("selective_scan",) if args.scan_only \
-        else ("selective_scan", "stream_fused", "stream_mega")
+    sources = ("stream_fused",) if args.fused_only else \
+        ("selective_scan",) if args.scan_only or args.prune_only else \
+        ("selective_scan", "stream_fused", "stream_mega")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
         jobs = [pool.submit(build.load_library, name) for name in sources]  # one nvcc each
         if args.base_k5:
@@ -2321,6 +2742,13 @@ def main() -> int:
         return 0
     cfg = CleanUMambaConfig()  # E8
     params32 = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    if args.prune_only:
+        print("phase 18 structured channel pruning and finetune:", flush=True)
+        run_pruning(dev, cfg, params32, (selective_scan, selective_scan_bwd), smi, rep)
+        check_prune_card_vs_cpu(dev)
+        run_prune_clis(dev)
+        print("prune-only run: phase 18 passed (no result lines)")
+        return 0
     print("phase 3 kernels vs plain versions:", flush=True)
     if args.fused_only:
         check_fused(dev, cfg, params32, rep, smi)
@@ -2371,11 +2799,16 @@ def main() -> int:
     print("phase 17 evaluation (validate, cli/evaluate.py, validation inside cli/train.py):",
           flush=True)
     launches["selective_scan"] += run_eval_path(dev, cfg, params32, selective_scan, smi)
+    print("phase 18 structured channel pruning and finetune:", flush=True)
+    prune_launches = run_pruning(dev, cfg, params32, (selective_scan, selective_scan_bwd), smi,
+                                 rep)
+    check_prune_card_vs_cpu(dev)
+    run_prune_clis(dev)
 
     # launches: each path's own run (serving, phase 4; training, phase 7; the
     # int8 serving path, phase 14; the multiplexer's block-16 ticks, phase 15;
-    # validate, phase 17)
-    for name, n in train_launches.items():
+    # validate, phase 17; the pruning pipeline, phase 18)
+    for name, n in list(train_launches.items()) + list(prune_launches.items()):
         launches[name] = launches.get(name, 0) + n
     sources = {
         "selective_scan": ("selective_scan_fwd", "cleanumamba_tpu_torch/csrc/selective_scan.cu",

@@ -48,22 +48,31 @@ STEP_MIXERS = {"mamba": bottleneck_mamba, "mamba2": bottleneck_mamba2,
 # Forward
 # --------------------------------------------------------------------------
 
-def encoder_level(p, x, cfg: CleanUMambaConfig, i: int):
-    """One encoder level: strided conv -> ReLU -> 1x1 -> GLU."""
+def encoder_level(p, x, cfg: CleanUMambaConfig, i: int, tap=None):
+    """One encoder level: strided conv -> ReLU -> 1x1 -> GLU.  ``tap(name,
+    tensor)`` collects activation telemetry at the pruning groups' hook
+    points (``enc_conv_{i}``, ``enc_out_{i}``)."""
     groups = cfg.group_of_layer(i)
     K, S = cfg.kernel_size, cfg.stride
     if groups == 1 and K == 2 * S:
         x = conv1d_strided_matmul(x, p["conv_w"], p["conv_b"], stride=S)
     else:
         x = conv1d(x, p["conv_w"], p["conv_b"], stride=S, groups=groups)
+    if tap is not None:
+        tap(f"enc_conv_{i}", x)
     x = torch.relu(x)
     x = x @ p["mix_w"][0].to(x.dtype) + p["mix_b"].to(x.dtype)
+    if tap is not None:
+        tap(f"enc_out_{i}", x)
     return glu_activation(x, cfg.glu_activation, cfg.bypass_of_layer(i))
 
 
-def decoder_level(p, x, cfg: CleanUMambaConfig, enc_i: int, relu: bool):
-    """One decoder level: 1x1 -> GLU -> ConvTranspose (-> ReLU)."""
+def decoder_level(p, x, cfg: CleanUMambaConfig, enc_i: int, relu: bool, tap=None):
+    """One decoder level: 1x1 -> GLU -> ConvTranspose (-> ReLU).  ``tap``
+    receives the 1x1's output (``dec_mix_{j}``, j the decoder's own index)."""
     x = x @ p["mix_w"][0].to(x.dtype) + p["mix_b"].to(x.dtype)
+    if tap is not None:
+        tap(f"dec_mix_{cfg.encoder_n_layers - 1 - enc_i}", x)
     x = glu_activation(x, cfg.glu_activation, cfg.bypass_of_layer(enc_i))
     x = conv_transpose1d(x, p["convt_w"], p["convt_b"], stride=cfg.stride)
     return torch.relu(x) if relu else x
@@ -93,14 +102,23 @@ def residual_stack(bp, x, cfg: CleanUMambaConfig, mixer):
     return norm(bp["norm_f"], residual, cfg).to(x.dtype)
 
 
-def bottleneck_forward(params: Params, x, cfg: CleanUMambaConfig):
-    """Bottleneck over (B, T, d_model) features; returns the same shape."""
+def bottleneck_forward(params: Params, x, cfg: CleanUMambaConfig, tap=None):
+    """Bottleneck over (B, T, d_model) features; returns the same shape.
+    For the mamba family ``tap`` receives each layer's normed input times
+    ``in_proj`` (``d_inner_xz_{l}``, the d_inner group's telemetry); it
+    costs one more product a layer, and nothing when ``tap`` is None."""
     if cfg.bottleneck == "lstm":
         return bottleneck_lstm.forward(params["layers"], x)
     if cfg.bottleneck == "mha":
         return bottleneck_mha.forward(params, x, cfg)
     mixer = STEP_MIXERS[cfg.bottleneck]
-    return residual_stack(params, x, cfg, lambda l, mp, h: mixer.mixer_forward(mp, h))
+
+    def run(l, mp, h):
+        if tap is not None and cfg.bottleneck == "mamba":
+            tap(f"d_inner_xz_{l}", h @ mp["in_proj"].to(h.dtype))
+        return mixer.mixer_forward(mp, h)
+
+    return residual_stack(params, x, cfg, run)
 
 
 def prepare_for_length(params: Params, cfg: CleanUMambaConfig, L: int) -> Params:
@@ -118,11 +136,14 @@ def prepare_for_length(params: Params, cfg: CleanUMambaConfig, L: int) -> Params
     return params
 
 
-def forward(params: Params, noisy, cfg: CleanUMambaConfig, return_skips: bool = False):
+def forward(params: Params, noisy, cfg: CleanUMambaConfig, return_skips: bool = False,
+            tap=None):
     """Offline denoising forward.
 
     noisy: (B, L), (B, 1, L) or (B, L, 1) raw waveform -> denoised (B, L)
     (plus the skip activations and bottleneck output if requested).
+    ``tap(name, tensor)``, if given, sees the activations at the pruning
+    groups' telemetry points (:func:`forward_with_telemetry`).
     """
     if noisy.ndim == 3:
         noisy = noisy.reshape(noisy.shape[0], -1)
@@ -135,20 +156,22 @@ def forward(params: Params, noisy, cfg: CleanUMambaConfig, return_skips: bool = 
 
     skips = []
     for i, ep in enumerate(params["encoder"]):
-        x = encoder_level(ep, x, cfg, i)
+        x = encoder_level(ep, x, cfg, i, tap)
         skips.append(x)
     if cfg.residual_projection:
         skips = [pointwise(rp, s) for s, rp in zip(skips, params["residual_projection"])]
     skips = skips[::-1]
 
     x = pointwise(params["tsfm_conv1"], x)
-    tsfm_out = bottleneck_forward(params["bottleneck"], x, cfg)
+    if tap is not None:
+        tap("d_model_in", x)
+    tsfm_out = bottleneck_forward(params["bottleneck"], x, cfg, tap)
     x = pointwise(params["tsfm_conv2"], tsfm_out)
 
     n_dec = len(params["decoder"])
     for j, dp in enumerate(params["decoder"]):
         x = x + skips[j][:, : x.shape[1], :]
-        x = decoder_level(dp, x, cfg, n_dec - 1 - j, relu=(j != n_dec - 1))
+        x = decoder_level(dp, x, cfg, n_dec - 1 - j, relu=(j != n_dec - 1), tap=tap)
 
     y = x[:, :L, 0]
     if cfg.normalize_input:
@@ -156,6 +179,23 @@ def forward(params: Params, noisy, cfg: CleanUMambaConfig, return_skips: bool = 
     if return_skips:
         return y, skips + [tsfm_out]
     return y
+
+
+def forward_with_telemetry(params: Params, noisy, cfg: CleanUMambaConfig):
+    """:func:`forward` that also returns the per-channel activation variance
+    at the pruning groups' telemetry points: ``(denoised, {tap: var (C,)})``,
+    each the population variance in fp32 over every batch row and time step
+    (``jnp.var``), a tensor on the params' device.  Unlike the JAX
+    package's, whose copy of the forward leaves the residual projections
+    out, the denoised output is :func:`forward`'s for every config (the two
+    agree where ``residual_projection`` is off, as in every config shipped)."""
+    taps: Dict[str, Any] = {}
+
+    def tap(name, x):
+        xf = x.float()
+        taps[name] = xf.reshape(-1, xf.shape[-1]).var(dim=0, correction=0)
+
+    return forward(params, noisy, cfg, tap=tap), taps
 
 
 # --------------------------------------------------------------------------

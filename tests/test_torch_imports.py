@@ -157,3 +157,33 @@ def test_evaluate_cli_takes_the_gpu_by_default():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tevaluate.main(["--ckpt", str(ROOT / "artifacts" / "pruned_473k_finetuned.pkl"),
                         "--synthetic", "--max-items", "1"])
+
+
+def test_pruning_modules_are_covered():
+    """The pruning slice's modules are among the sources checked above."""
+    names = {str(p.relative_to(ROOT / "cleanumamba_tpu_torch")) for p in SOURCES
+             if "cleanumamba_tpu_torch" in p.parts}
+    assert {"prune/__init__.py", "prune/groups.py", "prune/importance.py", "prune/pruner.py",
+            "prune/telemetry.py", "prune/calibrate.py", "prune/driver.py", "cli/prune.py",
+            "cli/finetune.py", "cli/calibrate.py"} <= names
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("prune", ["-t", "artifacts/pruned_473k_finetuned.pkl", "-e", "configs/prune_2m_synth.json",
+               "--synthetic", "--max-iters", "1"]),
+    ("finetune", ["--ckpt", "artifacts/pruned_473k_finetuned.pkl", "--synthetic", "--iters", "1"]),
+    ("calibrate", ["--ckpt", "artifacts/pruned_473k_finetuned.pkl", "--n-batches", "1"]),
+])
+def test_pruning_clis_take_the_gpu_by_default(name, argv, tmp_path):
+    """Without a CUDA device and without --device, each CLI raises before it
+    reads or writes anything."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is taken, nothing to refuse")
+    cli = importlib.import_module(f"cleanumamba_tpu_torch.cli.{name}")
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([a if not a.startswith(("artifacts/", "configs/")) else str(ROOT / a)
+                  for a in argv] + ["--out", str(out)])
+    assert not out.exists()
