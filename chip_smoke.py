@@ -6,6 +6,8 @@
     python3 chip_smoke.py --scan-only    # K1/K2 alone: their part of phases 3, 6 and 8
     python3 chip_smoke.py --base-k5 DIR  # phase 12 also times DIR's K5 (an earlier checkout)
     python3 chip_smoke.py --prune-only   # K1/K2 built, phase 18 alone (pruning and finetune)
+    python3 chip_smoke.py --dist-only    # K1/K2 built, phases 19-20 (distillation, data parallel)
+    python3 chip_smoke.py --export-only  # K1/K2 built, phase 21 alone (serving bundles)
 
 Phases, each printed as it passes; any failure raises (non-zero exit):
 
@@ -123,7 +125,27 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     ``configs/prune_2m_synth.json`` (2 s crops) to 16 iterations and resumed
     to 32 under one run id, ``cli/finetune.py`` 4 iterations on its output
     (and with ``--device-data 2``), ``cli/evaluate.py`` on the finetuned
-    checkpoint and ``cli/calibrate.py`` on the artifact, as subprocesses.
+    checkpoint and ``cli/calibrate.py`` on the artifact, as subprocesses;
+19. knowledge distillation (``train/distill.py``): the E8 teacher (seed 0,
+    fp32, frozen) and a FullMini student, nine skip connections each, three
+    bf16 KD steps on batch 2 x 10 s from ``synth_batch`` (loss and kd_loss
+    finite, K1 and K2 launched, counted; wall, device busy, peak memory),
+    then one fp32 KD gradient on the card against the CPU (batch 2 x 16384);
+20. data parallelism (``parallel/``): two processes on ``cuda:0`` in a gloo
+    group (NCCL refuses two ranks on one device), E8 at batch 1 x 10 s each,
+    against one process over both items (fp32, TF32 off): the averaged
+    gradient and the params after one step, the ranks' params bitwise
+    equal, the gradient all-reduce's share of a bf16 step; then
+    ``cli/train.py`` under ``torchrun --nproc-per-node 1`` (NCCL) with a
+    resume (at the end, beside phase 21's CLI checks);
+21. serving bundles (``export.py``): E8 exported on the card (offline at
+    ``valid_length(160000)``; prime + step at batch 2, block 1 and block 16)
+    with K1 as the custom op ``cleanumamba::selective_scan``, reloaded in a
+    process that imports no model code: outputs bitwise equal to the eager
+    calls, K1 launched 3 times a block-16 step; ``from_bundle`` against the
+    live multiplexer; export, load and step times and the op's host cost
+    per call; then ``cli/export.py --selftest`` on the pruned checkpoint on
+    the card and the CPU, beside phase 20's torchrun check.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernels' summary as JSON: each kernel's launches on its path, error, time,
@@ -151,6 +173,7 @@ import numpy as np
 import torch
 
 CKPT = "artifacts/pruned_473k_finetuned.pkl"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 16000
 
 
@@ -226,6 +249,14 @@ BF16_TOL = 2e-2  # bf16 kernel vs the plain version in fp32 on the same bf16-rou
 # summation-order differences of every op (cuFFT, cuBLAS, K1/K2) add up, and
 # the log-magnitude STFT loss amplifies them most in dt_proj's gradient.
 GRAD_TOL = 2e-4
+# The KD gradient's limit (phase 19) is max(GRAD_TOL, twice the CPU's own
+# spread, one thread against all) and never more than these caps: of a
+# leaf's max above the 1e-3 floor, and of the floor below it.  The spread
+# measured 2.0e-4 and 2.8e-3 at batch 2 x 16384 on the H100 machine's host;
+# the caps stand 2.5x and 1.8x above twice that, and a bf16 gradient, which
+# the phase also takes, must lie above the first.
+KD_TOL_CAP = 1e-3
+KD_TOL_CAP_BELOW = 1e-2
 
 
 # --------------------------------------------------------------------------
@@ -2660,6 +2691,609 @@ def run_prune_clis(dev):
               f"{len(cal)} probes over {n_groups} groups", flush=True)
 
 
+# --------------------------------------------------------------------------
+# Phase 19: knowledge distillation, E8 teacher and FullMini student
+# --------------------------------------------------------------------------
+
+KD_STEPS = 3
+
+
+def _leafwise(got, ref) -> dict:
+    """The worst leaf of ``got`` against ``ref``, apart for the leaves above
+    and below the floor: ``{"above": (max|err| / max|ref| of its leaf,
+    where), "below": (max|err| / floor, where), "n_below": count}``.  The
+    floor is 1e-3 of the largest leaf's max|ref|: a leaf whose exact value
+    is near zero (the KD adapter's ``embed_b`` gradient: the batch norm
+    after it removes any shift) holds only rounding noise, measured against
+    the model's scale."""
+    refs = [r.float().cpu() for r in ref]
+    floor = 1e-3 * max(r.abs().max().item() for r in refs)
+    out = {"above": (0.0, None), "below": (0.0, None), "n_below": 0}
+    for i, (x, r) in enumerate(zip(got, refs)):
+        scale = r.abs().max().item()
+        side = "above" if scale >= floor else "below"
+        out["n_below"] += side == "below"
+        err = (x.float().cpu() - r).abs().max().item() / max(scale, floor)
+        if err > out[side][0]:
+            out[side] = (err, f"leaf {i} {tuple(r.shape)}")
+    return out
+
+
+def _check_leafwise(name, got, ref, tol=GRAD_TOL, tol_below=None) -> dict:
+    """``_leafwise``, raising where a leaf is off by more than ``tol`` of its
+    max (``tol_below`` of the floor for the leaves below it; default tol)."""
+    res = _leafwise(got, ref)
+    for side, t in (("above", tol), ("below", tol if tol_below is None else tol_below)):
+        err, at = res[side]
+        if not err <= t:
+            raise AssertionError(f"{name}: {at} off by {err:.3e} (tol {t:.3e}, {side} the floor)")
+    return res
+
+
+def _scan_shape(cfg, B, L):
+    """K1/K2's (B, L, d_inner, d_state) in ``cfg``'s mamba bottleneck at
+    batch ``B`` of ``L`` samples."""
+    return B, L // cfg.total_stride, cfg.tsfm_d_inner, cfg.d_state
+
+
+def run_kd(dev, teacher_cfg, teacher, smi, counters, rep):
+    """Phase 19: ``train/distill.make_kd_train_step`` with the E8 teacher
+    (seed 0, fp32, frozen) and a FullMini student (nine skip connections on
+    both sides), bf16, batch 2 x 10 s from ``synth_batch`` on the card; K1
+    and K2 against their plain versions at the student's and the teacher's
+    shapes of that batch; then one fp32 KD gradient on the card against the
+    CPU.  Returns K1's and K2's launches on the KD steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cleanumamba_tpu_torch.config import LossConfig, OptimizationConfig
+    from cleanumamba_tpu_torch.data.synth_device import synth_batch
+    from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
+    from cleanumamba_tpu_torch.train.distill import (
+        make_kd_adapters,
+        make_kd_train_step,
+        skip_widths,
+    )
+    from cleanumamba_tpu_torch.train.optim import make_optimizer
+
+    s_cfg = _fullmini("mamba")
+    if not len(skip_widths(s_cfg)) == len(skip_widths(teacher_cfg)) == 9:
+        raise AssertionError("teacher and student must have nine skip connections")
+    student = init_params(s_cfg, torch.Generator().manual_seed(19), dev)
+    adapters = make_kd_adapters(torch.Generator().manual_seed(20), s_cfg, teacher_cfg,
+                                device=dev)
+    opt_cfg = OptimizationConfig()  # adam, lr 1e-4, bf16
+    optimizer = make_optimizer(opt_cfg, schedule=lambda s: opt_cfg.learning_rate)
+    opt_state = optimizer.init((student, adapters))
+    step = make_kd_train_step(s_cfg, teacher_cfg, LossConfig(kd_p=1.0), optimizer,
+                              bf16=opt_cfg.bf16)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    B, L = 2, 10 * SR
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(KD_STEPS):
+        batch = synth_batch(gen, B, L)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        student, adapters, opt_state, aux = step(student, adapters, opt_state, teacher, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        loss, kd = float(aux["loss"]), float(aux["kd_loss"])
+        if not (np.isfinite(loss) and np.isfinite(kd)):
+            raise AssertionError(f"KD step {i}: loss {loss}, kd_loss {kd}")
+        print(f"  KD step {i}: loss={loss:.4f} kd_loss={kd:.4f} {times[-1]:.1f} ms", flush=True)
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"  kernel launches on the KD steps: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the KD path")
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        student, adapters, opt_state, aux = step(student, adapters, opt_state, teacher, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n_kernels = _device_busy(prof)
+    print(f"  E8 teacher ({count_params(teacher):,}) -> FullMini student "
+          f"({count_params(student):,}), bf16, batch 2 x 10 s, on {smi}: "
+          f"{_median(times[1:]):.1f} ms/step untraced ({' '.join(f'{t:.1f}' for t in times)}); "
+          f"traced step wall {wall:.1f} ms, device busy {busy:.1f} ms (idle share "
+          f"{1 - busy / wall:.3f}), {n_kernels} kernels; peak memory {peak / 2**30:.2f} GiB")
+    cases = [(*_scan_shape(c, B, L), True) for c in (s_cfg, teacher_cfg)]
+    check_scan(dev, rep, cases)
+    check_scan_bwd(dev, rep, cases[:1])  # the teacher runs no backward
+    print(f"  K1 at {[c[:4] for c in cases]} and K2 at {cases[0][:4]} vs their plain versions: "
+          "passed", flush=True)
+    check_kd_grad(dev, s_cfg, teacher_cfg, teacher)
+    return launches
+
+
+def check_kd_grad(dev, s_cfg, t_cfg, teacher):
+    """One fp32 KD gradient (student params and adapters) of the E8 teacher
+    and FullMini student on the card (K1/K2) against the CPU (plain), on
+    batch 2 x 16384 samples, every leaf held to max(GRAD_TOL, twice the
+    CPU's own spread) up to KD_TOL_CAP (KD_TOL_CAP_BELOW of the floor for
+    the leaves below it): the same gradient on the CPU with one thread moves
+    ~2e-4 of a leaf's max (the batch norms of the KD loss cancel large
+    terms in every per-channel shift), so GRAD_TOL alone would refuse the
+    CPU against itself.  A spread past a cap raises.  The bf16 gradient on
+    the card must be off by more than KD_TOL_CAP, so that the limit tells
+    bf16 arithmetic from fp32."""
+    from cleanumamba_tpu_torch.config import LossConfig
+    from cleanumamba_tpu_torch.data.synth_device import synth_batch
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+    from cleanumamba_tpu_torch.params import from_numpy, tensor_leaves, to_numpy
+    from cleanumamba_tpu_torch.train.distill import make_kd_adapters, make_kd_grad_fn
+
+    student = to_numpy(init_params(s_cfg, torch.Generator().manual_seed(21)))
+    adapters = to_numpy(make_kd_adapters(torch.Generator().manual_seed(22), s_cfg, t_cfg,
+                                         device="cpu"))
+    teacher_np = to_numpy(teacher)
+    clean, noisy = (t.cpu() for t in synth_batch(torch.Generator().manual_seed(23), 2, 16384))
+    grad_fn = make_kd_grad_fn(s_cfg, t_cfg, LossConfig(kd_p=1.0), bf16=False)
+    out = {}
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    grad_bf16 = make_kd_grad_fn(s_cfg, t_cfg, LossConfig(kd_p=1.0), bf16=True)
+    for key, d, n, fn in (("cuda", dev, threads, grad_fn),
+                          ("cuda_bf16", dev, threads, grad_bf16),
+                          ("cpu", torch.device("cpu"), threads, grad_fn),
+                          ("cpu1", torch.device("cpu"), 1, grad_fn)):
+        torch.set_num_threads(n)
+        grads, aux = fn(from_numpy(student, d), from_numpy(adapters, d),
+                        from_numpy(teacher_np, d), (clean.to(d), noisy.to(d)))
+        out[key] = tensor_leaves(grads), aux
+    torch.set_num_threads(threads)
+    (g_gpu, a_gpu), (g_cpu, a_cpu), (g_cpu1, _) = out["cuda"], out["cpu"], out["cpu1"]
+    spread = _leafwise(g_cpu1, g_cpu)
+    tol, tol_below = (max(GRAD_TOL, 2 * spread[side][0]) for side in ("above", "below"))
+    for side, t, cap in (("above", tol, KD_TOL_CAP), ("below", tol_below, KD_TOL_CAP_BELOW)):
+        if not t <= cap:
+            raise AssertionError(f"KD gradient: twice the CPU's own spread {side} the floor, "
+                                 f"{t:.3e} ({spread[side][1]}), passes the cap {cap:g}")
+    bf16_err = _leafwise(out["cuda_bf16"][0], g_cpu)["above"]
+    if not bf16_err[0] > KD_TOL_CAP:
+        raise AssertionError(f"KD gradient: the bf16 gradient is within the cap {KD_TOL_CAP:g} "
+                             f"({bf16_err[0]:.3e}), so the cap cannot tell bf16 from fp32")
+    res = _check_leafwise("KD gradient, card vs CPU", g_gpu, g_cpu, tol, tol_below)
+    for k in ("loss", "kd_loss"):
+        _, rel = _rel_err(a_gpu[k].cpu(), a_cpu[k])
+        if not rel <= FP32_TOL:
+            raise AssertionError(f"KD {k}: card vs CPU relative error {rel:.3e} > {FP32_TOL:g}")
+    print(f"  fp32 KD gradient, batch 2 x 16384, card vs CPU ({threads} threads), {len(g_cpu)} "
+          f"leaves: worst {res['above'][0]:.3e} of its leaf's max ({res['above'][1]}; tol "
+          f"{tol:.3e} = max({GRAD_TOL:g}, 2 x the CPU's own spread {spread['above'][0]:.3e}, "
+          f"{spread['above'][1]}, 1 thread against {threads})); the {res['n_below']} leaves "
+          f"below the floor: {res['below'][0]:.3e} of the floor (tol {tol_below:.3e}, CPU spread "
+          f"{spread['below'][0]:.3e}; caps {KD_TOL_CAP:g} and {KD_TOL_CAP_BELOW:g}); the bf16 "
+          f"gradient on the card: {bf16_err[0]:.3e} ({bf16_err[1]}); kd_loss "
+          f"{float(a_gpu['kd_loss']):.5f} vs "
+          f"{float(a_cpu['kd_loss']):.5f} ({time.perf_counter() - t0:.1f} s)")
+
+
+# --------------------------------------------------------------------------
+# Phase 20: data parallelism, two gloo ranks on the one card
+# --------------------------------------------------------------------------
+
+DP_LR = 1e-4
+DP_TIMED_STEPS = 3
+
+
+def _dp_optimizer():
+    """Adam with eps 1.0 for the comparison: its first update, lr * g /
+    (|g| + eps), is smooth in g; at eps 1e-8 it is lr * sign(g), and a
+    gradient near zero flips sign with the summation order."""
+    from cleanumamba_tpu_torch.config import OptimizationConfig
+    from cleanumamba_tpu_torch.train.optim import make_optimizer
+
+    return make_optimizer(OptimizationConfig(learning_rate=DP_LR, eps=1.0),
+                          schedule=lambda s: DP_LR)
+
+
+def dp_worker(job_dir) -> int:
+    """One rank of phase 20 (``--dp-worker DIR``, started by the phase with
+    the process group's environment): E8 on ``cuda:0`` with gloo, its half
+    of the global batch.  Writes ``rank{r}.pt``: the averaged fp32 gradient,
+    the params after one sharded fp32 step, K1's and K2's launches, and the
+    times of bf16 steps and of the gradient all-reduce alone."""
+    import torch.distributed as dist
+
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig, LossConfig
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+    from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan, selective_scan_bwd
+    from cleanumamba_tpu_torch.parallel import batch_sharding, make_mesh, pmean
+    from cleanumamba_tpu_torch.params import tensor_leaves
+    from cleanumamba_tpu_torch.train.trainer import (
+        make_grad_fn,
+        make_train_step,
+        shard_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh("cuda:0", backend="gloo")
+    dev = mesh.device
+    cfg = CleanUMambaConfig()
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    job = torch.load(os.path.join(job_dir, "job.pt"))
+    clean, noisy = job["clean"].to(dev), job["noisy"].to(dev)  # (1, 2, L): the global batch
+    optimizer = _dp_optimizer()
+    counters = (selective_scan, selective_scan_bwd)
+    for c in counters:
+        c.launches = 0
+    grads, _ = make_grad_fn(cfg, LossConfig(), bf16=False)(
+        params, batch_sharding(mesh, clean, 1), batch_sharding(mesh, noisy, 1))
+    mean = pmean(mesh, tensor_leaves(grads))
+    step = shard_train_step(make_train_step(cfg, LossConfig(), optimizer, bf16=False, mesh=mesh),
+                            mesh)
+    new, _, aux = step(params, optimizer.init(params), (clean, noisy))
+    launches = {c.__name__: c.launches for c in counters}
+
+    # times: bf16 steps (the CLI's default) and the all-reduce of a gradient alone
+    bf16 = shard_train_step(make_train_step(cfg, LossConfig(), optimizer, bf16=True, mesh=mesh),
+                            mesh)
+    state = optimizer.init(params)
+    p = params
+    step_ms, reduce_ms = [], []
+    for _ in range(DP_TIMED_STEPS + 1):
+        dist.barrier(mesh.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, _ = bf16(p, state, (clean, noisy))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    leaves = tensor_leaves(grads)
+    for _ in range(DP_TIMED_STEPS + 1):
+        dist.barrier(mesh.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pmean(mesh, leaves)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.save({"grads": [g.cpu() for g in mean], "params": [t.cpu() for t in tensor_leaves(new)],
+                "aux": {k: float(v) for k, v in aux.items()}, "launches": launches,
+                "step_ms": step_ms[1:], "reduce_ms": reduce_ms[1:],
+                "reduce_bytes": sum(t.numel() * t.element_size() for t in leaves)},
+               os.path.join(job_dir, f"rank{mesh.rank}.pt"))
+    dist.barrier(mesh.group)
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_dp(dev, cfg, params32, smi, rep):
+    """Phase 20: K1 and K2 against their plain versions at a rank's shape
+    (E8, batch 1 x 10 s); two ranks on ``cuda:0`` with a gloo group (NCCL
+    refuses two ranks on one device) at that batch each, against one process
+    over the same two items (fp32, TF32 off): the averaged gradient and the
+    params after one step within GRAD_TOL of each leaf, the ranks' params
+    bitwise equal; the all-reduce's share of a bf16 step.  (Its torchrun
+    CLI check is ``check_torchrun_cli``.)  Returns K1's and K2's launches on
+    the ranks' steps."""
+    from cleanumamba_tpu_torch.config import LossConfig
+    from cleanumamba_tpu_torch.data.synth_device import synth_batch
+    from cleanumamba_tpu_torch.params import tensor_leaves
+    from cleanumamba_tpu_torch.train.trainer import make_grad_fn, make_train_step
+
+    L = 10 * SR
+    cases = [(*_scan_shape(cfg, 1, L), True)]
+    check_scan(dev, rep, cases)
+    check_scan_bwd(dev, rep, cases)
+    print(f"  K1 and K2 at a rank's {cases[0][:4]} vs their plain versions: passed", flush=True)
+    clean, noisy = synth_batch(torch.Generator(device=dev).manual_seed(20), 2, L)
+    clean, noisy = clean.reshape(1, 2, L), noisy.reshape(1, 2, L)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"clean": clean.cpu(), "noisy": noisy.cpu()}, os.path.join(tmp, "job.pt"))
+        env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(_free_port()))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", tmp],
+                                  cwd=ROOT, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"DP rank {r} exited {p.returncode}:\n{log[-4000:]}")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    r0, r1 = ranks
+    if not all(torch.equal(a, b) for a, b in zip(r0["params"], r1["params"])):
+        raise AssertionError("the two ranks' params differ after the step")
+    if r0["aux"] != r1["aux"]:
+        raise AssertionError(f"the ranks' aux differ: {r0['aux']} vs {r1['aux']}")
+    for r in ranks:
+        for name, n in r["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"{name} was not launched on a DP rank's step")
+
+    # one process over the same two items, as two micro-batches (a mean over
+    # ranks is a mean over micro-batches: the STFT spectral convergence is a
+    # ratio of norms over its batch)
+    micro = clean.reshape(2, 1, L), noisy.reshape(2, 1, L)
+    grads, _ = make_grad_fn(cfg, LossConfig(), bf16=False)(params32, *micro)
+    g_res = _check_leafwise("DP gradient", r0["grads"], tensor_leaves(grads))
+    optimizer = _dp_optimizer()
+    new, _, aux = make_train_step(cfg, LossConfig(), optimizer, bf16=False)(
+        params32, optimizer.init(params32), micro)
+    p_res = _check_leafwise("DP params", r0["params"], tensor_leaves(new))
+    _, loss_rel = _rel_err(torch.tensor(r0["aux"]["loss"]), aux["loss"].cpu())
+    if not loss_rel <= FP32_TOL:
+        raise AssertionError(f"DP loss: relative error {loss_rel:.3e} > {FP32_TOL:g}")
+    step_ms, reduce_ms = _median(r0["step_ms"]), _median(r0["reduce_ms"])
+    print(f"  2 gloo ranks on one card, E8 fp32 batch 1 x 10 s each ({wall:.1f} s with start-up) "
+          f"vs one process over both items: averaged gradient worst {g_res['above'][0]:.3e}, "
+          f"params after one step worst {p_res['above'][0]:.3e} of the leaf's max (tol "
+          f"{GRAD_TOL:g}; below the floor {g_res['below'][0]:.3e}, {p_res['below'][0]:.3e}); "
+          f"loss {loss_rel:.3e}; "
+          f"ranks' params bitwise equal; launches per rank {r0['launches']}")
+    print(f"  bf16 step per rank on {smi}, both ranks on one card: {step_ms:.1f} ms "
+          f"({' '.join(f'{t:.1f}' for t in r0['step_ms'])}); gradient all-reduce through "
+          f"gloo alone ({r0['reduce_bytes'] / 2**20:.1f} MiB fp32): {reduce_ms:.1f} ms "
+          f"({' '.join(f'{t:.1f}' for t in r0['reduce_ms'])}), {reduce_ms / step_ms:.3f} of the step")
+    return {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+
+
+def check_torchrun_cli():
+    """The training CLI of E8 under ``torchrun --nproc-per-node 1`` (NCCL,
+    world 1): 2 iterations, then resumed to 3, and a forward from the last
+    checkpoint."""
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig
+    from cleanumamba_tpu_torch.models.cleanumamba import forward
+    from cleanumamba_tpu_torch.train.checkpoint import find_max_epoch, load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "exp.json")
+        with open(exp, "w") as f:
+            json.dump({"network": "CleanUMamba", "exp_path": "e8",
+                       "network_config": CleanUMambaConfig().to_reference_json()}, f)
+        with open(os.path.join(ROOT, "configs", "train_synth.json")) as f:
+            conf = json.load(f)
+        conf["train_config"]["log"]["directory"] = os.path.join(tmp, "logs")
+        path = os.path.join(tmp, "config.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        for max_iters, expect in ((2, "ranks: 1"), (3, "resumed from iter 1")):
+            out, secs = _run([sys.executable, "-m", "torch.distributed.run",
+                              "--nproc-per-node", "1", "--master-addr", "127.0.0.1",
+                              "--master-port", str(_free_port()),
+                              "-m", "cleanumamba_tpu_torch.cli.train", "-c", path, "-e", exp,
+                              "--synthetic", "--log-every", "1", "--max-iters", str(max_iters)],
+                             ROOT)
+            if expect not in out:
+                raise AssertionError(f"torchrun CLI: {expect!r} not in\n{out[-2000:]}")
+            lines = [ln for ln in out.splitlines() if ln.startswith(("iter", "resumed", "model"))]
+            print(f"  torchrun --nproc-per-node 1 --max-iters {max_iters} ({secs:.1f} s): "
+                  + " | ".join(lines))
+        ck_dir = os.path.join(tmp, "logs", "e8", "checkpoint")
+        last = find_max_epoch(ck_dir)
+        if last != 2:
+            raise AssertionError(f"expected checkpoint 2.pkl, newest is {last}")
+        ck = load_checkpoint(os.path.join(ck_dir, f"{last}.pkl"), "cuda:0")
+        with torch.no_grad():
+            x = torch.from_numpy((np.random.default_rng(20).normal(size=(1, SR)) * 0.1)
+                                 .astype(np.float32)).to("cuda:0")
+            y = forward(ck["params"], x, ck["config"])
+        _finite("forward from the torchrun CLI's checkpoint", y)
+
+
+# --------------------------------------------------------------------------
+# Phase 21: serving bundles (export.py) with K1 as a custom op
+# --------------------------------------------------------------------------
+
+EXPORT_OP = "cleanumamba.selective_scan.default"
+EXPORT_STEPS = {1: 4, 16: 2}  # steps of each bundle the loader runs
+
+
+def export_worker(job_dir) -> int:
+    """The loader of phase 21 (``--export-worker DIR``): a fresh process that
+    imports ``export.load_bundle`` and no model code, runs every bundle of
+    DIR on the card on the inputs the phase saved, counts K1's launches on
+    one block-16 step and times that step.  Writes ``loaded.pt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cleanumamba_tpu_torch.export import load_bundle
+    from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    bundles = {name: load_bundle(os.path.join(job_dir, name))[1]
+               for name in ("offline", "stream1", "stream16")}
+    load_s = time.perf_counter() - t0
+    job = torch.load(os.path.join(job_dir, "inputs.pt"))
+    p, out = job["params"], {"load_s": load_s}
+    out["offline"] = bundles["offline"]["offline"](p, job["x"])
+    for block, n in EXPORT_STEPS.items():
+        fns, tick = bundles[f"stream{block}"], job["tick"] * block
+        state, o = fns["prime"](p, job["audio"][:, :job["fl"]])
+        outs = [o]
+        for k in range(n):
+            pos = job["fl"] + k * tick
+            if block == 16 and k == n - 1:
+                selective_scan.launches = 0
+            state, o = fns["step"](p, state, job["audio"][:, pos:pos + tick])
+            outs.append(o)
+        out[f"stream{block}"] = torch.cat(outs, 1)
+    out["k1_per_step"] = selective_scan.launches
+    step, st = bundles["stream16"]["step"], state
+    new = job["audio"][:, job["fl"]:job["fl"] + 16 * job["tick"]]
+    out["step_ms"] = _median(_host_ms(lambda: step(p, st, new), 30))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            step(p, st, new)
+        torch.cuda.synchronize()
+    out["step_busy_ms"] = _device_busy(prof)[0] / 10
+    out["modules"] = sorted(m for m in sys.modules if m.startswith(
+        ("cleanumamba_tpu_torch.models", "cleanumamba_tpu_torch.streaming", "jax",
+         "cleanumamba_tpu.")))
+    torch.save(out, os.path.join(job_dir, "loaded.pt"))
+    return 0
+
+
+def run_export(dev, cfg, params32, smi):
+    """Phase 21: E8 bundles exported on the card (``export.export_offline``
+    at ``valid_length(160000)``, batch 1; ``export_stream`` at batch 2,
+    block 16 and block 1), reloaded in a fresh process that imports no model
+    code (``--export-worker``): outputs bitwise equal to the eager calls, K1
+    launched three times a block-16 step through the custom op;
+    ``SessionMultiplexer.from_bundle`` against the live multiplexer on a
+    staggered session; export and load seconds, and the loaded step's wall
+    and busy ms beside the eager step's and the op's host cost per call.
+    (Its CLI check is ``check_export_cli``.)  Returns K1's launches in the
+    loader's counted step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cleanumamba_tpu_torch import export as ex
+    from cleanumamba_tpu_torch.models.cleanumamba import forward
+    from cleanumamba_tpu_torch.ops.cuda import selective_scan as k1
+    from cleanumamba_tpu_torch.serve import SessionMultiplexer
+    from cleanumamba_tpu_torch.streaming import stream_prime, stream_step, stream_step_block
+
+    fl, tick = cfg.frame_length, cfg.total_stride
+    L = cfg.valid_length(10 * SR)
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy((rng.normal(size=(1, L)) * 0.1).astype(np.float32)).to(dev)
+    audio = torch.from_numpy(
+        (rng.normal(size=(2, fl + 4 * 16 * tick)) * 0.1).astype(np.float32)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        secs = {}
+        t0 = time.perf_counter()
+        off = ex.export_offline(params32, cfg, L)
+        secs["offline"] = time.perf_counter() - t0
+        ex.save_bundle(os.path.join(tmp, "offline"), cfg, {"offline": off})
+        graphs = {"offline": off}
+        for block in EXPORT_STEPS:
+            t0 = time.perf_counter()
+            prime, step = ex.export_stream(params32, cfg, batch=2, block=block)
+            secs[f"stream{block}"] = time.perf_counter() - t0
+            ex.save_bundle(os.path.join(tmp, f"stream{block}"), cfg,
+                           {"prime": prime, "step": step})
+            graphs[f"step{block}"] = step
+        n_op = {k: sum(n.op == "call_function" and str(n.target) == EXPORT_OP
+                       for n in g.graph.nodes) for k, g in graphs.items()}
+        want = {"offline": cfg.tsfm_n_layers, "step1": 0, "step16": cfg.tsfm_n_layers}
+        if n_op != want:
+            raise AssertionError(f"{EXPORT_OP} nodes in the traced graphs: {n_op}, want {want}")
+
+        # eager references on the card
+        with torch.no_grad():
+            ref = {"offline": forward(params32, x, cfg)}
+            for block, n in EXPORT_STEPS.items():
+                fn = stream_step if block == 1 else stream_step_block
+                state, o = stream_prime(params32, cfg, audio[:, :fl])
+                outs = [o]
+                for k in range(n):
+                    pos = fl + k * block * tick
+                    state, o = fn(params32, cfg, state, audio[:, pos:pos + block * tick])
+                    outs.append(o)
+                ref[f"stream{block}"] = torch.cat(outs, 1)
+        torch.save({"params": params32, "x": x, "audio": audio, "fl": fl, "tick": tick},
+                   os.path.join(tmp, "inputs.pt"))
+        out, load_wall = _run([sys.executable, os.path.abspath(__file__), "--export-worker", tmp],
+                              ROOT)
+        got = torch.load(os.path.join(tmp, "loaded.pt"))
+        if got["modules"]:
+            raise AssertionError(f"the loader imported model code: {got['modules']}")
+        for name, r in ref.items():
+            if not torch.equal(got[name].to(dev), r):
+                raise AssertionError(f"loaded {name} differs from eager: max|err| "
+                                     f"{_rel_err(got[name].to(dev), r)[0]:.3e}")
+        if got["k1_per_step"] != cfg.tsfm_n_layers:
+            raise AssertionError(f"loaded block-16 step launched K1 {got['k1_per_step']} times, "
+                                 f"want {cfg.tsfm_n_layers}")
+
+        # from_bundle against the live multiplexer: a session joining late
+        mux_b = SessionMultiplexer.from_bundle(os.path.join(tmp, "stream16"), params32)
+        mux_l = SessionMultiplexer(params32, cfg, slots=2, block=16)
+        a = audio.cpu().numpy()
+        t16 = 16 * tick
+        worst, outs = 0.0, []
+        for mux in (mux_b, mux_l):
+            s0 = mux.open()
+            first = mux.feed(s0, a[0, :fl + t16])
+            s1 = mux.open()
+            second = mux.feed(s1, a[1, :fl + 2 * t16])
+            rest = mux.feed(s0, a[0, fl + t16:])
+            outs.append([np.concatenate([first, rest, mux._drain(s0)]),
+                         np.concatenate([second, mux._drain(s1)])])
+        for g, r in zip(*outs):
+            if g.shape != r.shape or g.size == 0:
+                raise AssertionError(f"from_bundle session: {g.shape} vs live {r.shape}")
+            worst = max(worst, _rel_err(torch.from_numpy(g), torch.from_numpy(r))[1])
+        if not worst <= FP32_TOL:
+            raise AssertionError(f"from_bundle vs live multiplexer: {worst:.3e} > {FP32_TOL:g}")
+
+        # the eager block-16 step's times, and the op's host cost per K1 call
+        state, _ = stream_prime(params32, cfg, audio[:, :fl])
+        new = audio[:, fl:fl + t16]
+        with torch.no_grad():
+            eager_ms = _median(_host_ms(lambda: stream_step_block(params32, cfg, state, new), 30))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    stream_step_block(params32, cfg, state, new)
+                torch.cuda.synchronize()
+        eager_busy = _device_busy(prof)[0] / 10
+        a16 = _scan_inputs(torch.Generator().manual_seed(21), dev, 2, 16, cfg.d_inner,
+                           cfg.d_state, torch.float32)
+        args16 = [a16[k] for k in SCAN_ARGS]
+        via_op = _median(_host_ms(lambda: k1.selective_scan(*args16), 200))
+        direct = _median(_host_ms(lambda: k1._scan_op_cuda(*args16, False), 200))
+
+    print(f"  E8 bundles exported on the card in {secs['offline']:.1f} s (offline, L={L}), "
+          f"{secs['stream1']:.1f} s (prime + block-1 step, batch 2), {secs['stream16']:.1f} s "
+          f"(prime + block-16 step); {EXPORT_OP} nodes {n_op}; loader process {load_wall:.1f} s "
+          f"(load {got['load_s']:.1f} s), no model module imported; offline, prime and "
+          f"{EXPORT_STEPS} steps bitwise equal to eager; loaded block-16 step launched K1 "
+          f"{got['k1_per_step']} times; from_bundle vs live multiplexer worst rel {worst:.3e}")
+    print(f"  block-16 step, batch 2, on {smi}: loaded {got['step_ms']:.3f} ms wall, "
+          f"{got['step_busy_ms']:.3f} ms device busy; eager {eager_ms:.3f} ms wall, "
+          f"{eager_busy:.3f} ms busy; K1 through the custom op {via_op * 1e3:.1f} us a call "
+          f"(host clock, synchronised) against its ctypes launch alone {direct * 1e3:.1f} us "
+          f"({(via_op - direct) * 1e3:.1f} us x {cfg.tsfm_n_layers} calls a step)")
+    return got["k1_per_step"]
+
+
+def check_export_cli():
+    """``cli/export.py --selftest`` on the pruned checkpoint, on the card and
+    with ``--device cpu``, as two subprocesses at once."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = [[sys.executable, "-m", "cleanumamba_tpu_torch.cli.export", "--ckpt", CKPT,
+                 "--out", os.path.join(tmp, f"cli_{d}"), "--selftest"] + extra
+                for d, extra in (("cuda", []), ("cpu", ["--device", "cpu"]))]
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            runs = list(pool.map(lambda c: _run(c, ROOT), cmds))
+    for (text, secs), d in zip(runs, ("cuda", "cpu")):
+        if "selftest OK" not in text:
+            raise AssertionError(f"cli/export.py --selftest on {d}:\n{text[-2000:]}")
+        errs = [ln.strip() for ln in text.splitlines() if "max|err|" in ln]
+        print(f"  cli/export.py --selftest ({d}, {secs:.1f} s): " + "; ".join(errs))
+
+
+def check_clis_of_phases_20_21():
+    """Phase 20's torchrun CLI and phase 21's export CLIs: subprocesses that
+    share nothing, run at once."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(check_torchrun_cli), pool.submit(check_export_cli)]
+        for job in jobs:
+            job.result()
+
+
 def _base_k5(checkout):
     """The K5 wrapper module of another checkout, launching that checkout's kernel."""
     import importlib.util
@@ -2687,6 +3321,14 @@ def main() -> int:
     parser.add_argument("--prune-only", action="store_true",
                         help="build K1/K2 only and run phase 18 (pruning and finetune) and "
                              "print no result lines")
+    parser.add_argument("--dist-only", action="store_true",
+                        help="build K1/K2 only and run phases 19 and 20 (distillation and data "
+                             "parallelism) and print no result lines")
+    parser.add_argument("--export-only", action="store_true",
+                        help="build K1/K2 only and run phase 21 (serving bundles) and print no "
+                             "result lines")
+    parser.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--export-worker", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--base-k5", metavar="DIR",
                         help="a checkout of an earlier version (e.g. the parent commit unpacked "
                              "with git archive): phase 12 times its K5 beside this one's in "
@@ -2695,6 +3337,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
+    # the processes phases 20 and 21 start (before any import of model code)
+    if args.dp_worker:
+        return dp_worker(args.dp_worker)
+    if args.export_worker:
+        return export_worker(args.export_worker)
     from cleanumamba_tpu_torch.config import CleanUMambaConfig
     from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
     from cleanumamba_tpu_torch.ops.cuda import build
@@ -2718,7 +3365,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = ("stream_fused",) if args.fused_only else \
-        ("selective_scan",) if args.scan_only or args.prune_only else \
+        ("selective_scan",) if (args.scan_only or args.prune_only or args.dist_only
+                                or args.export_only) else \
         ("selective_scan", "stream_fused", "stream_mega")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
         jobs = [pool.submit(build.load_library, name) for name in sources]  # one nvcc each
@@ -2748,6 +3396,20 @@ def main() -> int:
         check_prune_card_vs_cpu(dev)
         run_prune_clis(dev)
         print("prune-only run: phase 18 passed (no result lines)")
+        return 0
+    if args.dist_only:
+        print("phase 19 knowledge distillation (E8 teacher, FullMini student):", flush=True)
+        run_kd(dev, cfg, params32, smi, (selective_scan, selective_scan_bwd), rep)
+        print("phase 20 data parallelism (two gloo ranks on one card, torchrun):", flush=True)
+        run_dp(dev, cfg, params32, smi, rep)
+        check_torchrun_cli()
+        print("dist-only run: phases 19 and 20 passed (no result lines)")
+        return 0
+    if args.export_only:
+        print("phase 21 serving bundles (export.py, K1 as a custom op):", flush=True)
+        run_export(dev, cfg, params32, smi)
+        check_export_cli()
+        print("export-only run: phase 21 passed (no result lines)")
         return 0
     print("phase 3 kernels vs plain versions:", flush=True)
     if args.fused_only:
@@ -2804,11 +3466,21 @@ def main() -> int:
                                  rep)
     check_prune_card_vs_cpu(dev)
     run_prune_clis(dev)
+    print("phase 19 knowledge distillation (E8 teacher, FullMini student):", flush=True)
+    kd_launches = run_kd(dev, cfg, params32, smi, (selective_scan, selective_scan_bwd), rep)
+    print("phase 20 data parallelism (two gloo ranks on one card, torchrun):", flush=True)
+    dp_launches = run_dp(dev, cfg, params32, smi, rep)
+    print("phase 21 serving bundles (export.py, K1 as a custom op):", flush=True)
+    launches["selective_scan"] += run_export(dev, cfg, params32, smi)
+    print("phases 20-21 the torchrun training CLI and the export CLI, at once:", flush=True)
+    check_clis_of_phases_20_21()
 
     # launches: each path's own run (serving, phase 4; training, phase 7; the
     # int8 serving path, phase 14; the multiplexer's block-16 ticks, phase 15;
-    # validate, phase 17; the pruning pipeline, phase 18)
-    for name, n in list(train_launches.items()) + list(prune_launches.items()):
+    # validate, phase 17; the pruning pipeline, phase 18; the KD steps, phase
+    # 19; both DP ranks' steps, phase 20; the loaded block-16 step, phase 21)
+    for name, n in (list(train_launches.items()) + list(prune_launches.items())
+                    + list(kd_launches.items()) + list(dp_launches.items())):
         launches[name] = launches.get(name, 0) + n
     sources = {
         "selective_scan": ("selective_scan_fwd", "cleanumamba_tpu_torch/csrc/selective_scan.cu",

@@ -1,7 +1,8 @@
-"""Training CLI of the port, one GPU (port of ``cleanumamba_tpu/cli/train.py``).
+"""Training CLI of the port (port of ``cleanumamba_tpu/cli/train.py``).
 
     python -m cleanumamba_tpu_torch.cli.train -c configs/train_synth.json \
         -e <experiment.json> --synthetic [--max-iters N] [--device-data K] [--device D]
+    torchrun --nproc-per-node N -m cleanumamba_tpu_torch.cli.train ...   # N ranks
 
 Same flags and checkpoint layout as the JAX CLI: resumes from the newest
 ``{log_directory}/{exp_path}/checkpoint/{n}.pkl``, logs
@@ -12,17 +13,33 @@ iterations, validates every ``iters_per_valid`` (``eval.validate`` on
 ``{log_directory}/{exp_path}/metrics.jsonl`` (``utils.MetricsLogger``) under
 the run id that the checkpoints carry, so a resumed run appends to its own
 record.  Runs on ``cuda:0`` unless ``--device`` names another device, and
-raises where there is no CUDA device and none was named.  Not yet ported,
-and refused: more than one device and ``--model-parallel`` > 1.
+raises where there is no CUDA device and none was named.
+
+Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) each rank is one process
+on ``cuda:{LOCAL_RANK}`` (NCCL; ``--device cpu``: the CPU with gloo), and the
+ranks train one model data-parallel, as JAX's CLI does over its devices: a
+step takes ``batch_size_per_device x world`` items (times ``accum``) and the
+gradients are averaged over the ranks.  Each rank draws its
+``batch_size_per_device`` items from a loader of its own over its shard of
+the training set, seeded by its rank (rank 0's is the one-process loader's
+seed), as the reference's DistributedSampler did; so a run of N ranks sees
+other items than one process, and every rank decodes only its own.  With
+``--device-data K`` each rank makes its own batches on its device.  Rank 0
+alone logs, validates (serially, as JAX does) and writes the checkpoints,
+which keep the one-device layout; the others wait for it in the next
+all-reduce, for at most ``GROUP_TIMEOUT``.  Not yet ported, and refused:
+``--model-parallel`` > 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from cleanumamba_tpu_torch.config import load_experiment_config, load_train_config
 from cleanumamba_tpu_torch.data import (
@@ -32,6 +49,7 @@ from cleanumamba_tpu_torch.data import (
 )
 from cleanumamba_tpu_torch.eval.validate import validate
 from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
+from cleanumamba_tpu_torch.parallel.mesh import make_mesh, replicated_sharding
 from cleanumamba_tpu_torch.params import resolve_device
 from cleanumamba_tpu_torch.train.checkpoint import (
     find_max_epoch,
@@ -41,6 +59,11 @@ from cleanumamba_tpu_torch.train.checkpoint import (
 from cleanumamba_tpu_torch.train.optim import make_optimizer
 from cleanumamba_tpu_torch.train.trainer import make_device_data_steps, make_train_step
 from cleanumamba_tpu_torch.utils import MetricsLogger
+
+# How long a rank waits in a collective for the others: it covers rank 0's
+# validation (the whole test set unless valid_max_items cuts it: P.862 and
+# the other metrics run on the host, seconds an utterance) and checkpoint.
+GROUP_TIMEOUT = datetime.timedelta(hours=1)
 
 
 def main(argv=None):
@@ -72,18 +95,19 @@ def main(argv=None):
     exp_path = raw_exp.get("exp_path", "exp")
     ckpt_dir = os.path.join(tc.log_directory, exp_path, "checkpoint")
     opt = tc.optimization
-    if opt.n_devices > 1:
-        raise NotImplementedError(
-            f"n_gpus={opt.n_devices}: data parallelism over several devices comes with "
-            "DDP (ROADMAP Queue 1 item 7); this CLI trains on one device")
-    per_step_batch = opt.batch_size_per_device
+    mesh = make_mesh(args.device, timeout=GROUP_TIMEOUT) \
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ else None
+    world = 1 if mesh is None else mesh.world
+    lead = mesh is None or mesh.rank == 0  # the rank that logs, validates and saves
+    say = print if lead else (lambda *a, **k: None)
+    per_step_batch = opt.batch_size_per_device * world
     accum = max(1, opt.batch_size_total // per_step_batch)
-    dev = resolve_device(args.device)
-    print(f"model: {network} ({cfg.bottleneck}) | device: {dev} | "
-          f"batch/step: {per_step_batch} x accum {accum}")
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    say(f"model: {network} ({cfg.bottleneck}) | device: {dev} | ranks: {world} | "
+        f"batch/step: {per_step_batch} x accum {accum}")
 
     params = init_params(cfg, torch.Generator().manual_seed(0), dev)
-    print(f"params: {count_params(params)/1e6:.3f}M")
+    say(f"params: {count_params(params)/1e6:.3f}M")
     optimizer = make_optimizer(opt)
     opt_state = optimizer.init(params)
 
@@ -96,23 +120,29 @@ def main(argv=None):
         if isinstance(state, dict) and {"count", "mu", "nu"} <= state.keys():
             opt_state = {"count": int(state["count"]), "mu": state["mu"], "nu": state["nu"]}
         else:
-            print("checkpoint has no optimizer state in this port's layout: fresh moments")
+            say("checkpoint has no optimizer state in this port's layout: fresh moments")
         start_iter = ck["iter"] + 1
         run_id = ck.get("run_id")
         t_prev = ck.get("training_time_seconds", 0.0)
-        print(f"resumed from iter {ck['iter']}")
+        say(f"resumed from iter {ck['iter']}")
+    if mesh is not None:  # every replica starts from rank 0's (the reference's broadcast)
+        params, mu, nu = replicated_sharding(mesh, [params, opt_state["mu"], opt_state["nu"]])
+        opt_state = {"count": opt_state["count"], "mu": mu, "nu": nu}
 
-    sink = MetricsLogger.for_run(os.path.join(tc.log_directory, exp_path),
-                                 run_id=run_id, config=raw_exp)
-    run_id = sink.run_id
+    sink = None
+    if lead:
+        sink = MetricsLogger.for_run(os.path.join(tc.log_directory, exp_path),
+                                     run_id=run_id, config=raw_exp)
+        run_id = sink.run_id
 
     max_iters = args.max_iters or opt.n_iters
     L = int(tc.crop_length_sec * tc.sample_rate)
-    step_fn = make_train_step(cfg, tc.loss, optimizer, bf16=opt.bf16, remat=opt.remat)
+    step_fn = make_train_step(cfg, tc.loss, optimizer, bf16=opt.bf16, remat=opt.remat,
+                              mesh=mesh)
     stepper = loader = None
     if args.device_data:
-        stepper = make_device_data_steps(step_fn, per_step_batch, L, args.device_data,
-                                         accum=accum)
+        stepper = make_device_data_steps(step_fn, opt.batch_size_per_device, L,
+                                         args.device_data, accum=accum, mesh=mesh)
         gen = torch.Generator(device=dev).manual_seed(1234 + start_iter)
     if args.synthetic or not tc.data_root or not os.path.isdir(tc.data_root):
         if not args.synthetic:
@@ -126,8 +156,10 @@ def main(argv=None):
                                    tc.sample_rate, dataset=tc.dataset)
         val_ds = CleanNoisyPairDataset(tc.data_root, "testing", sample_rate=tc.sample_rate,
                                        dataset=tc.dataset)
-    if stepper is None:
-        loader = make_training_loader(ds, per_step_batch * accum)
+    if stepper is None:  # rank r: shard r of the items, seed r
+        rank = 0 if mesh is None else mesh.rank
+        loader = make_training_loader(ds, opt.batch_size_per_device * accum, seed=rank,
+                                      num_shards=world, shard_index=rank)
 
     n_iter = start_iter
     t0 = time.time() - t_prev
@@ -139,33 +171,37 @@ def main(argv=None):
             n_iter += stride - 1  # land on the last iteration of the call
         else:
             clean, noisy = next(loader)
-            shape = (accum, per_step_batch, L)
+            shape = (accum, opt.batch_size_per_device, L)
             batch = (torch.from_numpy(clean.reshape(shape)).to(dev),
                      torch.from_numpy(noisy.reshape(shape)).to(dev))
             params, opt_state, aux = step_fn(params, opt_state, batch)
 
-        if crossed(args.log_every) or n_iter == start_iter:
+        if lead and (crossed(args.log_every) or n_iter == start_iter):
             print(f"iter {n_iter}: loss={float(aux['loss']):.4f} "
                   f"rec={float(aux['reconstruct']):.4f} "
                   f"sc={float(aux.get('stft_sc', 0)):.4f} "
                   f"mag={float(aux.get('stft_mag', 0)):.4f} "
                   f"gnorm={float(aux['grad_norm']):.3f} ({time.time() - t0:.0f}s)", flush=True)
             sink.log({k: float(v) for k, v in aux.items()}, step=n_iter, kind="train")
-        if crossed(tc.iters_per_valid) and n_iter >= tc.iters_per_valid:
+        if lead and crossed(tc.iters_per_valid) and n_iter >= tc.iters_per_valid:
             metrics = validate(params, cfg, val_ds, max_items=tc.valid_max_items, pad_to=L)
             print(f"iter {n_iter}: valid " + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()),
                   flush=True)
             sink.log(metrics, step=n_iter, kind="valid")
-        if crossed(tc.iters_per_ckpt) and n_iter >= tc.iters_per_ckpt:
+        if lead and crossed(tc.iters_per_ckpt) and n_iter >= tc.iters_per_ckpt:
             path = save_checkpoint(ckpt_dir, n_iter, params, opt_state, cfg, run_id=run_id,
                                    training_time_seconds=time.time() - t0)
             print(f"saved {path}")
         n_iter += 1
 
-    path = save_checkpoint(ckpt_dir, n_iter - 1, params, opt_state, cfg, run_id=run_id,
-                           training_time_seconds=time.time() - t0)
-    print(f"saved {path}")
-    sink.close()
+    if lead:
+        path = save_checkpoint(ckpt_dir, n_iter - 1, params, opt_state, cfg, run_id=run_id,
+                               training_time_seconds=time.time() - t0)
+        print(f"saved {path}")
+        sink.close()
+    if mesh is not None:
+        dist.barrier(mesh.group)  # no rank leaves before the last checkpoint is written
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

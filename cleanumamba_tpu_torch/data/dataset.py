@@ -246,24 +246,29 @@ def make_loader(
 
 
 def make_training_loader(dataset, batch_size: int, seed: int = 0,
-                         n_threads: int = 4, prefer_native: bool = True):
+                         n_threads: int = 4, prefer_native: bool = True,
+                         num_shards: int = 1, shard_index: int = 0):
     """Training loader that uses the C++ decode/crop/batch pipeline
     (data/native/wavloader.cpp) when the dataset is file-backed and the
-    toolchain is present; otherwise the Python loader."""
+    toolchain is present; otherwise the Python loader.  ``num_shards`` /
+    ``shard_index``: draw only from items ``shard_index::num_shards`` (one
+    shard per data-parallel rank)."""
     if prefer_native and isinstance(dataset, CleanNoisyPairDataset) and dataset.subset == "training":
         try:
             from cleanumamba_tpu_torch.data.native_loader import NativeWavLoader, native_available
 
             if native_available():
-                clean_paths = [c for c, _ in dataset.pairs]
-                noisy_paths = [n for _, n in dataset.pairs]
+                pairs = dataset.pairs[shard_index::num_shards]
+                clean_paths = [c for c, _ in pairs]
+                noisy_paths = [n for _, n in pairs]
                 return NativeWavLoader(
                     clean_paths, noisy_paths, dataset.crop_len, batch_size,
                     n_threads=n_threads, seed=seed,
                 )
         except Exception:
             pass
-    return make_loader(dataset, batch_size, seed=seed)
+    return make_loader(dataset, batch_size, seed=seed, num_shards=num_shards,
+                       shard_index=shard_index)
 
 
 def _prefetch_iterator(it, depth: int):

@@ -22,12 +22,17 @@ _lib = None
 
 
 def _build() -> bool:
+    # built under a name of this process's own and renamed into place, so
+    # that processes starting together (data-parallel ranks) never load a
+    # library another one is still writing
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     try:
         subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-             _SRC, "-o", _LIB],
+             _SRC, "-o", tmp],
             check=True, capture_output=True,
         )
+        os.replace(tmp, _LIB)
         return True
     except (subprocess.CalledProcessError, FileNotFoundError):
         return False

@@ -1,6 +1,5 @@
-"""Training losses: L1/L2 + multi-resolution STFT (port of
-``cleanumamba_tpu/losses.py``; the knowledge-distillation branch comes with
-``train/distill.py``).
+"""Training losses: L1/L2 + multi-resolution STFT + knowledge distillation
+over skip connections (port of ``cleanumamba_tpu/losses.py``).
 
 ``band="high"`` keeps the reference's quirk: it slices the second half of
 the *frames* axis, not of the frequencies; ``band="high_freq"`` slices the
@@ -8,6 +7,8 @@ frequencies.
 """
 
 from __future__ import annotations
+
+import torch
 
 from cleanumamba_tpu_torch.config import LossConfig, STFTLossConfig
 from cleanumamba_tpu_torch.ops.stft import stft_magnitude
@@ -47,11 +48,11 @@ def loss_fn(denoised, clean, cfg: LossConfig, skips=None, teacher_skips=None,
     """(total loss, aux) for denoised and clean waveforms (B, L).
 
     aux holds ``reconstruct``, ``stft_sc`` and ``stft_mag`` (when
-    stft_lambda > 0) and ``loss``, as 0-d tensors.
+    stft_lambda > 0) and ``loss``, as 0-d tensors; with ``skips`` and
+    ``teacher_skips`` (lists of (B, T, C) activations, one per connection,
+    with ``kd_adapters`` from ``train/distill.make_kd_adapters``) also
+    ``kd_loss``.
     """
-    if skips is not None or teacher_skips is not None or kd_adapters is not None:
-        raise NotImplementedError(
-            "knowledge distillation comes with train/distill.py (ROADMAP Queue 1 item 7)")
     aux = {}
     if cfg.ell_p == 2:
         ae = (denoised - clean).square().mean()
@@ -68,5 +69,27 @@ def loss_fn(denoised, clean, cfg: LossConfig, skips=None, teacher_skips=None,
         aux["stft_sc"] = sc * cfg.stft_lambda
         aux["stft_mag"] = mag * cfg.stft_lambda
 
+    if skips is not None and teacher_skips is not None:
+        # KD after "Understanding the Role of the Projector in Knowledge
+        # Distillation", as the reference applies it (util.py:259-290): the
+        # student skip through a 1x1 projection and a batch norm, the teacher
+        # skip through a batch norm; log(sum |diff|^4) per connection, averaged
+        kd_losses = []
+        for ad, s_c, t_c in zip(kd_adapters, skips, teacher_skips):
+            s_n = _kd_norm(s_c @ ad["embed_w"] + ad["embed_b"], ad["bn_s"])
+            t_n = _kd_norm(t_c, ad["bn_t"])
+            kd_losses.append((s_n - t_n).abs().pow(4.0).sum().log() * cfg.kd_p)
+        kd = torch.stack(kd_losses).mean()
+        loss = loss + kd
+        aux["kd_loss"] = kd
+
     aux["loss"] = loss
     return loss, aux
+
+
+def _kd_norm(x, bn):
+    """Batch-norm style normalisation per channel over (batch, time), with
+    the population variance (as ``jnp.var``)."""
+    mean = x.mean(dim=(0, 1), keepdim=True)
+    var = x.var(dim=(0, 1), keepdim=True, unbiased=False)
+    return (x - mean) * torch.rsqrt(var + 1e-5) * bn["scale"] + bn["bias"]

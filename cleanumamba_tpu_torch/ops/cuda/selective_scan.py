@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -200,49 +200,86 @@ def selective_scan(u, dt, A, B, C, D=None, h0=None, return_starts: bool = False)
 
     On CUDA: u, B, C fp32 or bf16 (one dtype); dt, A, D, h0 fp32; all
     contiguous; 1 <= d_state <= 256.  Anything else raises, as does a call
-    that autograd would record.
+    that autograd would record.  The call goes through the custom op
+    ``torch.ops.cleanumamba.selective_scan``, so ``torch.export`` traces it
+    as one node on either device.
     """
     _no_autograd("selective_scan (K1)", u, dt, A, B, C, D, h0)
-    if u.device.type == "cpu":
-        if return_starts:
-            chunk = scan_chunk(u.shape[0], u.shape[2], A.shape[1])
-            return plain_scan.selective_scan(u, dt, A, B, C, D, h0, chunk=chunk,
-                                             return_starts=True)
-        return selective_scan_plain(u, dt, A, B, C, D, h0)
-    if u.device.type != "cuda":
-        raise ValueError(f"selective_scan: no kernel for device {u.device}")
+    y, h_last, h_starts = _scan_op(u, dt, A, B, C, D, h0, return_starts)
+    return (y, h_last, h_starts) if return_starts else (y, h_last)
+
+
+selective_scan.launches = 0
+
+
+def _check_fwd(u, dt, A, B, C, D, h0):
     what = "selective_scan"
     code, Bsz, L, Di, Ds = _check_inputs(what, u, dt, A, B, C, D, h0=h0)
     if not 1 <= Ds <= MAX_D_STATE:
         raise ValueError(f"{what}: d_state={Ds} outside [1, {MAX_D_STATE}]")
     if h0 is not None and tuple(h0.shape) != (Bsz, Di, Ds):
         raise ValueError(f"{what}: h0 has shape {tuple(h0.shape)}, expected {(Bsz, Di, Ds)}")
+    return code, Bsz, L, Di, Ds
 
-    y = torch.empty_like(u)
-    h_last = torch.empty((Bsz, Di, Ds), dtype=torch.float32, device=u.device)
-    chunk = scan_chunk(Bsz, Di, Ds)
-    n_chunks = -(-L // chunk)
-    h_starts = (torch.empty((Bsz, n_chunks, Di, Ds), dtype=torch.float32, device=u.device)
-                if return_starts else None)
-    out = (y, h_last, h_starts) if return_starts else (y, h_last)
+
+def _fwd_outputs(u, Ds, return_starts):
+    """Empty (y, h_last, h_starts) of K1's shapes; h_starts has no chunk
+    when it is not asked for (a custom op returns tensors, not None)."""
+    Bsz, L, Di = u.shape
+    n_chunks = -(-L // scan_chunk(Bsz, Di, Ds)) if return_starts else 0
+    f32 = dict(dtype=torch.float32, device=u.device)
+    return (torch.empty_like(u), torch.empty((Bsz, Di, Ds), **f32),
+            torch.empty((Bsz, n_chunks, Di, Ds), **f32))
+
+
+@torch.library.custom_op("cleanumamba::selective_scan", mutates_args=(), device_types="cpu")
+def _scan_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, D: Optional[torch.Tensor], h0: Optional[torch.Tensor],
+             return_starts: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op's CPU implementation: the plain chunked scan (its chunk states
+    at K1's chunk, which K2's plain version reads)."""
+    Bsz, L, Di = u.shape
+    Ds = A.shape[1]
+    if return_starts:
+        y, h_last, h_starts = plain_scan.selective_scan(
+            u, dt, A, B, C, D, h0, chunk=scan_chunk(Bsz, Di, Ds), return_starts=True)
+    else:
+        (y, h_last), h_starts = selective_scan_plain(u, dt, A, B, C, D, h0), \
+            u.new_empty((Bsz, 0, Di, Ds), dtype=torch.float32)
+    # an op's output is a tensor of its own, as its fake implementation says:
+    # not h0 (L == 0), nor a view into the last chunk's states
+    return y, h_last.clone(memory_format=torch.contiguous_format), h_starts
+
+
+@_scan_op.register_kernel("cuda")
+def _scan_op_cuda(u, dt, A, B, C, D, h0, return_starts):
+    """The op's CUDA implementation: K1 through its ctypes entry point."""
+    code, Bsz, L, Di, Ds = _check_fwd(u, dt, A, B, C, D, h0)
+    y, h_last, h_starts = _fwd_outputs(u, Ds, return_starts)
     if Bsz == 0 or Di == 0:
-        return out
+        return y, h_last, h_starts
     if L == 0:
         if h0 is None:
             h_last.zero_()
         else:
             h_last.copy_(h0)
-        return out
+        return y, h_last, h_starts
     # an absent D or h0 goes in as a null pointer: the kernel reads zeros
     status = _kernel()(code, ptr(u), ptr(dt), ptr(A), ptr(B), ptr(C), ptr(D), ptr(h0),
-                       ptr(y), ptr(h_last), ptr(h_starts), Bsz, L, Di, Ds, chunk,
+                       ptr(y), ptr(h_last), ptr(h_starts) if return_starts else None,
+                       Bsz, L, Di, Ds, scan_chunk(Bsz, Di, Ds),
                        scan_plan(Bsz, Di, Ds).lanes, stream_ptr(u.device))
     check(status, "selective_scan_fwd")
     selective_scan.launches += 1
-    return out
+    return y, h_last, h_starts
 
 
-selective_scan.launches = 0
+@_scan_op.register_fake
+def _scan_op_fake(u, dt, A, B, C, D, h0, return_starts):
+    """Shapes and dtypes of the op's outputs, for tracing (``torch.export``)."""
+    if u.device.type == "cuda":
+        _check_fwd(u, dt, A, B, C, D, h0)
+    return _fwd_outputs(u, A.shape[1], return_starts)
 
 
 def selective_scan_bwd(u, dt, A, B, C, D, h_starts, gy, gh_last, cluster: int | None = None):

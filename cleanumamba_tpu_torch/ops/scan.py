@@ -22,6 +22,34 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+# torch's CPU kernels for exp (and the other vectorised transcendentals)
+# split a call of more than this many elements over the threads
+_PARALLEL_GRAIN = 32768
+
+
+def _warm_transcendentals() -> None:
+    """Run torch's fp32 exp once on the calling thread and once over every
+    thread, so that no scan is the process's first.  It runs at import, not
+    at a scan's first call: the model modules import this one (through the
+    K1 wrapper), so the exps of the model code (``A = -exp(A_log)``, the
+    softplus) come after it too.
+
+    The first multi-threaded fp32 ``torch.exp`` of a CPU process can come
+    out wrong: with eight fresh processes at once on an 8-core host, the
+    plain scan at (B 2, L 37, d_inner 200, d_state 8) as a process's first
+    computation had ~3,500 of the 102,400 exponentials of its first chunk
+    ~1e-4 off (y up to 5e-5 of its max) in 7 of 320 processes, and every
+    later call right; after importing this module, 0 of 320
+    (``scripts/torch_first_exp_probe.py``, whose other variants find none
+    wrong after one exp or sin beforehand, with one thread, or with exp in
+    float64).
+    """
+    torch.exp(torch.zeros(8))
+    torch.exp(torch.zeros(_PARALLEL_GRAIN * max(torch.get_num_threads(), 1)))
+
+
+_warm_transcendentals()
+
 
 def _coeffs(u, dt, A, B):
     """Per-step transition and input coefficients, (B, T, d_inner, d_state) fp32."""

@@ -26,11 +26,17 @@ sessions riding it.
   mamba bottleneck is one selective scan (K1 on CUDA) at batch = slots.  No
   level packs and no whole-frame kernel: the multiplexer steps the model as
   the JAX package's does.  The output comes to the host once per tick.
+- **Artifact-driven.**  ``SessionMultiplexer.from_bundle`` serves the prime
+  and step of an exported bundle (``export.py``): the serving process
+  imports no model code; the live-function constructor is the development
+  path.
 """
 
 from __future__ import annotations
 
-from typing import List
+import json
+import os
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -43,7 +49,6 @@ from cleanumamba_tpu_torch.params import (
     tree_leaves,
     tree_unflatten,
 )
-from cleanumamba_tpu_torch.streaming import stream_prime, stream_step, stream_step_block
 
 
 def _map_rows(fn, slots, a, b):
@@ -63,12 +68,17 @@ class SessionMultiplexer:
     dtype:   state and activation dtype.
     weights: "fp32" | "bf16" | "int8" storage precision
              (``params.prepare_weight_view``; the view is applied in every
-             prime and step call).
+             prime and step call); must be "fp32" when ``fns`` is given.
     device:  where the model runs; None means ``params.default_device()``.
+    fns:     optional ``{"prime": f, "step": g}`` in place of the live
+             functions, e.g. the callables of an exported bundle whose traced
+             batch and block are ``slots`` and ``block`` (:meth:`from_bundle`);
+             they take ``(params, frame)`` and ``(params, state, samples)``.
     """
 
     def __init__(self, params, cfg: CleanUMambaConfig, slots: int = 8, block: int = 1,
-                 dtype=torch.float32, weights: str = "fp32", device=None):
+                 dtype=torch.float32, weights: str = "fp32", device=None,
+                 fns: Optional[Dict[str, Callable]] = None):
         if slots < 1 or block < 1:
             raise ValueError("slots and block must be >= 1")
         if cfg.bottleneck == "mha":
@@ -80,8 +90,24 @@ class SessionMultiplexer:
         self.dtype = dtype
         self.tick_samples = block * cfg.total_stride
         self.device = resolve_device(device)
-        self.params, self.view = prepare_weight_view(to_device(params, self.device), weights,
-                                                     dtype)
+        if fns is not None:
+            if weights != "fp32":
+                raise ValueError(f"SessionMultiplexer: weights={weights!r} with fns: the "
+                                 "functions take the params as given")
+            self.params = to_device(params, self.device)
+            self._prime, self._step = fns["prime"], fns["step"]
+        else:
+            from cleanumamba_tpu_torch.streaming import (
+                stream_prime,
+                stream_step,
+                stream_step_block,
+            )
+
+            self.params, view = prepare_weight_view(to_device(params, self.device), weights,
+                                                    dtype)
+            step = stream_step if block == 1 else stream_step_block
+            self._prime = lambda p, f: stream_prime(view(p), cfg, f, dtype)
+            self._step = lambda p, s, n: step(view(p), cfg, s, n, dtype)
         self.pool = None  # batched state tree, made at the first admission
         # host-side per-slot bookkeeping
         self._open = [False] * slots
@@ -148,10 +174,22 @@ class SessionMultiplexer:
 
     @classmethod
     def from_bundle(cls, path: str, params) -> "SessionMultiplexer":
-        """Serving from an exported bundle comes with the export port."""
-        raise NotImplementedError(
-            "SessionMultiplexer.from_bundle: exported bundles come with ROADMAP Queue 1 item 9b "
-            "(export)")
+        """Serve from an exported bundle (``export.py``), on the device it was
+        traced on.  The bundle's traced batch becomes ``slots`` and its traced
+        step width ``block``; ``params`` is the weight tree of the matching
+        geometry."""
+        from cleanumamba_tpu_torch.export import load_bundle
+
+        cfg, fns = load_bundle(path)
+        with open(os.path.join(path, "bundle.json")) as f:
+            meta = json.load(f)
+        if "batch" not in meta or "block" not in meta:
+            raise ValueError(
+                f"{path}/bundle.json lacks batch/block: re-export with the current "
+                "export.save_bundle (they are schema fields derived from the traced shapes)")
+        return cls(params, cfg, slots=meta["batch"], block=meta["block"],
+                   device=meta["functions"]["step"]["device"],
+                   fns={"prime": fns["prime"], "step": fns["step"]})
 
     # -- internals ----------------------------------------------------------
 
@@ -184,8 +222,7 @@ class SessionMultiplexer:
             frames = np.zeros((self.slots, fl), np.float32)
             frames[sid] = self._buf[sid][:fl]
             self._buf[sid] = self._buf[sid][fl:]
-            state, out = stream_prime(self.view(self.params), self.cfg, self._tensor(frames),
-                                      self.dtype)
+            state, out = self._prime(self.params, self._tensor(frames))
             if self.pool is None:
                 self.pool = state
             else:  # batch-leading: one splice admits the session
@@ -201,7 +238,6 @@ class SessionMultiplexer:
     def _pump(self) -> None:
         self._admit_ready()
         tick = self.tick_samples
-        step = stream_step if self.block == 1 else stream_step_block
         while True:
             ready = [s for s in range(self.slots)
                      if self._primed[s] and self._buf[s].shape[0] >= tick]
@@ -218,8 +254,7 @@ class SessionMultiplexer:
             for s in ready:
                 new[s] = self._buf[s][:tick]
                 self._buf[s] = self._buf[s][tick:]
-            self.pool, out = step(self.view(self.params), self.cfg, self.pool,
-                                  self._tensor(new), self.dtype)
+            self.pool, out = self._step(self.params, self.pool, self._tensor(new))
             if paused:
                 self.pool = _map_rows(lambda post, pre: post.index_copy(0, idx, pre),
                                       self.slots, self.pool, saved)

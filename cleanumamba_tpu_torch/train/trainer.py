@@ -1,4 +1,4 @@
-"""The train step (port of ``cleanumamba_tpu/train/trainer.py``, one device).
+"""The train step (port of ``cleanumamba_tpu/train/trainer.py``).
 
 ``make_train_step`` returns ``train_step(params, opt_state, (clean, noisy))``
 with a leading accumulation axis on clean and noisy, as the JAX step has:
@@ -11,6 +11,14 @@ Under ``bf16=True`` every fp32 leaf is cast to bf16 for the forward,
 ``A_log``, ``dt_proj_b`` and the norm scales included, and so is ``noisy``
 (as the JAX step does; ``params.prepare_weight_view`` keeps some leaves
 fp32 and is not used here).  The scan state and the loss stay fp32.
+
+Data parallelism: with ``mesh`` (``parallel.make_mesh``, one process per
+device) the step averages the gradients and every aux scalar over the ranks
+(``parallel.pmean``, the counterpart of JAX's ``pmean`` over ``axis_name``)
+before clipping and Adam, so every rank applies the same update to its
+replica; :func:`shard_train_step` hands each rank its slice of the global
+batch.  This replaces the reference's NCCL DDP (rank-0 broadcast, gradient
+all-reduce).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from cleanumamba_tpu_torch.config import CleanUMambaConfig, LossConfig
 from cleanumamba_tpu_torch.data.synth_device import synth_batch
 from cleanumamba_tpu_torch.losses import loss_fn
 from cleanumamba_tpu_torch.models.cleanumamba import forward
+from cleanumamba_tpu_torch.parallel.mesh import Mesh, batch_sharding, pmean
 from cleanumamba_tpu_torch.params import tensor_leaves, tree_map, tree_unflatten
 from cleanumamba_tpu_torch.train.optim import Optimizer, apply_updates, global_norm
 
@@ -67,19 +76,27 @@ def make_grad_fn(model_cfg: CleanUMambaConfig, loss_cfg: LossConfig, bf16: bool 
 
 def make_train_step(model_cfg: CleanUMambaConfig, loss_cfg: LossConfig, optimizer: Optimizer,
                     bf16: bool = True, skip_nonfinite_updates: bool = False,
-                    remat: bool = False) -> Callable:
+                    remat: bool = False, mesh: Optional[Mesh] = None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, aux).
 
     batch: (clean, noisy), each (accum, B, L) on the params' device.  aux is
     :func:`make_grad_fn`'s plus ``grad_norm`` (before clipping) and
     ``grads_finite``, as 0-d tensors.  With ``skip_nonfinite_updates`` a
     step whose gradient is not finite returns params and opt_state as they
-    were (one device sync per step).
+    were (one device sync per step).  With ``mesh`` the gradients and aux
+    are means over the ranks' batches (one all-reduce per dtype of a flat
+    buffer), taken after the division by accum.
     """
     grad_fn = make_grad_fn(model_cfg, loss_cfg, bf16=bf16, remat=remat)
 
     def train_step(params, opt_state, batch):
         grads, aux = grad_fn(params, *batch)
+        if mesh is not None:
+            keys = sorted(aux)
+            g = tensor_leaves(grads)
+            mean = pmean(mesh, g + [aux[k] for k in keys])
+            grads = tree_unflatten(grads, mean[:len(g)])
+            aux = dict(zip(keys, mean[len(g):]))
         aux["grad_norm"] = global_norm(tensor_leaves(grads))
         aux["grads_finite"] = torch.isfinite(aux["grad_norm"])
         if skip_nonfinite_updates and not bool(aux["grads_finite"]):
@@ -91,26 +108,56 @@ def make_train_step(model_cfg: CleanUMambaConfig, loss_cfg: LossConfig, optimize
 
 
 def make_device_data_steps(step_fn, batch: int, length: int, k_steps: int, accum: int = 1,
-                           sr: int = 16000, snr=(0.0, 15.0)) -> Callable:
+                           sr: int = 16000, snr=(0.0, 15.0),
+                           mesh: Optional[Mesh] = None) -> Callable:
     """K train steps over batches synthesized on the params' device
     (``data/synth_device.synth_batch``), with no host data at all.
 
     Returns stepper(params, opt_state, generator) -> (params, opt_state,
     aux), aux from the last of the K steps; ``generator`` is a
     ``torch.Generator`` on the params' device, advanced by each batch.
+
+    With ``mesh`` (``step_fn`` built with the same mesh) ``batch`` is each
+    rank's local batch.  Every rank holds a generator seeded alike; for
+    each step it draws one seed from it and makes its batch from a
+    generator seeded with (that seed, its rank), the counterpart of JAX's
+    ``fold_in(sub, axis_index)``: the ranks' batches differ, and no data
+    moves between them.
     """
+
+    def batch_generator(generator: torch.Generator) -> torch.Generator:
+        if mesh is None:
+            return generator
+        seed = int(torch.randint(0, 2 ** 62, (), generator=generator, device=generator.device))
+        return torch.Generator(device=generator.device).manual_seed(
+            (seed * 1_000_003 + mesh.rank) % 2 ** 63)
 
     def stepper(params, opt_state, generator: torch.Generator):
         aux = None
         shape = (accum, batch, length)
         for _ in range(k_steps):
-            clean, noisy = synth_batch(generator, batch * accum, length, sr,
+            clean, noisy = synth_batch(batch_generator(generator), batch * accum, length, sr,
                                        float(snr[0]), float(snr[1]))
             params, opt_state, aux = step_fn(params, opt_state,
                                              (clean.reshape(shape), noisy.reshape(shape)))
         return params, opt_state, aux
 
     return stepper
+
+
+def shard_train_step(train_step, mesh: Mesh) -> Callable:
+    """Data-parallel step: the global batch (clean, noisy), each
+    (accum, B_total, L), goes in on every rank, and each rank steps on its
+    slice of axis 1 (B_total / world items).  ``train_step`` must be built
+    with ``make_train_step(..., mesh=mesh)`` so that the gradients are
+    averaged inside it."""
+
+    def sharded(params, opt_state, batch):
+        clean, noisy = batch
+        return train_step(params, opt_state, (batch_sharding(mesh, clean, 1),
+                                              batch_sharding(mesh, noisy, 1)))
+
+    return sharded
 
 
 @dataclasses.dataclass

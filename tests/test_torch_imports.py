@@ -187,3 +187,45 @@ def test_pruning_clis_take_the_gpu_by_default(name, argv, tmp_path):
         cli.main([a if not a.startswith(("artifacts/", "configs/")) else str(ROOT / a)
                   for a in argv] + ["--out", str(out)])
     assert not out.exists()
+
+
+def test_training_and_serving_slice_modules_are_covered():
+    """The distillation, data-parallel and export modules are among the
+    sources checked above."""
+    names = {str(p.relative_to(ROOT / "cleanumamba_tpu_torch")) for p in SOURCES
+             if "cleanumamba_tpu_torch" in p.parts}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "train/distill.py", "export.py",
+            "cli/export.py"} <= names
+
+
+def test_export_cli_takes_the_gpu_by_default(tmp_path):
+    """Without a CUDA device and without --device, the export CLI raises
+    before it writes anything."""
+    from cleanumamba_tpu_torch.cli import export as texport
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is taken, nothing to refuse")
+    out = tmp_path / "bundle"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        texport.main(["--ckpt", str(ROOT / "artifacts" / "pruned_473k_finetuned.pkl"),
+                      "--out", str(out), "--length", "4000"])
+    assert not out.exists()
+
+
+def test_data_mesh_refuses_a_rank_without_its_card(monkeypatch):
+    """``make_mesh`` on a CUDA device raises where ``cuda:{LOCAL_RANK}``
+    does not exist, and names the way out; it needs the launcher's
+    environment."""
+    from cleanumamba_tpu_torch.parallel import make_mesh
+
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        make_mesh()
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("LOCAL_RANK", str(torch.cuda.device_count()))
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    with pytest.raises(RuntimeError, match="does not exist"):
+        make_mesh()

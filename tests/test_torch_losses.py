@@ -101,9 +101,3 @@ def test_stft_loss_bands_slice_frames_or_frequencies():
     with pytest.raises(NotImplementedError):
         tl.stft_loss(x, y, 256, 64, 256, "low")
 
-
-def test_loss_fn_refuses_distillation():
-    den, clean = _waves(6, L=512)
-    with pytest.raises(NotImplementedError, match="distill"):
-        tl.loss_fn(torch.from_numpy(den), torch.from_numpy(clean), LossConfig(),
-                   skips=[torch.zeros(1)])

@@ -230,12 +230,6 @@ def test_matches_jax_multiplexer(model, weights):
         assert np.abs(ours[i] - want).max() <= 1e-4 * np.abs(want).max()
 
 
-def test_from_bundle_raises(model):
-    cfg, params, _, _ = model
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        SessionMultiplexer.from_bundle("bundle", params)
-
-
 def test_mha_refused_and_lstm_served(model):
     """The mha ring position is one for the whole batch: refused.  An lstm
     session beside another matches its solo stream."""

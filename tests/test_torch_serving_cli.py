@@ -19,6 +19,17 @@ TINY = CleanUMambaConfig(channels_H=8, max_H=16, encoder_n_layers=4, tsfm_n_laye
                          tsfm_n_head=2, tsfm_d_model=16, tsfm_d_inner=32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch's CPU ops here run on one thread: the suite's workers share the
+    cores, and with the default pool one bf16 rep of the bench took over
+    20 s in an eight-process run (seconds alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ckpt(tmp_path_factory):
     d = tmp_path_factory.mktemp("ckpt")

@@ -311,11 +311,6 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     args = _cli_files(tmp_path)
     with pytest.raises(NotImplementedError, match="item 12"):
         tcli.main(args + ["--model-parallel", "2"])
-    cfg = json.loads(open(args[1]).read())
-    cfg["train_config"]["optimization"]["n_gpus"] = 2
-    (tmp_path / "config2.json").write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcli.main(["-c", str(tmp_path / "config2.json")] + args[2:])
 
 
 def test_cli_validates_mid_run_and_logs_to_the_metrics_sink(tmp_path, capsys):
