@@ -8,6 +8,7 @@
     python3 chip_smoke.py --prune-only   # K1/K2 built, phase 18 alone (pruning and finetune)
     python3 chip_smoke.py --dist-only    # K1/K2 built, phases 19-20 (distillation, data parallel)
     python3 chip_smoke.py --export-only  # K1/K2 built, phase 21 alone (serving bundles)
+    python3 chip_smoke.py --parallel-only  # K1/K2 built, phases 22-23 (tensor, sequence parallel)
 
 Phases, each printed as it passes; any failure raises (non-zero exit):
 
@@ -145,7 +146,25 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     calls, K1 launched 3 times a block-16 step; ``from_bundle`` against the
     live multiplexer; export, load and step times and the op's host cost
     per call; then ``cli/export.py --selftest`` on the pruned checkpoint on
-    the card and the CPU, beside phase 20's torchrun check.
+    the card and the CPU, beside phase 20's torchrun check;
+22. tensor parallelism (``parallel/tensor.py``), two gloo ranks on
+    ``cuda:0``: K1 and K2 against their plain versions at a rank's shard
+    (2, 125, 1024, 64), fp32 and bf16, and their device times there; E8
+    mamba TP=2 at batch 2 x 2 s (fp32, TF32 off) against one process: the
+    forward, the gradient back in the canonical layout, the replicated leaves
+    bitwise equal on both ranks after three steps, K1/K2 counted; mamba2,
+    mamba_s4 and mha at phase 8's small config, the TP forward against one
+    process; three bf16 E8 TP steps (wall, device busy, the gloo
+    all-reduces' share); DP x TP = 2 x 2 over four ranks, the small config's
+    gradient against one process; then ``cli/train.py --model-parallel 2``
+    under ``torchrun --nproc-per-node 2 --device cpu`` with a resume (NCCL
+    refuses two ranks on one card; at the end, beside phases 20-21's CLIs);
+23. sequence parallelism (``parallel/sequence.py``), two gloo ranks on
+    ``cuda:0``: K1 against its plain version at a segment's shapes; E8 mamba
+    (normalised and not), mamba2 and mamba_s4 at E8 widths and the pruned
+    checkpoint, 10 s of audio over the two ranks, against zero-primed
+    streaming and ``sp_stream_denoise(mesh=None)`` on the card (atol 3e-4,
+    rtol 2e-3); K1 counted; the wall of a call beside streaming's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernels' summary as JSON: each kernel's launches on its path, error, time,
@@ -3285,13 +3304,517 @@ def check_export_cli():
         print(f"  cli/export.py --selftest ({d}, {secs:.1f} s): " + "; ".join(errs))
 
 
-def check_clis_of_phases_20_21():
-    """Phase 20's torchrun CLI and phase 21's export CLIs: subprocesses that
-    share nothing, run at once."""
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(check_torchrun_cli), pool.submit(check_export_cli)]
+def check_clis_of_phases_20_22():
+    """Phase 20's torchrun CLI, phase 21's export CLIs and phase 22's TP CLI:
+    subprocesses that share nothing, run at once."""
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(check_torchrun_cli), pool.submit(check_export_cli),
+                pool.submit(check_tp_cli)]
         for job in jobs:
             job.result()
+
+
+# --------------------------------------------------------------------------
+# Phases 22-23: tensor and sequence parallelism, gloo ranks on the one card
+# --------------------------------------------------------------------------
+
+TP_N = 2
+TP_L = 2 * SR  # E8 TP at batch 2 x 2 s
+TP_STEPS = 3
+SP_L = 10 * SR  # one 10 s utterance over two ranks
+SP_TOL = dict(atol=3e-4, rtol=2e-3)  # JAX's (tests/test_sequence_parallel.py)
+# The TP gradient is held with the squared error as the loss: the STFT loss's
+# log magnitudes amplify any change of summation order (tests/test_torch_tp.py)
+TP_GRAD_LOSS = dict(ell_p=2, stft_lambda=0.0)
+
+
+def _small_cfg(**kw):
+    """Phase 8's small config."""
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig
+
+    return CleanUMambaConfig(channels_H=8, max_H=16, encoder_n_layers=3, tsfm_n_layers=2,
+                             tsfm_d_model=32, tsfm_n_head=4, tsfm_d_inner=64, **kw)
+
+
+def _small_params(cfg, dev, L):
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params, prepare_for_length
+
+    return prepare_for_length(init_params(cfg, torch.Generator().manual_seed(8), dev), cfg, L)
+
+
+def _start_ranks(job, world, timeout=900):
+    """``world`` processes of this script (``--parallel-worker``) on ``job``,
+    each a gloo rank on ``cuda:0``; their outputs in rank order and the wall."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(job, os.path.join(tmp, "job.pt"))
+        env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(_free_port()))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--parallel-worker", tmp], cwd=ROOT,
+                                  env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        try:
+            logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"{job['mode']} rank {r} exited {p.returncode}:\n"
+                                     f"{log[-4000:]}")
+        wall = time.perf_counter() - t0
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)], wall
+
+
+def _reset(counters):
+    for c in counters:
+        c.launches = 0
+
+
+def _tp_rank(mesh, job, counters):
+    """Phase 22 on one rank: the E8 TP forward, fp32 gradient and steps, the
+    bf16 steps' times, and the small config's other families' forwards."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig, LossConfig, OptimizationConfig
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+    from cleanumamba_tpu_torch.params import tensor_leaves
+    from cleanumamba_tpu_torch.parallel import tensor as tpar
+
+    dev = mesh.device
+    cfg = CleanUMambaConfig()
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    clean, noisy = job["clean"].to(dev), job["noisy"].to(dev)  # (1, 2, TP_L)
+    out = {}
+    with torch.no_grad():
+        out["y"] = tpar.tp_forward(params, noisy[0], cfg, mesh).cpu()
+    params_tp, specs = tpar.tp_prepare(params, cfg, TP_N)
+    local = tpar.tp_shard(params_tp, specs, TP_N, mesh.model_rank)
+    # the squared error's gradient in fp32, and in bf16 as the control of its
+    # limit; the default loss's, printed beside them
+    for key, loss, bf16 in (("grads", LossConfig(**TP_GRAD_LOSS), False),
+                            ("grads_bf16", LossConfig(**TP_GRAD_LOSS), True),
+                            ("grads_default", LossConfig(), False)):
+        grads, _ = tpar.make_tp_grad_fn(cfg, loss, mesh, specs, bf16=bf16)(local, clean, noisy)
+        full = tpar.tp_unprepare(tpar.tp_gather(mesh, grads, specs), cfg, TP_N)
+        out[key] = [g.float().cpu() for g in tensor_leaves(full)]
+    make = tpar.make_tp_train_step(cfg, LossConfig(), OptimizationConfig(learning_rate=1e-4),
+                                   mesh, bf16=False)
+    p, state, step = make(params)
+    _reset(counters)  # the launches of the fp32 steps alone
+    for _ in range(TP_STEPS):
+        p, state, aux = step(p, state, (clean, noisy))
+    out["replicated"] = [x.cpu() for x, s in zip(tensor_leaves(p), tpar.spec_leaves(p, specs))
+                         if s is None]
+    out["sharded_bytes"] = sum(x.numel() * 4 for x, s in zip(tensor_leaves(p),
+                                                              tpar.spec_leaves(p, specs))
+                               if s is not None)
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["loss"] = float(aux["loss"])
+
+    # bf16 steps: wall, device busy, and the share of the gloo all-reduces
+    p, state, step = tpar.make_tp_train_step(cfg, LossConfig(), OptimizationConfig(), mesh,
+                                             bf16=True)(params)
+    p, state, _ = step(p, state, (clean, noisy))  # warm-up
+
+    def steps():
+        nonlocal p, state
+        walls = []
+        for _ in range(TP_STEPS):
+            dist.barrier(mesh.group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, state, _ = step(p, state, (clean, noisy))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+
+    out["step_ms"] = steps()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps()
+    out["busy_ms"], out["kernels"] = _device_busy(prof)
+    reduce_ms = []
+    plain_all_reduce = dist.all_reduce
+
+    def timed(t, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = plain_all_reduce(t, *a, **k)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    dist.all_reduce = timed
+    try:
+        out["timed_step_ms"] = steps()
+    finally:
+        dist.all_reduce = plain_all_reduce
+    out["reduce_ms"], out["reduces"] = sum(reduce_ms), len(reduce_ms)
+
+    # (c) the small config's other families
+    out["small"] = {}
+    x = job["small_x"].to(dev)
+    for fam in ("mamba2", "mamba_s4", "mha"):
+        scfg = _small_cfg(bottleneck=fam)
+        with torch.no_grad():
+            out["small"][fam] = tpar.tp_forward(_small_params(scfg, dev, x.shape[1]), x, scfg,
+                                                mesh).cpu()
+    return out
+
+
+def _dptp_rank(mesh, job):
+    """Phase 22 (e) on one of four ranks (data 2 x model 2): the small
+    config's fp32 gradient of the rank's data part, averaged over the data
+    group, gathered to the canonical layout."""
+    from cleanumamba_tpu_torch.config import LossConfig
+    from cleanumamba_tpu_torch.params import tensor_leaves
+    from cleanumamba_tpu_torch.parallel import batch_sharding
+    from cleanumamba_tpu_torch.parallel import tensor as tpar
+
+    dev = mesh.device
+    cfg = _small_cfg()
+    params = _small_params(cfg, dev, job["clean"].shape[-1])
+    clean, noisy = (batch_sharding(mesh, job[k].to(dev), 1) for k in ("clean", "noisy"))
+    params_tp, specs = tpar.tp_prepare(params, cfg, mesh.model_size)
+    local = tpar.tp_shard(params_tp, specs, mesh.model_size, mesh.model_rank)
+    grads, _ = tpar.make_tp_grad_fn(cfg, LossConfig(), mesh, specs, bf16=False)(
+        local, clean, noisy)
+    full = tpar.tp_unprepare(tpar.tp_gather(mesh, grads, specs), cfg, mesh.model_size)
+    return {"grads": [g.cpu() for g in tensor_leaves(full)], "data_rank": mesh.data_rank,
+            "model_rank": mesh.model_rank}
+
+
+def _sp_model(case, dev):
+    """(cfg, params) of a phase 23 case: E8 widths of a family with seeded
+    weights, or the pruned checkpoint."""
+    import dataclasses as dc
+
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+    from cleanumamba_tpu_torch.params import load_checkpoint
+
+    if case.get("ckpt"):
+        return load_checkpoint(os.path.join(ROOT, case["ckpt"]), dev)
+    cfg = dc.replace(CleanUMambaConfig(), **case["cfg"])
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0), dev)
+
+
+def _sp_rank(mesh, job, counters):
+    """Phase 23 on one rank: ``sp_stream_denoise`` of every case, twice (the
+    second timed), K1's launches of one call."""
+    import torch.distributed as dist
+
+    from cleanumamba_tpu_torch.parallel.sequence import sp_stream_denoise
+
+    out = {}
+    for case in job["cases"]:
+        cfg, params = _sp_model(case, mesh.device)
+        x = job["x"]
+        _reset(counters)
+        y = sp_stream_denoise(params, cfg, x, mesh)
+        launches = counters[0].launches
+        dist.barrier(mesh.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp_stream_denoise(params, cfg, x, mesh)
+        torch.cuda.synchronize()
+        out[case["name"]] = {"y": y.cpu(), "ms": (time.perf_counter() - t0) * 1e3,
+                             "launches": launches}
+    return out
+
+
+def parallel_worker(job_dir) -> int:
+    """One rank of phases 22 and 23 (``--parallel-worker DIR``, started with
+    the process group's environment): a gloo rank on ``cuda:0``.  Writes
+    ``rank{r}.pt``."""
+    import torch.distributed as dist
+
+    from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan, selective_scan_bwd
+    from cleanumamba_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = torch.load(os.path.join(job_dir, "job.pt"))
+    mesh = make_mesh("cuda:0", backend="gloo", model_parallel=job.get("model_parallel", 1))
+    counters = (selective_scan, selective_scan_bwd)
+    run = {"tp": lambda: _tp_rank(mesh, job, counters), "dptp": lambda: _dptp_rank(mesh, job),
+           "sp": lambda: _sp_rank(mesh, job, counters)}[job["mode"]]
+    out = {"rank": mesh.rank, **run()}
+    torch.save(out, os.path.join(job_dir, f"rank{mesh.rank}.pt"))
+    dist.barrier(mesh.group)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_tp(dev, cfg, params32, smi, rep):
+    """Phase 22: tensor parallelism, two gloo ranks on ``cuda:0``.  (a) K1 and
+    K2 against their plain versions at a rank's shard shape, and their
+    device times there; (b) E8 mamba TP=2 at batch 2 x 2 s against one
+    process: the forward (1e-4 of max|ref|), the squared error's fp32
+    gradient gathered to the canonical layout (max(GRAD_TOL, twice one
+    process's CPU-vs-card spread) of each leaf, capped at KD_TOL_CAP, with the
+    bf16 TP gradient required above the cap), the ranks' replicated leaves
+    bitwise equal after three fp32 steps, K1/K2 counted on those steps; (c) mamba2,
+    mamba_s4 and mha at phase 8's small config: the TP forward against one
+    process; (d) three bf16 E8 TP steps: wall, device busy a rank, the gloo
+    all-reduces' share; (e) DP x TP = 2 x 2, four ranks, the small config's
+    gradient against one process.  (The CLI check is ``check_tp_cli``.)
+    Returns K1's and K2's launches on both ranks' three fp32 E8 TP steps."""
+    from cleanumamba_tpu_torch.config import LossConfig
+    from cleanumamba_tpu_torch.data.synth_device import synth_batch
+    from cleanumamba_tpu_torch.models.cleanumamba import forward
+    from cleanumamba_tpu_torch.ops.cuda import selective_scan as kscan
+    from cleanumamba_tpu_torch.params import tensor_leaves, to_device
+    from cleanumamba_tpu_torch.train.trainer import make_grad_fn
+
+    Bsz, L, Di, Ds = _scan_shape(cfg, 2, TP_L)
+    shard = (Bsz, L, Di // TP_N, Ds)
+    check_scan(dev, rep, [(*shard, True), (*shard, False)])
+    check_scan_bwd(dev, rep, [(*shard, True)])
+    a = _scan_inputs(torch.Generator().manual_seed(22), dev, *shard, torch.bfloat16)
+    fwd = {k: a[k] for k in SCAN_ARGS}
+    outs = kscan.selective_scan(**fwd, return_starts=True)
+    tr1 = _trace_scan(lambda: kscan.selective_scan(**fwd, return_starts=True))
+    b1 = _scan_bounds(shard, (*fwd.values(), *outs), bwd=False)
+    bwd = (*(a[k] for k in SCAN_ARGS[:6]), outs[2], a["gy"], a["gh_last"])
+    grads = kscan.selective_scan_bwd(*bwd)
+    tr2 = _trace_scan(lambda: kscan.selective_scan_bwd(*bwd))
+    b2 = _scan_bounds(shard, (*bwd, *grads), bwd=True)
+    us = lambda tr: sum(n * u for n, u in tr.values())  # noqa: E731
+    print(f"  K1/K2 at a rank's shard {shard} vs plain (fp32, bf16, repeated call bitwise): "
+          f"passed; bf16 device us a launch from a trace on {smi}: K1 with chunk states "
+          f"{us(tr1):.2f} (bound {b1[0] * 1e3:.2f}, {b1[1]}), K2 all launches {us(tr2):.2f} "
+          f"(bound {b2[0] * 1e3:.2f}, {b2[1]})", flush=True)
+
+    clean, noisy = synth_batch(torch.Generator(device=dev).manual_seed(22), 2, TP_L)
+    clean, noisy = clean.reshape(1, 2, TP_L), noisy.reshape(1, 2, TP_L)
+    small_x = synth_batch(torch.Generator(device=dev).manual_seed(23), 2, 4096)[1]
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    ranks, wall = _start_ranks({"mode": "tp", "model_parallel": TP_N, "clean": clean.cpu(),
+                                "noisy": noisy.cpu(), "small_x": small_x.cpu()}, TP_N)
+    r0, r1 = ranks
+    with torch.no_grad():
+        ref = forward(params32, noisy[0], cfg)
+    y_rel = _rel_err(r0["y"], ref.cpu())[1]
+    # the gradient against one process on the card, beside one process on the
+    # CPU against the card (the same arithmetic in another summation order)
+    sq = LossConfig(**TP_GRAD_LOSS)
+    card = tensor_leaves(make_grad_fn(cfg, sq, bf16=False)(params32, clean, noisy)[0])
+    cpu = tensor_leaves(make_grad_fn(cfg, sq, bf16=False)(
+        to_device(params32, "cpu"), clean.cpu(), noisy.cpu())[0])
+    g_res, spread = _leafwise(r0["grads"], card), _leafwise(cpu, card)
+    bf16_err = _leafwise(r0["grads_bf16"], card)["above"]
+    d_res = _leafwise(r0["grads_default"], tensor_leaves(
+        make_grad_fn(cfg, LossConfig(), bf16=False)(params32, clean, noisy)[0]))
+    print(f"  squared-error loss: one process, CPU vs card {spread['above'][0]:.3e} "
+          f"({spread['above'][1]}; below the floor {spread['below'][0]:.3e}); the default "
+          f"loss: TP vs one process {d_res['above'][0]:.3e} ({d_res['above'][1]}; below "
+          f"{d_res['below'][0]:.3e}), not checked", flush=True)
+    # at E8 one process moves more than GRAD_TOL between the CPU and the card:
+    # hold TP, as phase 19 holds KD, to max(GRAD_TOL, twice that spread), capped;
+    # the bf16 TP gradient must lie above the cap, so that the limit tells
+    # bf16 arithmetic (or a gradient reduced wrongly) from fp32
+    tols = {side: min(max(GRAD_TOL, 2 * spread[side][0]), cap)
+            for side, cap in (("above", KD_TOL_CAP), ("below", KD_TOL_CAP_BELOW))}
+    failures = []
+    if not bf16_err[0] > KD_TOL_CAP:
+        failures.append(f"TP gradient: the bf16 gradient is within the cap {KD_TOL_CAP:g} "
+                        f"({bf16_err[0]:.3e}), so the cap cannot tell bf16 from fp32")
+    if not y_rel <= FP32_TOL:
+        failures.append(f"TP forward: relative error {y_rel:.3e} > {FP32_TOL:g}")
+    for side, tol in tols.items():
+        if not g_res[side][0] <= tol:
+            failures.append(f"TP gradient: {g_res[side][1]} off by {g_res[side][0]:.3e} "
+                            f"(tol {tol:.3e}, {side} the floor)")
+    if not all(torch.equal(x, y) for x, y in zip(r0["replicated"], r1["replicated"])):
+        raise AssertionError("the ranks' replicated leaves differ after the TP steps")
+    for r in ranks:
+        for name, n in r["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"{name} was not launched on a TP rank's steps")
+    print(f"  E8 TP={TP_N}, 2 gloo ranks on one card, fp32 batch 2 x 2 s ({wall:.1f} s with "
+          f"start-up) vs one process: forward {y_rel:.3e} of max|ref| (tol {FP32_TOL:g}); "
+          f"squared-error gradient worst {g_res['above'][0]:.3e} of its leaf's max (tol "
+          f"{tols['above']:.3e}; below the floor {g_res['below'][0]:.3e}, tol "
+          f"{tols['below']:.3e}); the bf16 TP gradient (control, must exceed "
+          f"{KD_TOL_CAP:g}): {bf16_err[0]:.3e} ({bf16_err[1]}); "
+          f"{len(r0['replicated'])} replicated leaves "
+          f"bitwise equal after {TP_STEPS} steps; sharded params a rank "
+          f"{r0['sharded_bytes'] / 2**20:.1f} MiB; launches per rank on the {TP_STEPS} fp32 "
+          f"steps {r0['launches']}",
+          flush=True)
+    for fam, y in r0["small"].items():
+        scfg = _small_cfg(bottleneck=fam)
+        with torch.no_grad():
+            ref = forward(_small_params(scfg, dev, small_x.shape[1]), small_x, scfg)
+        rel = _rel_err(y, ref.cpu())[1]
+        if not rel <= FP32_TOL:
+            raise AssertionError(f"TP forward {fam}: relative error {rel:.3e} > {FP32_TOL:g}")
+        print(f"  small config {fam}: TP forward vs one process {rel:.3e} of max|ref|")
+    for r in ranks:
+        print(f"  rank {r['rank']} bf16 E8 TP step on {smi}: wall "
+              f"{' '.join(f'{t:.1f}' for t in r['step_ms'])} ms; traced busy "
+              f"{r['busy_ms'] / TP_STEPS:.2f} ms a step ({r['kernels'] // TP_STEPS} kernels); "
+              f"with each all-reduce synced: {r['reduces'] // TP_STEPS} all-reduces a step, "
+              f"{r['reduce_ms'] / sum(r['timed_step_ms']):.3f} of the step "
+              f"({' '.join(f'{t:.1f}' for t in r['timed_step_ms'])} ms)")
+
+    # (e) DP x TP: four ranks, the small config
+    sc, sn = synth_batch(torch.Generator(device=dev).manual_seed(24), 4, 4096)
+    ranks, wall = _start_ranks({"mode": "dptp", "model_parallel": 2,
+                                "clean": sc.reshape(1, 4, -1).cpu(),
+                                "noisy": sn.reshape(1, 4, -1).cpu()}, 4)
+    scfg = _small_cfg()
+    g_ref, _ = make_grad_fn(scfg, LossConfig(), bf16=False)(
+        _small_params(scfg, dev, 4096), sc.reshape(2, 2, -1), sn.reshape(2, 2, -1))
+    for r in ranks:
+        d_res = _check_leafwise(f"DP x TP gradient, rank {r['rank']}", r["grads"],
+                                tensor_leaves(g_ref))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    print(f"  DP x TP = 2 x 2, 4 gloo ranks on one card ({wall:.1f} s with start-up), small "
+          f"config fp32 batch 4 x 4096: gradient vs one process (2 micro-batches) worst "
+          f"{d_res['above'][0]:.3e} of its leaf's max (tol {GRAD_TOL:g}), every rank")
+    return {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+
+
+def check_tp_cli():
+    """Phase 22 (f): ``cli/train.py --model-parallel 2`` under ``torchrun
+    --nproc-per-node 2`` with ``--device cpu`` (NCCL, which ``make_mesh``
+    gives a CUDA rank, refuses two ranks on one card), phase 8's small
+    config: 2 iterations, then resumed to 3; the banked checkpoint's
+    forward on the card."""
+    from cleanumamba_tpu_torch.models.cleanumamba import forward
+    from cleanumamba_tpu_torch.train.checkpoint import find_max_epoch, load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "exp.json")
+        with open(exp, "w") as f:
+            json.dump({"network": "CleanUMamba", "exp_path": "tp",
+                       "network_config": _small_cfg().to_reference_json()}, f)
+        with open(os.path.join(ROOT, "configs", "train_synth.json")) as f:
+            conf = json.load(f)
+        conf["train_config"]["log"] = {"directory": os.path.join(tmp, "logs"),
+                                       "ckpt_iter": "max", "iters_per_ckpt": 2,
+                                       "iters_per_valid": 1000}
+        conf["trainset_config"] = {"crop_length_sec": 0.25}
+        path = os.path.join(tmp, "config.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        for max_iters, expect in ((2, "tensor parallel: weights over 2 ranks"),
+                                  (3, "resumed from iter 1")):
+            out, secs = _run([sys.executable, "-m", "torch.distributed.run",
+                              "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+                              "--master-port", str(_free_port()),
+                              "-m", "cleanumamba_tpu_torch.cli.train", "-c", path, "-e", exp,
+                              "--synthetic", "--log-every", "1", "--device", "cpu",
+                              "--model-parallel", "2", "--max-iters", str(max_iters)], ROOT)
+            if expect not in out:
+                raise AssertionError(f"TP CLI: {expect!r} not in\n{out[-2000:]}")
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith(("iter", "resumed", "tensor"))]
+            print(f"  torchrun --nproc-per-node 2 --model-parallel 2 --device cpu --max-iters "
+                  f"{max_iters} ({secs:.1f} s): " + " | ".join(lines))
+        ck_dir = os.path.join(tmp, "logs", "tp", "checkpoint")
+        if find_max_epoch(ck_dir) != 2:
+            raise AssertionError(f"expected checkpoint 2.pkl, newest is {find_max_epoch(ck_dir)}")
+        ck = load_checkpoint(os.path.join(ck_dir, "2.pkl"), "cuda:0")
+        if ck["opt_state"]["count"] != 3:
+            raise AssertionError(f"resumed count {ck['opt_state']['count']}, expected 3")
+        with torch.no_grad():
+            x = torch.from_numpy((np.random.default_rng(22).normal(size=(1, SR)) * 0.1)
+                                 .astype(np.float32)).to("cuda:0")
+            _finite("forward from the TP CLI's canonical checkpoint", forward(
+                ck["params"], x, ck["config"]))
+
+
+SP_CASES = (
+    {"name": "E8 mamba normalized", "cfg": {}},
+    {"name": "E8 mamba", "cfg": {"normalize_input": False}},
+    {"name": "E8 mamba2 normalized", "cfg": {"bottleneck": "mamba2"}},
+    {"name": "E8 mamba_s4 normalized", "cfg": {"bottleneck": "mamba_s4"}},
+    {"name": "pruned 473k checkpoint", "ckpt": CKPT},
+)
+
+
+def _zero_primed(params, cfg, x, n, dev):
+    """Zero-primed streaming on one device of x (B, L) as ``n`` ranks pad it:
+    ``Streamer`` over ``[zeros(ctx) | x | pad]`` and its flush, sliced back
+    to x; and the wall it took."""
+    from cleanumamba_tpu_torch.parallel.sequence import _WARM
+    from cleanumamba_tpu_torch.streaming import Streamer
+
+    ts, fl = cfg.total_stride, cfg.frame_length
+    ctx = fl + (_WARM - 1) * ts
+    B, L = x.shape
+    total = -(-(L + fl - ts) // (n * ts)) * (n * ts)
+    padded = np.concatenate([np.zeros((B, ctx), np.float32), x,
+                             np.zeros((B, total - L), np.float32)], axis=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = Streamer(params, cfg, dev, batch=B)
+    y = np.concatenate([s.feed(padded), s.flush()], axis=1)[:, ctx: ctx + L]
+    return torch.from_numpy(y), (time.perf_counter() - t0) * 1e3
+
+
+def _close(name, got, ref, tol=SP_TOL):
+    err = (got.float() - ref.float()).abs()
+    bad = (err > tol["atol"] + tol["rtol"] * ref.float().abs()).sum().item()
+    if bad:
+        raise AssertionError(f"{name}: {bad} samples outside atol {tol['atol']:g} + rtol "
+                             f"{tol['rtol']:g}; max|err| {err.max().item():.3e}")
+    return err.max().item()
+
+
+def run_sp(dev, smi, rep):
+    """Phase 23: sequence parallelism, two gloo ranks on ``cuda:0``.  (a) K1
+    against its plain version at a segment's shapes (E8, 10 s over two
+    ranks: its tokens, and the 3 warm tokens); (b)-(c) E8 mamba (normalised
+    and not), mamba2 and mamba_s4 at E8 widths (seed 0) and the pruned
+    checkpoint, on 10 s of ``synth_batch`` audio: the two ranks' output
+    against zero-primed streaming on the card and against
+    ``sp_stream_denoise(mesh=None)`` on the card (JAX's atol 3e-4, rtol
+    2e-3); (d) K1 counted, the wall of a call beside streaming's.  Returns
+    K1's launches on both ranks' calls."""
+    from cleanumamba_tpu_torch.data.synth_device import synth_batch
+    from cleanumamba_tpu_torch.parallel.sequence import _WARM, sp_stream_denoise
+
+    x = synth_batch(torch.Generator(device=dev).manual_seed(23), 1, SP_L)[1].cpu().numpy()
+    models = {c["name"]: _sp_model(c, dev) for c in SP_CASES}
+    cfg = models["E8 mamba"][0]
+    ts, fl = cfg.total_stride, cfg.frame_length
+    seg = -(-(SP_L + fl - ts) // (2 * ts))  # tokens of a rank's segment
+    check_scan(dev, rep, [(1, seg, cfg.tsfm_d_inner, cfg.d_state, True),
+                          (1, seg, cfg.tsfm_d_inner, cfg.d_state, False),
+                          (1, _WARM, cfg.tsfm_d_inner, cfg.d_state, False)])
+    print(f"  K1 at a segment's (1, {seg}, {cfg.tsfm_d_inner}, {cfg.d_state}) and the warm "
+          f"tokens' (1, {_WARM}, ...) vs plain (fp32, bf16, repeated call bitwise): passed",
+          flush=True)
+    torch.cuda.empty_cache()
+    ranks, wall = _start_ranks({"mode": "sp", "cases": SP_CASES, "x": torch.from_numpy(x)}, 2)
+    r0, r1 = ranks
+    launches = 0
+    for name, (mcfg, params) in models.items():
+        got = r0[name]["y"]
+        if not torch.equal(got, r1[name]["y"]):
+            raise AssertionError(f"SP {name}: the ranks' outputs differ")
+        ref, stream_ms = _zero_primed(params, mcfg, x, 2, dev)
+        e_stream = _close(f"SP {name} vs zero-primed streaming", got, ref)
+        one = sp_stream_denoise(params, mcfg, x, device=dev).cpu()
+        e_one = _close(f"SP {name} vs one segment", got, one)
+        n = [r[name]["launches"] for r in ranks]
+        if mcfg.bottleneck in ("mamba", "mamba2") and min(n) <= 0:
+            raise AssertionError(f"SP {name}: K1 was not launched on a rank: {n}")
+        launches += sum(n)
+        print(f"  {name}, 10 s over 2 gloo ranks on {smi}: max|err| vs zero-primed streaming "
+              f"{e_stream:.3e}, vs one segment {e_one:.3e}; K1 launches a call per rank {n}; "
+              f"wall a call {r0[name]['ms']:.1f} / {r1[name]['ms']:.1f} ms (ranks) vs "
+              f"streaming {stream_ms:.1f} ms", flush=True)
+    print(f"  phase 23 ranks: {wall:.1f} s with start-up")
+    return launches
 
 
 def _base_k5(checkout):
@@ -3327,7 +3850,11 @@ def main() -> int:
     parser.add_argument("--export-only", action="store_true",
                         help="build K1/K2 only and run phase 21 (serving bundles) and print no "
                              "result lines")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="build K1/K2 only and run phases 22 and 23 (tensor and sequence "
+                             "parallelism) and print no result lines")
     parser.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-worker", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--export-worker", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--base-k5", metavar="DIR",
                         help="a checkout of an earlier version (e.g. the parent commit unpacked "
@@ -3342,6 +3869,8 @@ def main() -> int:
         return dp_worker(args.dp_worker)
     if args.export_worker:
         return export_worker(args.export_worker)
+    if args.parallel_worker:
+        return parallel_worker(args.parallel_worker)
     from cleanumamba_tpu_torch.config import CleanUMambaConfig
     from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
     from cleanumamba_tpu_torch.ops.cuda import build
@@ -3366,7 +3895,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = ("stream_fused",) if args.fused_only else \
         ("selective_scan",) if (args.scan_only or args.prune_only or args.dist_only
-                                or args.export_only) else \
+                                or args.export_only or args.parallel_only) else \
         ("selective_scan", "stream_fused", "stream_mega")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
         jobs = [pool.submit(build.load_library, name) for name in sources]  # one nvcc each
@@ -3410,6 +3939,15 @@ def main() -> int:
         run_export(dev, cfg, params32, smi)
         check_export_cli()
         print("export-only run: phase 21 passed (no result lines)")
+        return 0
+    if args.parallel_only:
+        print("phase 22 tensor parallelism (gloo ranks on one card, torchrun on the CPU):",
+              flush=True)
+        run_tp(dev, cfg, params32, smi, rep)
+        check_tp_cli()
+        print("phase 23 sequence parallelism (two gloo ranks on one card):", flush=True)
+        run_sp(dev, smi, rep)
+        print("parallel-only run: phases 22 and 23 passed (no result lines)")
         return 0
     print("phase 3 kernels vs plain versions:", flush=True)
     if args.fused_only:
@@ -3472,15 +4010,22 @@ def main() -> int:
     dp_launches = run_dp(dev, cfg, params32, smi, rep)
     print("phase 21 serving bundles (export.py, K1 as a custom op):", flush=True)
     launches["selective_scan"] += run_export(dev, cfg, params32, smi)
-    print("phases 20-21 the torchrun training CLI and the export CLI, at once:", flush=True)
-    check_clis_of_phases_20_21()
+    print("phase 22 tensor parallelism (gloo ranks on one card, torchrun on the CPU):",
+          flush=True)
+    tp_launches = run_tp(dev, cfg, params32, smi, rep)
+    print("phase 23 sequence parallelism (two gloo ranks on one card):", flush=True)
+    launches["selective_scan"] += run_sp(dev, smi, rep)
+    print("phases 20-22 the torchrun training CLIs and the export CLI, at once:", flush=True)
+    check_clis_of_phases_20_22()
 
     # launches: each path's own run (serving, phase 4; training, phase 7; the
     # int8 serving path, phase 14; the multiplexer's block-16 ticks, phase 15;
     # validate, phase 17; the pruning pipeline, phase 18; the KD steps, phase
-    # 19; both DP ranks' steps, phase 20; the loaded block-16 step, phase 21)
+    # 19; both DP ranks' steps, phase 20; the loaded block-16 step, phase 21;
+    # both TP ranks' three fp32 E8 steps, phase 22; both SP ranks' calls, phase 23)
     for name, n in (list(train_launches.items()) + list(prune_launches.items())
-                    + list(kd_launches.items()) + list(dp_launches.items())):
+                    + list(kd_launches.items()) + list(dp_launches.items())
+                    + list(tp_launches.items())):
         launches[name] = launches.get(name, 0) + n
     sources = {
         "selective_scan": ("selective_scan_fwd", "cleanumamba_tpu_torch/csrc/selective_scan.cu",

@@ -5,8 +5,9 @@
 
 Streams a wav file (``--wav``) or a synthetic tone in noise (``--synthetic``)
 chunk by chunk through ``streaming.Streamer`` and reports ms per frame and
-the real-time factor.  ``--mic`` (live capture) is not ported and raises.
-Runs on ``cuda:0`` unless ``--device`` names another device.
+the real-time factor; ``--mic`` streams the microphone through ``sounddevice``
+(not a dependency: without it the CLI exits with a message).  Runs on
+``cuda:0`` unless ``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def main(argv=None):
     ap.add_argument("--ckpt", required=True)
     ap.add_argument("--wav", default=None, help="stream this wav file")
     ap.add_argument("--synthetic", action="store_true")
-    ap.add_argument("--mic", action="store_true", help="live microphone input (not ported)")
+    ap.add_argument("--mic", action="store_true", help="live microphone input")
     ap.add_argument("--out", default=None, help="write the denoised wav here")
     ap.add_argument("--chunk", type=int, default=4096,
                     help="samples per feed (the reference's CHUNK=4096)")
@@ -35,14 +36,14 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda:0; \"cpu\" for the CPU)")
     args = ap.parse_args(argv)
-    if args.mic:
-        raise NotImplementedError("--mic: no audio input device is supported; use --wav or "
-                                  "--synthetic")
 
     device = resolve_device(args.device)
     cfg, params, _ = load_any_checkpoint(args.ckpt, device)
     s = Streamer(params, cfg, device)
     sr = 16000
+    if args.mic:
+        _run_mic(s, args, sr)
+        return
     if args.wav:
         audio, _ = read_wav(args.wav, sr)
     else:
@@ -73,6 +74,21 @@ def main(argv=None):
     if args.out:
         write_wav(args.out, den, sr)
         print(f"wrote {args.out}")
+
+
+def _run_mic(s: Streamer, args, sr: int):  # pragma: no cover - needs hardware
+    try:
+        import sounddevice as sd
+    except ImportError:
+        raise SystemExit("sounddevice not installed; use --wav or --synthetic")
+    print("streaming from microphone, Ctrl-C to stop")
+    with sd.InputStream(samplerate=sr, channels=1, blocksize=args.chunk) as stream:
+        try:
+            while True:
+                block, _ = stream.read(args.chunk)
+                s.feed(block[:, 0][None, :])  # a real app would play the output back here
+        except KeyboardInterrupt:
+            pass
 
 
 if __name__ == "__main__":

@@ -27,8 +27,18 @@ other items than one process, and every rank decodes only its own.  With
 ``--device-data K`` each rank makes its own batches on its device.  Rank 0
 alone logs, validates (serially, as JAX does) and writes the checkpoints,
 which keep the one-device layout; the others wait for it in the next
-all-reduce, for at most ``GROUP_TIMEOUT``.  Not yet ported, and refused:
-``--model-parallel`` > 1.
+all-reduce, for at most ``GROUP_TIMEOUT``.
+
+``--model-parallel M`` (M divides the world) shards the weights over M ranks
+(``parallel/tensor.py``) and the other factor is the data axis (DP x TP, the
+mesh of ``parallel.make_mesh``): a step takes ``batch_size_per_device x
+world / M`` items.  Each model row's first rank holds the loader of its data
+index (seed and shard) and broadcasts its batch to the row, so that the row
+steps on one batch.  Checkpoints are banked in the canonical layout (the
+shards gathered over the model group, ``tp_unprepare``, the moments through
+``tp_opt_state_like``), so the JAX package and every other CLI read them; a
+resume permutes them again.  ``--device-data`` and ``--model-parallel`` are
+exclusive, as in JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import datetime
 import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -50,6 +61,14 @@ from cleanumamba_tpu_torch.data import (
 from cleanumamba_tpu_torch.eval.validate import validate
 from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
 from cleanumamba_tpu_torch.parallel.mesh import make_mesh, replicated_sharding
+from cleanumamba_tpu_torch.parallel.tensor import (
+    make_tp_train_step,
+    tp_gather,
+    tp_opt_state_like,
+    tp_prepare,
+    tp_shard,
+    tp_unprepare,
+)
 from cleanumamba_tpu_torch.params import resolve_device
 from cleanumamba_tpu_torch.train.checkpoint import (
     find_max_epoch,
@@ -80,27 +99,36 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: cuda:0; \"cpu\" for the CPU)")
     ap.add_argument("--model-parallel", type=int, default=1, metavar="M",
-                    help="shard weights over M devices (not ported yet)")
+                    help="shard weights over M ranks (Megatron-style TP, parallel/tensor.py); "
+                         "the other ranks form the data axis.  Checkpoints are banked in the "
+                         "canonical (one-device) layout, so TP runs interoperate with every "
+                         "other CLI.")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 comes with parallel/tensor.py (ROADMAP Queue 1 item 12)")
     if args.device_data:
         args.synthetic = True
         if args.log_every % args.device_data:
             ap.error("--log-every must be a multiple of --device-data")
+        if args.model_parallel > 1:
+            ap.error("--device-data and --model-parallel are exclusive")
 
     tc = load_train_config(args.config)
     network, cfg, raw_exp = load_experiment_config(args.exp)
     exp_path = raw_exp.get("exp_path", "exp")
     ckpt_dir = os.path.join(tc.log_directory, exp_path, "checkpoint")
     opt = tc.optimization
-    mesh = make_mesh(args.device, timeout=GROUP_TIMEOUT) \
-        if "RANK" in os.environ and "WORLD_SIZE" in os.environ else None
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    n_devices = int(os.environ["WORLD_SIZE"]) if launched else 1
+    tp = args.model_parallel
+    if tp < 1:
+        ap.error(f"--model-parallel must be >= 1, got {tp}")
+    if n_devices % tp:
+        ap.error(f"--model-parallel {tp} does not divide {n_devices} devices")
+    mesh = make_mesh(args.device, timeout=GROUP_TIMEOUT, model_parallel=tp) if launched else None
     world = 1 if mesh is None else mesh.world
+    dp = world // tp
     lead = mesh is None or mesh.rank == 0  # the rank that logs, validates and saves
     say = print if lead else (lambda *a, **k: None)
-    per_step_batch = opt.batch_size_per_device * world
+    per_step_batch = opt.batch_size_per_device * dp
     accum = max(1, opt.batch_size_total // per_step_batch)
     dev = resolve_device(args.device) if mesh is None else mesh.device
     say(f"model: {network} ({cfg.bottleneck}) | device: {dev} | ranks: {world} | "
@@ -137,8 +165,17 @@ def main(argv=None):
 
     max_iters = args.max_iters or opt.n_iters
     L = int(tc.crop_length_sec * tc.sample_rate)
-    step_fn = make_train_step(cfg, tc.loss, optimizer, bf16=opt.bf16, remat=opt.remat,
-                              mesh=mesh)
+
+    def bank(p, state):  # the canonical layout of (params, opt_state), on every rank
+        return p, state
+
+    if tp > 1:
+        step_fn, params, opt_state, bank = _tensor_parallel(cfg, tc, mesh, params, opt_state)
+        say(f"tensor parallel: weights over {tp} ranks"
+            + (f" x data over {dp}" if dp > 1 else ""))
+    else:
+        step_fn = make_train_step(cfg, tc.loss, optimizer, bf16=opt.bf16, remat=opt.remat,
+                                  mesh=mesh)
     stepper = loader = None
     if args.device_data:
         stepper = make_device_data_steps(step_fn, opt.batch_size_per_device, L,
@@ -156,10 +193,12 @@ def main(argv=None):
                                    tc.sample_rate, dataset=tc.dataset)
         val_ds = CleanNoisyPairDataset(tc.data_root, "testing", sample_rate=tc.sample_rate,
                                        dataset=tc.dataset)
-    if stepper is None:  # rank r: shard r of the items, seed r
-        rank = 0 if mesh is None else mesh.rank
+    loader = None
+    if stepper is None and (mesh is None or mesh.model_rank == 0):
+        # data index d: shard d of the items, seed d, read by the row's first rank
+        rank = 0 if mesh is None else mesh.data_rank
         loader = make_training_loader(ds, opt.batch_size_per_device * accum, seed=rank,
-                                      num_shards=world, shard_index=rank)
+                                      num_shards=dp, shard_index=rank)
 
     n_iter = start_iter
     t0 = time.time() - t_prev
@@ -170,10 +209,14 @@ def main(argv=None):
             params, opt_state, aux = stepper(params, opt_state, gen)
             n_iter += stride - 1  # land on the last iteration of the call
         else:
-            clean, noisy = next(loader)
+            if loader is not None:
+                both = torch.from_numpy(np.stack(next(loader))).to(dev, torch.float32)
+            else:
+                both = torch.empty(2, accum * opt.batch_size_per_device, L, device=dev)
+            if tp > 1:  # the row steps on its first rank's batch
+                dist.broadcast(both, mesh.data_rank * tp, group=mesh.model_group)
             shape = (accum, opt.batch_size_per_device, L)
-            batch = (torch.from_numpy(clean.reshape(shape)).to(dev),
-                     torch.from_numpy(noisy.reshape(shape)).to(dev))
+            batch = both[0].reshape(shape), both[1].reshape(shape)
             params, opt_state, aux = step_fn(params, opt_state, batch)
 
         if lead and (crossed(args.log_every) or n_iter == start_iter):
@@ -183,25 +226,56 @@ def main(argv=None):
                   f"mag={float(aux.get('stft_mag', 0)):.4f} "
                   f"gnorm={float(aux['grad_norm']):.3f} ({time.time() - t0:.0f}s)", flush=True)
             sink.log({k: float(v) for k, v in aux.items()}, step=n_iter, kind="train")
-        if lead and crossed(tc.iters_per_valid) and n_iter >= tc.iters_per_valid:
-            metrics = validate(params, cfg, val_ds, max_items=tc.valid_max_items, pad_to=L)
+        valid_now = crossed(tc.iters_per_valid) and n_iter >= tc.iters_per_valid
+        ckpt_now = crossed(tc.iters_per_ckpt) and n_iter >= tc.iters_per_ckpt
+        if valid_now or ckpt_now:
+            banked = bank(params, opt_state)
+        if lead and valid_now:
+            metrics = validate(banked[0], cfg, val_ds, max_items=tc.valid_max_items, pad_to=L)
             print(f"iter {n_iter}: valid " + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()),
                   flush=True)
             sink.log(metrics, step=n_iter, kind="valid")
-        if lead and crossed(tc.iters_per_ckpt) and n_iter >= tc.iters_per_ckpt:
-            path = save_checkpoint(ckpt_dir, n_iter, params, opt_state, cfg, run_id=run_id,
+        if lead and ckpt_now:
+            path = save_checkpoint(ckpt_dir, n_iter, *banked, cfg, run_id=run_id,
                                    training_time_seconds=time.time() - t0)
             print(f"saved {path}")
         n_iter += 1
 
+    banked = bank(params, opt_state)
     if lead:
-        path = save_checkpoint(ckpt_dir, n_iter - 1, params, opt_state, cfg, run_id=run_id,
+        path = save_checkpoint(ckpt_dir, n_iter - 1, *banked, cfg, run_id=run_id,
                                training_time_seconds=time.time() - t0)
         print(f"saved {path}")
         sink.close()
     if mesh is not None:
         dist.barrier(mesh.group)  # no rank leaves before the last checkpoint is written
         dist.destroy_process_group()
+
+
+def _tensor_parallel(cfg, tc, mesh, params, opt_state):
+    """(step, the rank's part of params and opt_state, bank) for
+    ``--model-parallel``: the canonical state permuted to the TP layout and
+    cut to the rank's shards; ``bank(params, opt_state)`` gathers them back
+    to the canonical layout (a collective over the model group: every rank
+    calls it)."""
+    n, k = mesh.model_size, mesh.model_rank
+    opt = tc.optimization
+    make = make_tp_train_step(cfg, tc.loss, opt, mesh, bf16=opt.bf16, remat=opt.remat)
+    specs = tp_prepare(params, cfg, n)[1]
+    local, _, step = make(params)
+    # the (resumed or fresh) canonical moments, permuted and cut like the params
+    full = tp_opt_state_like(opt_state, params, cfg, n)
+    state = {"count": full["count"], "mu": tp_shard(full["mu"], specs, n, k),
+             "nu": tp_shard(full["nu"], specs, n, k)}
+
+    def bank(p, s):
+        full_p = tp_gather(mesh, p, specs)
+        moments = {"count": s["count"], "mu": tp_gather(mesh, s["mu"], specs),
+                   "nu": tp_gather(mesh, s["nu"], specs)}
+        return (tp_unprepare(full_p, cfg, n),
+                tp_opt_state_like(moments, full_p, cfg, n, inverse=True))
+
+    return step, local, state, bank
 
 
 if __name__ == "__main__":

@@ -307,10 +307,15 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
         assert pickle.load(f)["iter"] == 2
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """``--model-parallel 3`` at a world of 2 exits with JAX's "does not
+    divide" error, before any process group is joined."""
     args = _cli_files(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tcli.main(args + ["--model-parallel", "2"])
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit):
+        tcli.main(args + ["--model-parallel", "3"])
+    assert "--model-parallel 3 does not divide 2 devices" in capsys.readouterr().err
 
 
 def test_cli_validates_mid_run_and_logs_to_the_metrics_sink(tmp_path, capsys):
