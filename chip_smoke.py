@@ -9,6 +9,7 @@
     python3 chip_smoke.py --dist-only    # K1/K2 built, phases 19-20 (distillation, data parallel)
     python3 chip_smoke.py --export-only  # K1/K2 built, phase 21 alone (serving bundles)
     python3 chip_smoke.py --parallel-only  # K1/K2 built, phases 22-23 (tensor, sequence parallel)
+    python3 chip_smoke.py --graphs-only  # every kernel built, phase 24 alone (CUDA graphs)
 
 Phases, each printed as it passes; any failure raises (non-zero exit):
 
@@ -164,7 +165,21 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     (normalised and not), mamba2 and mamba_s4 at E8 widths and the pruned
     checkpoint, 10 s of audio over the two ranks, against zero-primed
     streaming and ``sp_stream_denoise(mesh=None)`` on the card (atol 3e-4,
-    rtol 2e-3); K1 counted; the wall of a call beside streaming's.
+    rtol 2e-3); K1 counted; the wall of a call beside streaming's;
+24. the one-dispatch steps (``graphs.py``): every captured path replayed as
+    a CUDA graph against the same path run eagerly on the card, on the same
+    inputs: ``Streamer`` E8 bf16 at block 16 and block 1 (K3/K4 packs), E8
+    int8 block 1, FullMini mamba and mha through K5; ``SessionMultiplexer``
+    E8 bf16 at slots {1, 8} x block {1, 16} with a session paused for two
+    ticks, and ``from_bundle`` of an E8 block-16 bundle; the E8 bf16 train
+    step at 2 x 10 s (3 steps: params, optimizer state, aux) and
+    ``make_device_data_steps`` with K = 4 (and the generator's state after).
+    Outputs and states bit for bit; a difference is printed by leaf and held
+    to the path's tolerance (fp32 1e-4, bf16 2e-2 of max|ref|).  The launch
+    counts of the graph's steps equal the eager steps'.  For each: wall ms a
+    step, median and p90, graph and eager in turns; from a trace of each,
+    device busy and kernels a step, graph launches a call (must be 1) and
+    the idle share; the graph pool's memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernels' summary as JSON: each kernel's launches on its path, error, time,
@@ -183,6 +198,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3165,7 +3181,7 @@ def export_worker(job_dir) -> int:
     return 0
 
 
-def run_export(dev, cfg, params32, smi):
+def run_export(dev, cfg, params32, smi, keep=None):
     """Phase 21: E8 bundles exported on the card (``export.export_offline``
     at ``valid_length(160000)``, batch 1; ``export_stream`` at batch 2,
     block 16 and block 1), reloaded in a fresh process that imports no model
@@ -3175,7 +3191,8 @@ def run_export(dev, cfg, params32, smi):
     staggered session; export and load seconds, and the loaded step's wall
     and busy ms beside the eager step's and the op's host cost per call.
     (Its CLI check is ``check_export_cli``.)  Returns K1's launches in the
-    loader's counted step."""
+    loader's counted step.  ``keep``: a directory to copy the block-16 bundle
+    into (phase 24 serves it)."""
     from torch.profiler import ProfilerActivity, profile
 
     from cleanumamba_tpu_torch import export as ex
@@ -3273,6 +3290,8 @@ def run_export(dev, cfg, params32, smi):
         args16 = [a16[k] for k in SCAN_ARGS]
         via_op = _median(_host_ms(lambda: k1.selective_scan(*args16), 200))
         direct = _median(_host_ms(lambda: k1._scan_op_cuda(*args16, False), 200))
+        if keep is not None:
+            shutil.copytree(os.path.join(tmp, "stream16"), keep)
 
     print(f"  E8 bundles exported on the card in {secs['offline']:.1f} s (offline, L={L}), "
           f"{secs['stream1']:.1f} s (prime + block-1 step, batch 2), {secs['stream16']:.1f} s "
@@ -3583,11 +3602,14 @@ def run_tp(dev, cfg, params32, smi, rep):
     grads = kscan.selective_scan_bwd(*bwd)
     tr2 = _trace_scan(lambda: kscan.selective_scan_bwd(*bwd))
     b2 = _scan_bounds(shard, (*bwd, *grads), bwd=True)
+    plain1 = _time_ms(lambda: kscan.selective_scan_plain(**fwd), iters=5, warmup=1)
+    plain2 = _time_ms(lambda: kscan.selective_scan_bwd_plain(*bwd), iters=5, warmup=1)
     us = lambda tr: sum(n * u for n, u in tr.values())  # noqa: E731
     print(f"  K1/K2 at a rank's shard {shard} vs plain (fp32, bf16, repeated call bitwise): "
           f"passed; bf16 device us a launch from a trace on {smi}: K1 with chunk states "
           f"{us(tr1):.2f} (bound {b1[0] * 1e3:.2f}, {b1[1]}), K2 all launches {us(tr2):.2f} "
-          f"(bound {b2[0] * 1e3:.2f}, {b2[1]})", flush=True)
+          f"(bound {b2[0] * 1e3:.2f}, {b2[1]}); the plain versions (CUDA events, 5 calls) "
+          f"{plain1:.3f} ms and {plain2:.3f} ms", flush=True)
 
     clean, noisy = synth_batch(torch.Generator(device=dev).manual_seed(22), 2, TP_L)
     clean, noisy = clean.reshape(1, 2, TP_L), noisy.reshape(1, 2, TP_L)
@@ -3817,6 +3839,431 @@ def run_sp(dev, smi, rep):
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 24: the one-dispatch steps (CUDA graphs) against their eager bodies
+# --------------------------------------------------------------------------
+
+def _window(prof, span):
+    """(device-busy ms, kernels, graph launches) of a trace inside the
+    ``record_function`` span named ``span``: the CUDA events that start in
+    it (the span ends with a synchronise) and the ``cudaGraphLaunch`` calls."""
+    events = prof.events()
+    w = next(e for e in events
+             if e.name == span and e.device_type != torch.autograd.DeviceType.CUDA)
+    lo, hi = w.time_range.start, w.time_range.end
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name != span and lo <= e.time_range.start <= hi)
+    busy, end = 0.0, float("-inf")
+    for s0, s1 in spans:
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    launches = sum(1 for e in events if e.name == "cudaGraphLaunch"
+                   and lo <= e.time_range.start <= hi)
+    return busy / 1e3, len(spans), launches
+
+
+def _pool_mb(pool) -> float:
+    """MiB of the device memory segments of one graph pool."""
+    segs = [s for s in torch.cuda.memory_snapshot() if tuple(s["segment_pool_id"]) == tuple(pool)]
+    if not segs:
+        raise AssertionError(f"graph pool {pool}: no segment in the memory snapshot")
+    return sum(s["total_size"] for s in segs) / 2 ** 20
+
+
+def _leaf_diffs(got, ref):
+    """[(leaf index, max|diff|, that over max|ref|)] of the leaves that differ."""
+    from cleanumamba_tpu_torch.params import tensor_leaves
+
+    out = []
+    for i, (a, b) in enumerate(zip(tensor_leaves(got), tensor_leaves(ref))):
+        if not torch.equal(a, b):
+            out.append((i, *_rel_err(a, b)))
+    return out
+
+
+class _GraphCheck:
+    """Per path: the graph's and the eager body's outputs held bit for bit
+    (a difference is printed, by leaf, and held to the path's tolerance),
+    wall per step of both, and a trace of each."""
+
+    def __init__(self, smi):
+        self.smi = smi
+        self.rows = []
+
+    def same(self, name, got, ref, tol):
+        if isinstance(got, np.ndarray):
+            got, ref = torch.from_numpy(got), torch.from_numpy(ref)
+        if got.shape != ref.shape:
+            raise AssertionError(f"{name}: graph {tuple(got.shape)} vs eager {tuple(ref.shape)}")
+        if torch.equal(got, ref):
+            return 0.0
+        err, rel = _rel_err(got, ref)
+        print(f"  {name}: graph differs from eager, max|diff| {err:.3e} (rel {rel:.3e}, "
+              f"tol {tol:g})")
+        if not rel <= tol:
+            raise AssertionError(f"{name}: graph vs eager rel {rel:.3e} > {tol:g}")
+        return err
+
+    def state(self, name, got, ref, tol):
+        diffs = _leaf_diffs(got, ref)
+        if diffs:
+            print(f"  {name}: state leaves that differ (index, max|diff|, rel): "
+                  + ", ".join(f"{i} {e:.2e} {r:.2e}" for i, e, r in diffs[:8]))
+            worst = max(r for _, _, r in diffs)
+            if not worst <= tol:
+                raise AssertionError(f"{name}: graph state vs eager rel {worst:.3e} > {tol:g}")
+        return max([e for _, e, _ in diffs], default=0.0)
+
+    def measure(self, name, steps, graph_step, eager_step, pool, per_step=1):
+        """Wall (host clock, each step synchronised) of ``steps`` calls of each,
+        in turns; then a trace of each: device busy, kernels and graph
+        launches a step, idle share.  ``per_step``: steps a call makes."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        walls = {"graph": [], "eager": []}
+        for _ in range(steps):
+            for kind, fn in (("graph", graph_step), ("eager", eager_step)):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[kind].append((time.perf_counter() - t0) * 1e3 / per_step)
+        traced = {}
+        for kind, fn in (("graph", graph_step), ("eager", eager_step)):
+            # a trace may drop the records of its first launches: three calls
+            # first, then the calls counted, inside a span
+            n = max(3, steps // 2)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                with record_function("counted"):
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        fn()
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+            busy, kernels, launches = _window(prof, "counted")
+            traced[kind] = (busy / n / per_step, kernels / n / per_step, launches / n,
+                            1 - busy / wall)
+        if traced["graph"][2] != 1:
+            raise AssertionError(f"{name}: {traced['graph'][2]:.2f} graph launches a call, want 1")
+        stats = {k: (_median(v), sorted(v)[int(len(v) * 0.9)]) for k, v in walls.items()}
+        mb = _pool_mb(pool)
+        print(f"  {name} on {self.smi}: wall ms a step median/p90 graph "
+              f"{stats['graph'][0]:.3f}/{stats['graph'][1]:.3f}, eager "
+              f"{stats['eager'][0]:.3f}/{stats['eager'][1]:.3f}; traced: device busy ms a step "
+              f"graph {traced['graph'][0]:.4f}, eager {traced['eager'][0]:.4f}; kernels a step "
+              f"graph {traced['graph'][1]:.1f}, eager {traced['eager'][1]:.1f}; graph launches a "
+              f"call {traced['graph'][2]:.2f}; idle share graph {traced['graph'][3]:.3f}, eager "
+              f"{traced['eager'][3]:.3f}; graph pool {mb:.1f} MiB", flush=True)
+        self.rows.append((name, stats, traced, mb))
+
+
+def _graphed_and_eager(make):
+    """Two objects from ``make()``: one that replays graphs, one that runs
+    the same bodies eagerly on the card."""
+    graphed, eager = make(), make()
+    eager._graphs = None
+    return graphed, eager
+
+
+def _counts_now(counters):
+    return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counters}
+
+
+def _leaf_paths(tree, prefix=""):
+    """The '/'-joined path of every tensor leaf, in ``tensor_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _leaf_paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in _leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix] if isinstance(tree, torch.Tensor) else []
+
+
+@contextlib.contextmanager
+def _deterministic(on=True):
+    """torch's deterministic algorithms, warning only where an op has none."""
+    import warnings
+
+    if not on:
+        yield
+        return
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _eager_device_steps(step, B, L, K, params, opt_state, gen):
+    """The body of ``make_device_data_steps`` (one process, accum 1), run eagerly."""
+    from cleanumamba_tpu_torch.data.synth_device import synth_batch
+
+    for _ in range(K):
+        clean, noisy = synth_batch(gen, B, L)
+        params, opt_state, aux = step(params, opt_state,
+                                      (clean.reshape(1, B, L), noisy.reshape(1, B, L)))
+    return params, opt_state, aux
+
+
+def run_graphs(dev, cfg, params32, smi, bundle=None):
+    """Phase 24: every captured path against its eager body on the card.
+    ``bundle``: phase 21's E8 block-16 bundle at batch 2 (None: exported
+    here).  Returns the printed rows."""
+    from cleanumamba_tpu_torch import export as ex
+    from cleanumamba_tpu_torch.config import LossConfig, OptimizationConfig
+    from cleanumamba_tpu_torch.data.synth_device import synth_batch
+    from cleanumamba_tpu_torch.graphs import launch_counters, own
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+    from cleanumamba_tpu_torch.params import tensor_leaves
+    from cleanumamba_tpu_torch.serve import SessionMultiplexer
+    from cleanumamba_tpu_torch.streaming import Streamer
+    from cleanumamba_tpu_torch.train.optim import make_optimizer
+    from cleanumamba_tpu_torch.train.trainer import (
+        graph_train_step,
+        make_device_data_steps,
+        make_grad_fn,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    chk = _GraphCheck(smi)
+    counters = launch_counters()
+    fl, ts = cfg.frame_length, cfg.total_stride
+    rng = np.random.default_rng(24)
+
+    # Streamer: E8 bf16 (block 16 and block 1 through the K3/K4 packs), E8
+    # int8 block 1, FullMini mega (K5) for mamba and mha
+    fm = {f: _fullmini(f) for f in ("mamba", "mha")}
+    cases = [("E8 bf16 Streamer block 16", cfg, params32, dict(dtype=torch.bfloat16,
+                                                              weights="bf16"), 16, BF16_TOL),
+             ("E8 bf16 Streamer block 1 (K3/K4)", cfg, params32,
+              dict(dtype=torch.bfloat16, weights="bf16"), 1, BF16_TOL),
+             ("E8 int8 Streamer block 1 (int8 K3/K4)", cfg, params32,
+              dict(weights="int8", fused=True), 1, BF16_TOL)]
+    cases += [(f"FullMini {f} Streamer block 1 (K5)", c,
+               init_params(c, torch.Generator().manual_seed(0), dev), {}, 1, FP32_TOL)
+              for f, c in fm.items()]
+    for name, c, p, kw, block, tol in cases:
+        n = 30 if block == 1 else 12
+        hop = block * c.total_stride
+        audio = (rng.normal(size=(1, c.frame_length + (3 * n + 2) * hop)) * 0.1
+                 ).astype(np.float32)
+        g, e = _graphed_and_eager(lambda: Streamer(p, c, dev, **kw))
+        want_mode = "mega" if c is not cfg else "fused"
+        if g.fused_mode != want_mode:
+            raise AssertionError(f"{name}: mode {g.fused_mode!r}, want {want_mode!r}")
+        pos = {"graph": 0, "eager": 0}
+
+        def feeder(s, kind, width):
+            def feed():
+                lo = pos[kind]
+                pos[kind] += width
+                return s.feed(audio[:, lo:lo + width])
+            return feed
+
+        # prime and the first step (the capture) outside the comparison's counts
+        for s, kind in ((g, "graph"), (e, "eager")):
+            feeder(s, kind, c.frame_length + hop)()
+        before = _counts_now(counters)
+        outs = [feeder(g, "graph", hop)() for _ in range(n)]
+        mid = _counts_now(counters)
+        refs = [feeder(e, "eager", hop)() for _ in range(n)]
+        after = _counts_now(counters)
+        moved_g = {k: mid[k] - before[k] for k in before}
+        moved_e = {k: after[k] - mid[k] for k in mid}
+        if moved_g != moved_e:
+            raise AssertionError(f"{name}: launches counted over {n} graph steps {moved_g}, "
+                                 f"eager {moved_e}")
+        err = chk.same(name, np.concatenate(outs, 1), np.concatenate(refs, 1), tol)
+        err = max(err, chk.state(name, g.state, e.state, tol))
+        chk.measure(name, n, feeder(g, "graph", hop), feeder(e, "eager", hop), g._graphs.pool)
+        print(f"  {name}: graph == eager over {n} steps (max|diff| {err:.3e}); launches "
+              f"counted a step {({k: v / n for k, v in moved_g.items() if v})}")
+        del g, e
+
+    # SessionMultiplexer: E8 bf16 at slots {1, 8} x block {1, 16}, and from_bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if bundle is None:
+            bundle = os.path.join(tmp, "b16")
+            prime_b, step_b = ex.export_stream(params32, cfg, batch=2, block=16)
+            ex.save_bundle(bundle, cfg, {"prime": prime_b, "step": step_b})
+        export_s = time.perf_counter() - t0
+        muxes = [(f"multiplexer E8 bf16 slots {sl} block {bl}",
+                  lambda sl=sl, bl=bl: SessionMultiplexer(params32, cfg, slots=sl, block=bl,
+                                                          dtype=torch.bfloat16, weights="bf16",
+                                                          device=dev),
+                  sl, bl, BF16_TOL) for sl in (1, 8) for bl in (1, 16)]
+        muxes.append(("multiplexer from_bundle (E8 fp32 slots 2 block 16)",
+                      lambda: SessionMultiplexer.from_bundle(bundle, params32),
+                      2, 16, FP32_TOL))
+        for name, make, slots, block, tol in muxes:
+            g, e = _graphed_and_eager(make)
+            tick = g.tick_samples
+            n = 12 if block == 1 else 6
+            x = (rng.normal(size=(slots, fl + (3 * n + 4) * tick)) * 0.1).astype(np.float32)
+            pos = {"graph": [0] * slots, "eager": [0] * slots}
+
+            def ticker(mux, kind, starve=None):
+                """One tick of every session but ``starve``: their samples are
+                buffered, and the last one's feed runs the tick."""
+                live = [sid for sid in range(slots) if sid != starve]
+
+                def tick_all():
+                    for sid in live:
+                        lo = pos[kind][sid]
+                        pos[kind][sid] += tick
+                        chunk = x[sid, lo:lo + tick]
+                        if sid != live[-1]:
+                            mux._buf[sid] = np.concatenate([mux._buf[sid], chunk])
+                            mux._fed[sid] += tick
+                        else:
+                            before = mux.ticks
+                            mux.feed(sid, chunk)
+                            if mux.ticks != before + 1:
+                                raise AssertionError(f"{name}: {mux.ticks - before} ticks")
+                    return [mux._drain(sid) for sid in live]
+                return tick_all
+
+            for mux, kind in ((g, "graph"), (e, "eager")):
+                for sid in [mux.open() for _ in range(slots)]:
+                    mux.feed(sid, x[sid, :fl + tick])
+                    pos[kind][sid] = fl + tick
+            # one session starved for two ticks (paused), then every one live
+            starve = slots - 1 if slots > 1 else None
+            outs = [ticker(g, "graph", starve)() for _ in range(2)]
+            refs = [ticker(e, "eager", starve)() for _ in range(2)]
+            outs += [ticker(g, "graph")() for _ in range(n)]
+            refs += [ticker(e, "eager")() for _ in range(n)]
+            flat = lambda rows: np.concatenate([np.concatenate(r) for r in rows if r])  # noqa
+            err = chk.same(name, flat(outs), flat(refs), tol)
+            err = max(err, chk.state(name, g.pool, e.pool, tol))
+            chk.measure(name, n, ticker(g, "graph"), ticker(e, "eager"), g._graphs.pool)
+            paused = ", a session paused for 2" if slots > 1 else ""
+            exported = (f"; bundle exported or reused in {export_s:.1f} s"
+                        if "bundle" in name else "")
+            print(f"  {name}: graph == eager over {n + 2} ticks{paused} (max|diff| "
+                  f"{err:.3e}){exported}")
+            del g, e
+
+    # train step and make_device_data_steps: E8 bf16, batch 2 x 10 s, Adam
+    # (lr 1e-4 after the warm-up cosine's first steps)
+    opt_cfg = OptimizationConfig()
+    optimizer = make_optimizer(opt_cfg)
+    step = make_train_step(cfg, LossConfig(), optimizer, bf16=True)
+    B, L = 2, 10 * SR
+    gen = torch.Generator(device=dev).manual_seed(24)
+    batches = [tuple(t.reshape(1, B, L) for t in synth_batch(gen, B, L)) for _ in range(6)]
+    grad_fn = make_grad_fn(cfg, LossConfig(), bf16=True)
+    names = _leaf_paths(params32)
+    for det in (False, True):
+        with _deterministic(det):
+            g1, _ = grad_fn(params32, *batches[0])
+            g2, _ = grad_fn(params32, *batches[0])
+        diffs = [(n, *_rel_err(x, y)) for n, x, y in
+                 zip(names, tensor_leaves(g1), tensor_leaves(g2)) if not torch.equal(x, y)]
+        print(f"  E8 bf16 gradient, eager against itself ({'torch deterministic algorithms' if det else 'default algorithms'}): "
+              f"{len(diffs)} of {len(names)} leaves differ"
+              + (": " + ", ".join(f"{n} rel {r:.1e}" for n, _, r in diffs[:6]) if diffs else ""),
+              flush=True)
+    del g1, g2
+
+    def hold_train(name, got, ref, n_steps):
+        """aux to the bf16 bound; the params to 2 lr a step (Adam's update is
+        ~lr sign(g): a gradient near zero may flip it, as the CPU tests hold
+        a step); the moments to the bf16 bound of each leaf's max."""
+        (pg, sg, aux_g), (pe, se, aux_e) = got, ref
+        err = max(chk.same(f"{name} aux {k}", aux_g[k].float().reshape(1),
+                           aux_e[k].float().reshape(1), BF16_TOL) for k in aux_e)
+        moved = [e for _, e, _ in (_leaf_diffs(pg, pe))]
+        if moved and max(moved) > 2 * opt_cfg.learning_rate * n_steps:
+            raise AssertionError(f"{name}: params moved {max(moved):.3e} from eager's, more "
+                                 f"than 2 lr a step")
+        if moved:
+            print(f"  {name}: {len(moved)} param leaves differ, max|diff| {max(moved):.3e}")
+        return max([err, chk.state(f"{name} opt state", sg, se, BF16_TOL)] + moved)
+
+    # graph against eager, with torch's deterministic algorithms (warn only:
+    # cuBLAS's workspace setting is fixed once a process has used it)
+    with _deterministic(True):
+        graphed = graph_train_step(step, dev)
+        pg, sg = own(params32), optimizer.init(params32)
+        pe, se = own(params32), optimizer.init(params32)
+        err = 0.0
+        for i in range(3):
+            pg, sg, aux_g = graphed(pg, sg, batches[i])
+            pe, se, aux_e = step(pe, se, batches[i])
+            err = max(err, hold_train(f"train step {i}", (pg, sg, aux_g), (pe, se, aux_e), i + 1))
+        print(f"  E8 bf16 train step, deterministic algorithms: graph against eager over 3 "
+              f"steps (params, opt state, aux) max|diff| {err:.3e}", flush=True)
+        stepper = make_device_data_steps(step, B, L, 4)
+        gen_g = torch.Generator(device=dev).manual_seed(7)
+        gen_e = torch.Generator(device=dev).manual_seed(7)
+        pg, sg = own(params32), optimizer.init(params32)
+        pe, se = own(params32), optimizer.init(params32)
+        t0 = time.perf_counter()
+        got = stepper(pg, sg, gen_g)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        err = hold_train("make_device_data_steps K=4", got,
+                         _eager_device_steps(step, B, L, 4, pe, se, gen_e), 4)
+        if not torch.equal(gen_g.get_state(), gen_e.get_state()):
+            raise AssertionError("device-data steps: the graph advanced its generator otherwise "
+                                 "than the eager steps")
+        print(f"  make_device_data_steps K=4, deterministic algorithms: graph against eager "
+              f"(params, opt state, aux; the generator's state equal) max|diff| {err:.3e}; first "
+              f"call (3 warm-up calls and the capture) {capture_s:.1f} s", flush=True)
+    del graphed, stepper, got, pg, sg, pe, se, aux_g, aux_e
+    torch.cuda.empty_cache()
+
+    # times, with the default algorithms (what cli/train.py runs)
+    graphed = graph_train_step(step, dev)
+    state = {"graph": [own(params32), optimizer.init(params32)],
+             "eager": [own(params32), optimizer.init(params32)]}
+    turn = {"graph": 0, "eager": 0}
+
+    def train_turn(kind, fn):
+        def run():
+            st = state[kind]
+            st[0], st[1], _ = fn(st[0], st[1], batches[turn[kind] % 6])
+            turn[kind] += 1
+        return run
+
+    train_turn("graph", graphed)()  # the capture
+    chk.measure("E8 bf16 train step, batch 2 x 10 s", 4, train_turn("graph", graphed),
+                train_turn("eager", step), graphed.graphs.pool)
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    del graphed, state
+    torch.cuda.empty_cache()
+
+    K = 4
+    stepper = make_device_data_steps(step, B, L, K)
+    gens = {k: torch.Generator(device=dev).manual_seed(7) for k in ("graph", "eager")}
+    state = {k: [own(params32), optimizer.init(params32)] for k in ("graph", "eager")}
+
+    def device_turn(kind):
+        def run():
+            st = state[kind]
+            if kind == "graph":
+                st[0], st[1], _ = stepper(st[0], st[1], gens[kind])
+            else:
+                st[0], st[1], _ = _eager_device_steps(step, B, L, K, st[0], st[1], gens[kind])
+        return run
+
+    device_turn("graph")()  # the capture
+    chk.measure(f"E8 bf16 make_device_data_steps K={K}", 3, device_turn("graph"),
+                device_turn("eager"), stepper.graphs.pool, per_step=K)
+    del stepper, state
+    torch.cuda.empty_cache()
+    print(f"  phase 24: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return chk.rows
+
+
 def _base_k5(checkout):
     """The K5 wrapper module of another checkout, launching that checkout's kernel."""
     import importlib.util
@@ -3853,6 +4300,9 @@ def main() -> int:
     parser.add_argument("--parallel-only", action="store_true",
                         help="build K1/K2 only and run phases 22 and 23 (tensor and sequence "
                              "parallelism) and print no result lines")
+    parser.add_argument("--graphs-only", action="store_true",
+                        help="build every kernel and run phase 24 (the CUDA graphs against "
+                             "the eager steps) and print no result lines")
     parser.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--parallel-worker", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--export-worker", metavar="DIR", help=argparse.SUPPRESS)
@@ -3940,6 +4390,11 @@ def main() -> int:
         check_export_cli()
         print("export-only run: phase 21 passed (no result lines)")
         return 0
+    if args.graphs_only:
+        print("phase 24 CUDA graphs against the eager steps:", flush=True)
+        run_graphs(dev, cfg, params32, smi)
+        print("graphs-only run: phase 24 passed (no result lines)")
+        return 0
     if args.parallel_only:
         print("phase 22 tensor parallelism (gloo ranks on one card, torchrun on the CPU):",
               flush=True)
@@ -4009,7 +4464,9 @@ def main() -> int:
     print("phase 20 data parallelism (two gloo ranks on one card, torchrun):", flush=True)
     dp_launches = run_dp(dev, cfg, params32, smi, rep)
     print("phase 21 serving bundles (export.py, K1 as a custom op):", flush=True)
-    launches["selective_scan"] += run_export(dev, cfg, params32, smi)
+    kept = tempfile.mkdtemp()
+    bundle16 = os.path.join(kept, "stream16")
+    launches["selective_scan"] += run_export(dev, cfg, params32, smi, keep=bundle16)
     print("phase 22 tensor parallelism (gloo ranks on one card, torchrun on the CPU):",
           flush=True)
     tp_launches = run_tp(dev, cfg, params32, smi, rep)
@@ -4017,6 +4474,11 @@ def main() -> int:
     launches["selective_scan"] += run_sp(dev, smi, rep)
     print("phases 20-22 the torchrun training CLIs and the export CLI, at once:", flush=True)
     check_clis_of_phases_20_22()
+    print("phase 24 CUDA graphs against the eager steps:", flush=True)
+    try:
+        run_graphs(dev, cfg, params32, smi, bundle=bundle16)
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
 
     # launches: each path's own run (serving, phase 4; training, phase 7; the
     # int8 serving path, phase 14; the multiplexer's block-16 ticks, phase 15;

@@ -29,6 +29,13 @@ alone logs, validates (serially, as JAX does) and writes the checkpoints,
 which keep the one-device layout; the others wait for it in the next
 all-reduce, for at most ``GROUP_TIMEOUT``.
 
+On a CUDA device without ``torchrun``, each step is one replay of a CUDA
+graph (``trainer.graph_train_step``; with ``--device-data K``, K steps a
+replay, ``trainer.make_device_data_steps``), over params and optimizer
+state held in static buffers, which validation and the checkpoints read.
+Under ``torchrun`` the steps run eagerly (the gloo and NCCL collectives are
+not captured).
+
 ``--model-parallel M`` (M divides the world) shards the weights over M ranks
 (``parallel/tensor.py``) and the other factor is the data axis (DP x TP, the
 mesh of ``parallel.make_mesh``): a step takes ``batch_size_per_device x
@@ -76,7 +83,11 @@ from cleanumamba_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from cleanumamba_tpu_torch.train.optim import make_optimizer
-from cleanumamba_tpu_torch.train.trainer import make_device_data_steps, make_train_step
+from cleanumamba_tpu_torch.train.trainer import (
+    graph_train_step,
+    make_device_data_steps,
+    make_train_step,
+)
 from cleanumamba_tpu_torch.utils import MetricsLogger
 
 # How long a rank waits in a collective for the others: it covers rank 0's
@@ -146,7 +157,8 @@ def main(argv=None):
         params = ck["params"]
         state = ck.get("opt_state")
         if isinstance(state, dict) and {"count", "mu", "nu"} <= state.keys():
-            opt_state = {"count": int(state["count"]), "mu": state["mu"], "nu": state["nu"]}
+            count = torch.tensor(int(state["count"]), dtype=torch.int32, device=dev)
+            opt_state = {"count": count, "mu": state["mu"], "nu": state["nu"]}
         else:
             say("checkpoint has no optimizer state in this port's layout: fresh moments")
         start_iter = ck["iter"] + 1
@@ -177,6 +189,9 @@ def main(argv=None):
         step_fn = make_train_step(cfg, tc.loss, optimizer, bf16=opt.bf16, remat=opt.remat,
                                   mesh=mesh)
     stepper = loader = None
+    if dev.type == "cuda" and mesh is None and not args.device_data:
+        # one CUDA graph a step, over params and opt_state as static buffers
+        step_fn = graph_train_step(step_fn, dev)
     if args.device_data:
         stepper = make_device_data_steps(step_fn, opt.batch_size_per_device, L,
                                          args.device_data, accum=accum, mesh=mesh)

@@ -1,0 +1,231 @@
+"""CUDA graphs: the port's counterpart of ``jax.jit`` with donated buffers.
+
+The JAX package runs a streaming step, a serving tick and a train step as one
+compiled dispatch each.  Here such a step is captured once per shape as a
+CUDA graph and replayed, on a CUDA device; on the CPU the same bodies run
+eagerly (and that is what the tests hold against JAX).
+
+A step is a function ``fn(state, *inputs) -> (new_state, out)`` that leaves
+its arguments as they were.  :class:`StepGraphs` keeps, for one owner (a
+``Streamer``, a ``SessionMultiplexer``, a trainer):
+
+- **the static state**: the tree of tensors the owner's steps read and
+  write.  The captured body writes the new state into it with ``copy_`` as
+  its last ops, the counterpart of ``donate_argnums``: after a call the
+  state a caller passed in holds the new values, and any other reference
+  it kept to the old ones is not valid, as with a donated JAX buffer;
+- **static inputs**, one set a graph, that each call copies its arguments
+  into before the replay;
+- **the graphs**, keyed by (tag, the inputs' shapes and dtypes) as jit's
+  cache is, in one memory pool.  A graph's ``out`` lives in that pool and is
+  overwritten by the graph's next replay: read it (or copy it) before.
+
+Before a capture the body runs three times on a side stream, outside any
+capture: the first run does every lazy first-call effect (kernels built,
+shared-memory attributes raised, cluster plans and K5's weight buffer made
+with its one ``.cpu()``, cuBLAS and cuFFT set up), the other two under
+``torch.cuda.set_sync_debug_mode("error")``, so a host sync hidden in the
+body raises there, with its stack, rather than breaking the capture.  A
+capture that fails raises with the graph's key; nothing falls back to the
+eager path.  The warm-up runs discard their results, so a capture changes
+no state; a registered generator is put back as it was.
+
+The kernel wrappers count their launches in Python (``selective_scan.
+launches`` and the others of :func:`launch_counters`).  A capture records
+how far each count moved while the graph was recorded and puts every count
+back as it was before the warm-up; each replay adds the recorded launches,
+so the counts say what the steps ran on the card (the warm-up runs, like a
+compile, are not counted).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, Optional
+
+import torch
+
+from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan, selective_scan_bwd
+from cleanumamba_tpu_torch.ops.cuda.stream_fused import fused_decoder_level, fused_encoder_level
+from cleanumamba_tpu_torch.ops.cuda.stream_mega import mega_stream_step
+from cleanumamba_tpu_torch.params import tensor_leaves, tree_leaves, tree_map
+
+WARMUP_RUNS = 3
+
+
+def launch_counters():
+    """(wrapper, attribute) of every kernel launch count."""
+    return ((selective_scan, "launches"), (selective_scan_bwd, "launches"),
+            (fused_encoder_level, "launches"), (fused_encoder_level, "int8_launches"),
+            (fused_decoder_level, "launches"), (fused_decoder_level, "int8_launches"),
+            (mega_stream_step, "launches"))
+
+
+def _counts():
+    return [getattr(fn, attr) for fn, attr in launch_counters()]
+
+
+def _shape_key(inputs):
+    return tuple((tuple(x.shape), x.dtype) for x in inputs)
+
+
+def write_back(static, new) -> None:
+    """Copy every tensor leaf of ``new`` into the same leaf of ``static`` (a
+    tree of the same structure, shapes and dtypes; raises otherwise).  A
+    leaf of ``new`` that is its target is skipped; one that shares memory
+    with any leaf of ``static`` is cloned first, so no copy reads a leaf an
+    earlier copy wrote.  Contiguous pairs of one dtype are copied by one
+    ``torch._foreach_copy_`` (a few launches for the lot), the others one
+    by one."""
+    dst, src = tree_leaves(static), tree_leaves(new)
+    if len(dst) != len(src):
+        raise ValueError(f"write_back: {len(src)} new leaves for {len(dst)} state leaves")
+    owned = {t.untyped_storage().data_ptr() for t in dst if isinstance(t, torch.Tensor)}
+    pairs = []
+    for i, (d, s) in enumerate(zip(dst, src)):
+        if not isinstance(d, torch.Tensor):
+            continue
+        if not isinstance(s, torch.Tensor) or s.shape != d.shape or s.dtype != d.dtype:
+            got = (tuple(s.shape), s.dtype) if isinstance(s, torch.Tensor) else type(s)
+            raise ValueError(f"write_back: leaf {i} is {got}, the state's "
+                             f"{(tuple(d.shape), d.dtype)}")
+        if s is d:
+            continue
+        if s.untyped_storage().data_ptr() in owned:
+            s = s.clone()
+        pairs.append((d, s))
+    groups: Dict[torch.dtype, tuple] = {}
+    for d, s in pairs:
+        if d.is_contiguous() and s.is_contiguous() and d.device == s.device:
+            dsts, srcs = groups.setdefault(d.dtype, ([], []))
+            dsts.append(d)
+            srcs.append(s)
+        else:
+            d.copy_(s)
+    for dsts, srcs in groups.values():
+        torch._foreach_copy_(dsts, srcs)
+
+
+def step_in_place(fn, state, *inputs):
+    """What a captured graph runs, eagerly on any device: ``fn(state,
+    *inputs) -> (new_state, out)``, the new state written into ``state``
+    (:func:`write_back`); returns ``out``."""
+    new_state, out = fn(state, *inputs)
+    write_back(state, new_state)
+    return out
+
+
+def _distinct(tree):
+    """``tree`` with a contiguous copy in place of every tensor leaf that
+    shares memory with an earlier leaf, so that writing one leaf writes no
+    other, or that is not contiguous (``write_back`` copies contiguous
+    leaves together)."""
+    seen = set()
+
+    def fix(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        ptr = t.untyped_storage().data_ptr()
+        if ptr in seen or not t.is_contiguous():
+            return t.clone(memory_format=torch.contiguous_format)
+        seen.add(ptr)
+        return t
+
+    return tree_map(fix, tree)
+
+
+def _same_leaves(a, b) -> bool:
+    return all(x is y for x, y in zip(tensor_leaves(a), tensor_leaves(b)))
+
+
+@contextlib.contextmanager
+def _sync_debug_errors():
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+
+
+class StepGraphs:
+    """One owner's CUDA graphs, their static state and inputs, and their
+    memory pool.  ``generator``: a CUDA ``torch.Generator`` the bodies draw
+    from, registered with every graph (each replay advances it as the eager
+    body would)."""
+
+    def __init__(self, device, generator: Optional[torch.Generator] = None):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"StepGraphs: CUDA graphs need a CUDA device, not {self.device}")
+        self.generator = generator
+        self.state = None
+        self.pool = None  # the first capture's pool, shared by the later ones
+        self._graphs: Dict[tuple, tuple] = {}
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def __call__(self, tag: str, fn: Callable, state, *inputs):
+        """Run ``fn`` as this owner's graph ``tag`` at these inputs' shapes.
+
+        With ``state``: ``fn(state, *inputs) -> (new_state, out)``; returns
+        ``(self.state, out)``, ``self.state`` holding the new values.  The
+        first state given becomes ``self.state`` (donated: its leaves are
+        kept as they are, but for a leaf that shares memory with an earlier
+        one or is not contiguous, which is copied); a later call given
+        another tree copies its values in first.  Without (None):
+        ``fn(*inputs) -> out``; returns ``out``.  ``fn`` is read only when
+        the graph is captured."""
+        if state is not None:
+            if self.state is None:
+                self.state = _distinct(state)
+            elif not _same_leaves(state, self.state):
+                write_back(self.state, state)
+        key = (tag, _shape_key(inputs))
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(key, fn, state is not None, inputs)
+        graph, static_in, out, moved = self._graphs[key]
+        for dst, src in zip(static_in, inputs):
+            dst.copy_(src)
+        graph.replay()
+        for (wrapper, attr), n in zip(launch_counters(), moved):
+            setattr(wrapper, attr, getattr(wrapper, attr) + n)
+        return (self.state, out) if state is not None else out
+
+    def _capture(self, key, fn, stateful, inputs):
+        static_in = [x.to(self.device, copy=True) for x in inputs]
+        run = (lambda: fn(self.state, *static_in)) if stateful else (lambda: fn(*static_in))
+        gen_state = self.generator.get_state() if self.generator is not None else None
+        counts = _counts()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for i in range(WARMUP_RUNS):
+                with _sync_debug_errors() if i else contextlib.nullcontext():
+                    run()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = _counts()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = (step_in_place(fn, self.state, *static_in) if stateful else run())
+        except RuntimeError as e:
+            raise RuntimeError(f"CUDA graph capture of {key} failed: {e}") from e
+        finally:
+            moved = [a - b for a, b in zip(_counts(), before)]
+            for (wrapper, attr), n in zip(launch_counters(), counts):
+                setattr(wrapper, attr, n)
+        if self.generator is not None:
+            self.generator.set_state(gen_state)
+        if self.pool is None:
+            self.pool = graph.pool()
+        return graph, static_in, out, moved
+
+
+def own(tree):
+    """A tree whose tensor leaves are fresh copies of ``tree``'s: a state that
+    no graph's memory and no other tree shares."""
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)

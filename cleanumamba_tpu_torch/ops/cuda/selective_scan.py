@@ -209,6 +209,8 @@ def selective_scan(u, dt, A, B, C, D=None, h0=None, return_starts: bool = False)
     return (y, h_last, h_starts) if return_starts else (y, h_last)
 
 
+# launches on the card: a launch recorded into a CUDA graph counts at each
+# replay (graphs.StepGraphs), not at the capture
 selective_scan.launches = 0
 
 
@@ -340,6 +342,7 @@ def selective_scan_bwd(u, dt, A, B, C, D, h_starts, gy, gh_last, cluster: int | 
     return gu, gdt, gA, gB, gC, (None if D is None else gD), gh0
 
 
+# as selective_scan.launches
 selective_scan_bwd.launches = 0
 
 

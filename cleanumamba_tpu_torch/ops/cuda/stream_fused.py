@@ -505,7 +505,8 @@ def fused_encoder_level(win, arrays, meta):
     return out
 
 
-# launches with dense (fp32 or bf16) packs, and with an int8 weight in the pack
+# launches with dense (fp32 or bf16) packs, and with an int8 weight in the pack;
+# a launch recorded into a CUDA graph counts at each replay (graphs.StepGraphs)
 fused_encoder_level.launches = 0
 fused_encoder_level.int8_launches = 0
 

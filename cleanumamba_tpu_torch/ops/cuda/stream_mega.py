@@ -935,5 +935,6 @@ def mega_stream_frame(state, new_samples, arrays, meta, normalize):
                    norm=(state["input_std"], state["frames"], normalize))
 
 
-# launches of the kernel, through either entry point
+# launches of the kernel, through either entry point; a launch recorded into
+# a CUDA graph counts at each replay (graphs.StepGraphs)
 mega_stream_step.launches = 0

@@ -28,11 +28,13 @@ _PARALLEL_GRAIN = 32768
 
 
 def _warm_transcendentals() -> None:
-    """Run torch's fp32 exp once on the calling thread and once over every
-    thread, so that no scan is the process's first.  It runs at import, not
-    at a scan's first call: the model modules import this one (through the
-    K1 wrapper), so the exps of the model code (``A = -exp(A_log)``, the
-    softplus) come after it too.
+    """Run torch's fp32 exp, log, tanh and sigmoid each once on the calling
+    thread and once over every thread, so that no scan, softplus, gate or
+    loss is the process's first of its kind.  It runs at import, not at a
+    scan's first call: the model modules import this one (through the K1
+    wrapper), so the transcendentals of the model code (``A =
+    -exp(A_log)``, the softplus, the LSTM gates, the loss's log-magnitude)
+    come after it too.
 
     The first multi-threaded fp32 ``torch.exp`` of a CPU process can come
     out wrong: with eight fresh processes at once on an 8-core host, the
@@ -42,10 +44,14 @@ def _warm_transcendentals() -> None:
     later call right; after importing this module, 0 of 320
     (``scripts/torch_first_exp_probe.py``, whose other variants find none
     wrong after one exp or sin beforehand, with one thread, or with exp in
-    float64).
+    float64).  log, tanh and sigmoid go through the same vectorised,
+    thread-split kernels, and are warmed the same way.
     """
-    torch.exp(torch.zeros(8))
-    torch.exp(torch.zeros(_PARALLEL_GRAIN * max(torch.get_num_threads(), 1)))
+    small = torch.ones(8)
+    large = torch.ones(_PARALLEL_GRAIN * max(torch.get_num_threads(), 1))
+    for fn in (torch.exp, torch.log, torch.tanh, torch.sigmoid):
+        fn(small)
+        fn(large)
 
 
 _warm_transcendentals()

@@ -18,10 +18,19 @@ sessions riding it.
   alone.
 - **Ticks never wait for a starved session.**  A tick consumes
   ``block * total_stride`` samples from every session that has them; the
-  others ride the step on zeros, their output rows are dropped and their
-  state rows are put back from a copy taken before the step (JAX keeps the
-  old pool for free, its arrays being immutable; here the paused rows are
-  copied, so nothing depends on whether the step writes into its input).
+  others ride the step on zeros and their output rows are dropped.  A
+  primed session that is starved (paused) keeps its state rows: the step
+  takes a ``(slots, 1)`` live mask and returns ``torch.where(live, new,
+  old)`` over the batch-leading leaves, so a paused row is bitwise what it
+  was (JAX keeps the old pool and writes its rows back; the same values).
+  One step serves every pattern of starved sessions.
+- **One graph a tick on a card.**  On a CUDA device prime and the masked
+  step are captured at batch = slots as CUDA graphs (``graphs.StepGraphs``,
+  one memory pool a multiplexer) and replayed, for the live functions and
+  for a bundle's callables alike; the pool is the graphs' static state,
+  written in place by each tick, and admitting a session is one
+  ``index_copy_`` of its row into it, outside the graphs.  On the CPU both
+  run eagerly and each tick makes a new pool tree.
 - Block 1 runs ``stream_step``; a larger block ``stream_step_block``, whose
   mamba bottleneck is one selective scan (K1 on CUDA) at batch = slots.  No
   level packs and no whole-frame kernel: the multiplexer steps the model as
@@ -42,6 +51,7 @@ import numpy as np
 import torch
 
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
+from cleanumamba_tpu_torch.graphs import StepGraphs, own
 from cleanumamba_tpu_torch.params import (
     prepare_weight_view,
     resolve_device,
@@ -56,6 +66,12 @@ def _map_rows(fn, slots, a, b):
     lead with the batch of ``slots``; any other leaf of ``a`` is kept."""
     return tree_unflatten(a, [fn(x, y) if x.ndim and x.shape[0] == slots else x
                               for x, y in zip(tree_leaves(a), tree_leaves(b))])
+
+
+def _keep_paused(live, new, old):
+    """``new`` where the row is live, ``old`` where it is paused: ``live``
+    (slots, 1) bool against a batch-leading leaf of any rank."""
+    return torch.where(live.reshape(live.shape[0], *[1] * (new.ndim - 1)), new, old)
 
 
 class SessionMultiplexer:
@@ -109,6 +125,7 @@ class SessionMultiplexer:
             self._prime = lambda p, f: stream_prime(view(p), cfg, f, dtype)
             self._step = lambda p, s, n: step(view(p), cfg, s, n, dtype)
         self.pool = None  # batched state tree, made at the first admission
+        self._graphs = StepGraphs(self.device) if self.device.type == "cuda" else None
         # host-side per-slot bookkeeping
         self._open = [False] * slots
         self._primed = [False] * slots
@@ -209,9 +226,6 @@ class SessionMultiplexer:
         self._emitted[sid] += out.shape[0]
         return out
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
     def _admit_ready(self) -> None:
         """Prime every buffering session that has a full first frame."""
         fl = self.cfg.frame_length
@@ -222,18 +236,30 @@ class SessionMultiplexer:
             frames = np.zeros((self.slots, fl), np.float32)
             frames[sid] = self._buf[sid][:fl]
             self._buf[sid] = self._buf[sid][fl:]
-            state, out = self._prime(self.params, self._tensor(frames))
+            frames = torch.from_numpy(frames)
+            if self._graphs is None:
+                state, out = self._prime(self.params, frames.to(self.device))
+            else:  # the graph's outputs: read before its next replay
+                state, out = self._graphs("prime", self._prime_body, None, frames)
             if self.pool is None:
-                self.pool = state
+                self.pool = own(state)
             else:  # batch-leading: one splice admits the session
                 row = self._rows([sid])
-                self.pool = _map_rows(lambda pool, one: pool.index_copy(0, row, one[sid:sid + 1]),
-                                      self.slots, self.pool, state)
+                _map_rows(lambda pool, one: pool.index_copy_(0, row, one[sid:sid + 1]),
+                          self.slots, self.pool, state)
             self._out[sid].append(out[sid].float().cpu().numpy())
             self._primed[sid] = True
 
     def _rows(self, sids):
         return torch.tensor(sids, dtype=torch.long, device=self.device)
+
+    def _prime_body(self, frames):
+        return self._prime(self.params, frames)
+
+    def _step_body(self, pool, live, samples):
+        """The tick: the step at batch = slots, paused rows kept."""
+        new, out = self._step(self.params, pool, samples)
+        return _map_rows(lambda n, o: _keep_paused(live, n, o), self.slots, new, pool), out
 
     def _pump(self) -> None:
         self._admit_ready()
@@ -244,20 +270,19 @@ class SessionMultiplexer:
             if not ready:
                 return
             # primed but starved sessions must not advance: their rows ride the
-            # step on zeros and are put back from a copy taken before it
-            paused = [s for s in range(self.slots) if self._primed[s] and s not in ready]
-            if paused:
-                idx = self._rows(paused)
-                saved = _map_rows(lambda t, _: t.index_select(0, idx), self.slots, self.pool,
-                                  self.pool)
+            # step on zeros and the mask keeps their old state
+            live = np.array([[not (self._primed[s] and s not in ready)]
+                             for s in range(self.slots)])
             new = np.zeros((self.slots, tick), np.float32)
             for s in ready:
                 new[s] = self._buf[s][:tick]
                 self._buf[s] = self._buf[s][tick:]
-            self.pool, out = self._step(self.params, self.pool, self._tensor(new))
-            if paused:
-                self.pool = _map_rows(lambda post, pre: post.index_copy(0, idx, pre),
-                                      self.slots, self.pool, saved)
+            live, new = torch.from_numpy(live), torch.from_numpy(new)
+            if self._graphs is None:
+                self.pool, out = self._step_body(self.pool, live.to(self.device),
+                                                 new.to(self.device))
+            else:
+                self.pool, out = self._graphs("step", self._step_body, self.pool, live, new)
             out = out.float().cpu().numpy()  # the tick's one copy to the host
             for s in ready:
                 self._out[s].append(out[s])

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
+from cleanumamba_tpu_torch.graphs import StepGraphs
 from cleanumamba_tpu_torch.models import bottleneck_lstm, bottleneck_mamba2, bottleneck_mha
 from cleanumamba_tpu_torch.models.bottleneck_mamba import mixer_dims, ssm_inputs
 from cleanumamba_tpu_torch.models.cleanumamba import (
@@ -486,6 +487,16 @@ class Streamer:
     dtype bf16.  The view is applied inside every prime, step and block
     call, so the resident weights stay int8.  State and activation math run
     in ``dtype``.
+
+    On a CUDA device the single-frame step (of whichever mode) and the block
+    step are each captured once per (batch, n_frames) as a CUDA graph
+    (``graphs.StepGraphs``, one memory pool a ``Streamer``) and replayed;
+    the int8 view's dequantization is replayed inside them.  ``prime`` runs
+    eagerly, and its state becomes the graphs' static state: ``self.state``
+    is then updated in place by every step (a reference to one of its
+    leaves sees the new values).  On the CPU every step runs eagerly and
+    ``self.state`` is a new tree after each.  A feed brings its output to
+    the host once (``.cpu()``).
     """
 
     def __init__(self, params, cfg: CleanUMambaConfig, device=None, batch: int = 1,
@@ -525,12 +536,23 @@ class Streamer:
         self.fused_mode = ("mega" if self.mega is not None
                            else "fused" if self.packs is not None else "plain")
         self.state = None
+        self._graphs = StepGraphs(self.device) if self.device.type == "cuda" else None
         self.pending = np.zeros((batch, 0), np.float32)
         self.fed = 0
         self.emitted = 0
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _frame_step(self, state, new):
+        """The single-frame step of the resolved mode (``fused_mode``)."""
+        if self.mega is not None:
+            return stream_step_mega(self.cfg, state, new, self.mega)
+        return stream_step(self.view(self._step_params), self.cfg, state, new, self.dtype,
+                           packs=self.packs)
+
+    def _block_step(self, state, new):
+        return stream_step_block(self.view(self.params), self.cfg, state, new, self.dtype)
 
     def feed(self, chunk: np.ndarray) -> np.ndarray:
         """chunk: (B, n) raw samples.  Returns (B, m) denoised samples."""
@@ -548,15 +570,14 @@ class Streamer:
         if self.state is not None and self.pending.shape[1] >= fl:
             # pending holds fl - ts already-seen samples plus the new ones
             n_frames = (self.pending.shape[1] - fl) // ts + 1
-            new = self._tensor(self.pending[:, fl - ts : fl + (n_frames - 1) * ts])
-            if n_frames == 1 and self.mega is not None:
-                self.state, out = stream_step_mega(self.cfg, self.state, new, self.mega)
-            elif n_frames == 1:
-                self.state, out = stream_step(self.view(self._step_params), self.cfg,
-                                              self.state, new, self.dtype, packs=self.packs)
-            else:
-                self.state, out = stream_step_block(self.view(self.params), self.cfg,
-                                                    self.state, new, self.dtype)
+            new = torch.from_numpy(np.ascontiguousarray(
+                self.pending[:, fl - ts : fl + (n_frames - 1) * ts]))
+            step = self._frame_step if n_frames == 1 else self._block_step
+            if self._graphs is None:
+                self.state, out = step(self.state, new.to(self.device))
+            else:  # copies new into the graph's input on the card, then replays
+                self.state, out = self._graphs("frame" if n_frames == 1 else "block", step,
+                                               self.state, new)
             outs.append(out)
             self.pending = self.pending[:, n_frames * ts:]
         if not outs:

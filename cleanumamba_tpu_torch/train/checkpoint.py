@@ -43,7 +43,7 @@ def save_checkpoint(directory: str, step: int, params: Any, opt_state: Any = Non
         "network_config": cfg.to_reference_json() if cfg is not None else None,
         "bottleneck": cfg.bottleneck if cfg is not None else None,
         "params": to_numpy(params),
-        "opt_state": to_numpy(opt_state) if opt_state is not None else None,
+        "opt_state": _host_opt_state(opt_state) if opt_state is not None else None,
         "training_time_seconds": training_time_seconds,
     }
     if extra:
@@ -54,6 +54,16 @@ def save_checkpoint(directory: str, step: int, params: Any, opt_state: Any = Non
         pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
     os.replace(tmp, path)
     return path
+
+
+def _host_opt_state(opt_state):
+    """The optimizer state as numpy leaves, its step ``count`` (a device
+    tensor in ``train/optim.py``) as the Python int the payload has always
+    held."""
+    state = to_numpy(opt_state)
+    if isinstance(state, dict) and "count" in state:
+        state["count"] = int(state["count"])
+    return state
 
 
 def load_checkpoint(path: str, device=None) -> dict:

@@ -10,10 +10,22 @@ In order, as optax chains it:
 4. ``adamw``: decoupled decay added to the update, on leaves of ndim >= 2 only;
 5. times -schedule(k) for update k (0-based).
 
-The state is a plain pytree ``{"count": int, "mu": tree, "nu": tree}`` with
-the params' structure (a non-tensor leaf, such as an S4 kernel's
-``l_kernel``, is carried as it is and never updated);
-:func:`cleanumamba_tpu_torch.params.to_numpy` makes it picklable.  A step that :func:`make_train_step` skips leaves it as it is.
+Each stage runs as ``torch._foreach_*`` ops over the leaves (a few
+multi-tensor launches a stage on a card, where a loop over the leaves made
+several launches a leaf), with the arithmetic and order per leaf of the
+loop it replaced: ``x / norm * max_norm`` for a clipped leaf (and ``x / 1 *
+1`` for one that is not, which is exact), the decay as ``wd * w`` added, the
+moments as ``(1 - b) * g + b * m``.  The global norm is the sum over the
+leaves, in order, of each leaf's sum of squares.
+
+The state is a plain pytree ``{"count": tensor, "mu": tree, "nu": tree}``
+with the params' structure (a non-tensor leaf, such as an S4 kernel's
+``l_kernel``, is carried as it is and never updated).  ``count`` is a 0-d
+int32 tensor on the params' device (an int, as a checkpoint holds it, is
+taken too), and the learning rate is the schedule of ``count - 1``, so an
+update reads no host value and can be captured in a CUDA graph.
+:func:`cleanumamba_tpu_torch.params.to_numpy` makes the state picklable.  A
+step that :func:`make_train_step` skips leaves it as it was.
 """
 
 from __future__ import annotations
@@ -25,7 +37,7 @@ import torch
 
 from cleanumamba_tpu_torch.config import OptimizationConfig
 from cleanumamba_tpu_torch.params import tensor_leaves, tree_map, tree_unflatten
-from cleanumamba_tpu_torch.train.schedule import linear_warmup_cosine_decay
+from cleanumamba_tpu_torch.train.schedule import linear_warmup_cosine_decay_fp32
 
 
 def global_norm(leaves):
@@ -36,9 +48,11 @@ def global_norm(leaves):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """optax-style: ``init(params) -> state``; ``update(grads, state, params)
-    -> (updates, state)``; :func:`apply_updates` adds the updates."""
+    -> (updates, state)``; :func:`apply_updates` adds the updates.
+    ``schedule(step)``: the learning rate of update ``step`` (0-based, a
+    0-d int32 tensor), as a tensor or a float."""
 
-    schedule: Callable[[int], float]
+    schedule: Callable
     optimizer: str = "adam"
     b1: float = 0.9
     b2: float = 0.999
@@ -49,30 +63,42 @@ class Optimizer:
     def init(self, params):
         zeros = lambda p: (torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
                            if isinstance(p, torch.Tensor) else p)
-        return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
+        device = tensor_leaves(params)[0].device
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
+                "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     def update(self, grads, state, params):
         g = [x.float() for x in tensor_leaves(grads)]
         p = tensor_leaves(params)
         norm = global_norm(g)
         clip = norm >= self.clip_norm  # optax: identity below the limit
-        g = [torch.where(clip, x / norm * self.clip_norm, x) for x in g]
+        one = torch.ones_like(norm)
+        g = torch._foreach_mul(torch._foreach_div(g, torch.where(clip, norm, one)),
+                               torch.where(clip, self.clip_norm * one, one))
         wd = self.weight_decay
         if self.optimizer == "adam":
             if wd:
-                g = [x + wd * w for x, w in zip(g, p)]
+                g = torch._foreach_add(g, torch._foreach_mul(p, wd))
         elif self.optimizer != "adamw":
             raise ValueError(self.optimizer)
-        count = int(state["count"]) + 1
-        mu = [(1 - self.b1) * x + self.b1 * m for x, m in zip(g, tensor_leaves(state["mu"]))]
-        nu = [(1 - self.b2) * x.square() + self.b2 * v
-              for x, v in zip(g, tensor_leaves(state["nu"]))]
+        count = torch.as_tensor(state["count"], dtype=torch.int32, device=norm.device) + 1
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - self.b1),
+                                torch._foreach_mul(tensor_leaves(state["mu"]), self.b1))
+        nu = torch._foreach_mul(g, g)
+        torch._foreach_mul_(nu, 1 - self.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(tensor_leaves(state["nu"]), self.b2))
         c1, c2 = 1 - self.b1 ** count, 1 - self.b2 ** count
-        upd = [(m / c1) / (torch.sqrt(v / c2) + self.eps) for m, v in zip(mu, nu)]
+        den = torch._foreach_div(nu, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(torch._foreach_div(mu, c1), den)
         if self.optimizer == "adamw" and wd:
-            upd = [u + wd * w if w.ndim >= 2 else u for u, w in zip(upd, p)]
+            decayed = [i for i, w in enumerate(p) if w.ndim >= 2]
+            if decayed:
+                part = [upd[i] for i in decayed]
+                torch._foreach_add_(part, torch._foreach_mul([p[i] for i in decayed], wd))
         lr = self.schedule(count - 1)
-        upd = [-lr * u for u in upd]
+        upd = torch._foreach_mul(upd, -lr)
         new_state = {"count": count, "mu": tree_unflatten(params, mu),
                      "nu": tree_unflatten(params, nu)}
         return tree_unflatten(params, upd), new_state
@@ -80,17 +106,19 @@ class Optimizer:
 
 def apply_updates(params, updates):
     """params + updates, leaf by leaf, in each param's dtype."""
-    return tree_unflatten(params, [(w + u).to(w.dtype)
-                                   for w, u in zip(tensor_leaves(params), tensor_leaves(updates))])
+    w = tensor_leaves(params)
+    return tree_unflatten(params, [x.to(p.dtype) for x, p in
+                                   zip(torch._foreach_add(w, tensor_leaves(updates)), w)])
 
 
 def make_optimizer(opt_cfg: OptimizationConfig, schedule=None) -> Optimizer:
     """The chain of ``make_optimizer`` from an OptimizationConfig; the
-    schedule defaults to the warm-up cosine over ``n_iters``."""
+    schedule defaults to the warm-up cosine over ``n_iters``, in fp32 on the
+    device (``schedule.linear_warmup_cosine_decay_fp32``)."""
     if opt_cfg.optimizer not in ("adam", "adamw"):
         raise ValueError(opt_cfg.optimizer)
     if schedule is None:
-        schedule = linear_warmup_cosine_decay(opt_cfg.learning_rate, opt_cfg.n_iters)
+        schedule = linear_warmup_cosine_decay_fp32(opt_cfg.learning_rate, opt_cfg.n_iters)
     b1, b2 = opt_cfg.betas
     return Optimizer(schedule=schedule, optimizer=opt_cfg.optimizer, b1=b1, b2=b2,
                      eps=opt_cfg.eps, clip_norm=opt_cfg.clip_grad_norm_max,

@@ -3,17 +3,21 @@
 
 The first multi-threaded fp32 ``torch.exp`` of a CPU process can come out
 ~1e-4 wrong in a small share of processes started together, and every later
-call is right.  ``ops/scan.py`` therefore runs exp once on one thread and
-once over every thread when it is imported.  These tests pin the warm-up,
+call is right.  ``ops/scan.py`` therefore runs exp (and log, tanh and
+sigmoid, which share its thread-split kernels) once on one thread and once
+over every thread when it is imported.  These tests pin the warm-up,
 and run the plain scan as the first computation of fresh processes that
 import no JAX, each held against the float64 oracle of
 ``scripts/torch_first_exp_probe.py``.
 """
 
+import functools
 import json
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -25,6 +29,18 @@ def spy(x, *a, **k):
     calls.append([x.numel(), torch.get_num_threads()])
     return real(x, *a, **k)
 torch.exp = spy
+import cleanumamba_tpu_torch.ops.scan
+print(json.dumps(calls))
+"""
+
+_RECORD_ALL = """
+import json, torch
+calls = {}
+for name in ("exp", "log", "tanh", "sigmoid"):
+    def spy(x, *a, _name=name, _real=getattr(torch, name), **k):
+        calls.setdefault(_name, []).append([x.numel(), torch.get_num_threads()])
+        return _real(x, *a, **k)
+    setattr(torch, name, spy)
 import cleanumamba_tpu_torch.ops.scan
 print(json.dumps(calls))
 """
@@ -61,6 +77,27 @@ def test_importing_the_scan_runs_exp_on_one_thread_then_over_every_thread():
     assert threads == 4
     assert small <= 32768  # one thread
     assert large >= 32768 * threads  # a share for every thread
+
+
+@functools.cache
+def _warm_calls():
+    r = subprocess.run([sys.executable, "-c", _RECORD_ALL], cwd=ROOT, env=_env(4),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", ["log", "tanh", "sigmoid"])
+def test_importing_the_scan_warms_log_tanh_and_sigmoid_too(name):
+    """The softplus, the gates and the loss's log go through the same
+    thread-split kernels as exp: each is run once on one thread, then over
+    every thread, at import."""
+    calls = _warm_calls()[name]
+    assert len(calls) == 2
+    (small, threads), (large, _) = calls
+    assert threads == 4
+    assert small <= 32768
+    assert large >= 32768 * threads
 
 
 def test_the_first_scan_of_fresh_processes_matches_float64():
