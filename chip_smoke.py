@@ -117,7 +117,9 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     31): the parameter count falls at each event, every group checks, K1
     and K2 launched (counted), ms per fp32 gradient before and after each
     event, the host's ms for the importances and ``apply_pruning``'s ms per
-    event, peak and allocated memory; then K1 and K2 against their plain
+    event, peak and allocated memory, the reserved memory across an event
+    (the gradient's graphs, captured at each width's second call, grow it
+    by one pool at most); then K1 and K2 against their plain
     versions at every pruned layer's (2, 625, d_inner, d_state), fp32 and
     bf16, all seven gradients; (b) one prune event of phase 8's small config
     on the card and on the CPU: every group's importances within 1e-3 of its
@@ -179,7 +181,17 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     counts of the graph's steps equal the eager steps'.  For each: wall ms a
     step, median and p90, graph and eager in turns; from a trace of each,
     device busy and kernels a step, graph launches a call (must be 1) and
-    the idle share; the graph pool's memory.
+    the idle share; the graph pool's memory.  A shape's first call runs
+    eagerly and its second is captured.  Then (b) the offline paths
+    (``run_graphs_offline``): the forward (``graphs.ForwardGraphs``) of E8
+    bf16 and fp32 at 10 s x 2, the ``__graft_entry__`` shape (1, 16000),
+    mamba2 and mamba_s4 at E8 widths (the caller's params unwritten, params
+    changed in place and replaced both seen), ``validate`` graphed and
+    eager; the KD step (``graph_kd_step``), the E8 pruning gradient before
+    and after a prune event (reserved memory grown by one pool at most) and
+    a finetune step of the pruned checkpoint, compared under torch's
+    deterministic algorithms; ``cli/serve.py``'s bench rep at 8 x 16 bf16
+    (audio-s/s); phase 23's one-shot 10 s feeds, which capture nothing.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernels' summary as JSON: each kernel's launches on its path, error, time,
@@ -195,6 +207,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import importlib
 import io
 import json
 import os
@@ -2426,14 +2439,23 @@ def run_pruning(dev, cfg, params32, counters, smi, rep: Report):
     pcfg = _pruning_config(PRUNE_E8)
     ds = SyntheticDenoiseDataset(crop_length_sec=10.0)
     loader = make_loader(ds, 2)
-    stamps, mem = [], []
+    stamps, mem, reserved, owners, pools = [], [], [], [], {}
 
     def timed_data():  # the loop takes one batch an iteration: stamp each start
         while True:
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
             mem.append(torch.cuda.memory_allocated())
+            reserved.append(torch.cuda.memory_reserved())
+            if len(stamps) - 1 in (15, 31):  # the last gradient of a width is done
+                pools[len(stamps) - 1] = _pool_mb(owners[0].pool)
             yield next(loader)
+
+    def keep_owner(real):  # the pipeline's gradient graphs (graphs.ForwardGraphs)
+        def make(fn, device):
+            owners.append(real(fn, device))
+            return owners[-1]
+        return make
 
     events = []
 
@@ -2465,7 +2487,8 @@ def run_pruning(dev, cfg, params32, counters, smi, rep: Report):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with _wrapped(driver, "get_prune_channels", time_selection), \
-            _wrapped(driver, "apply_pruning", time_apply):
+            _wrapped(driver, "apply_pruning", time_apply), \
+            _wrapped(driver, "ForwardGraphs", keep_owner):
         params, _, history, stopped = driver.pruning_pipeline(
             params32, cfg, LossConfig(), timed_data(), pcfg, batch_size=2, max_iters=n_iters)
     torch.cuda.synchronize()
@@ -2546,6 +2569,16 @@ def run_pruning(dev, cfg, params32, counters, smi, rep: Report):
           + " / ".join(f"{mem[i] / 2**30:.3f}" for i in (0, 1, 16, 31, 32)) + " GiB", flush=True)
     if not mem[16] <= mem[1]:
         raise AssertionError(f"device memory grew across an event: {mem[1]} -> {mem[16]}")
+    # reserved: each width's gradient graph is captured at its second call
+    # (iterations 1 and 17); the event drops the old one and its pool
+    print(f"  reserved at iterations 1 / 2 / 15 / 16 / 17 / 18 / 31: "
+          + " / ".join(f"{reserved[i] / 2**30:.3f}" for i in (1, 2, 15, 16, 17, 18, 31))
+          + f" GiB; the gradient's graph pool at iterations 15 / 31: {pools[15]:.0f} / "
+          f"{pools[31]:.0f} MiB; {len(owners)} owner, {len(owners[0])} graph after the loop",
+          flush=True)
+    if not max(reserved[18:32]) <= reserved[15] + pools[31] * 2**20:
+        raise AssertionError(f"reserved memory grew across an event by more than one graph "
+                             f"pool: {reserved[15]} -> {max(reserved[18:32])}")
 
     shapes = sorted({s for e in events for s in e["shapes"]})
     cases = [(2, 625, di, ds, True) for di, ds in shapes]
@@ -3762,10 +3795,11 @@ SP_CASES = (
 )
 
 
-def _zero_primed(params, cfg, x, n, dev):
+def _zero_primed(params, cfg, x, n, dev, eager=False):
     """Zero-primed streaming on one device of x (B, L) as ``n`` ranks pad it:
     ``Streamer`` over ``[zeros(ctx) | x | pad]`` and its flush, sliced back
-    to x; and the wall it took."""
+    to x; the wall it took; and the graphs the ``Streamer`` captured (its
+    graphs off with ``eager``)."""
     from cleanumamba_tpu_torch.parallel.sequence import _WARM
     from cleanumamba_tpu_torch.streaming import Streamer
 
@@ -3778,8 +3812,10 @@ def _zero_primed(params, cfg, x, n, dev):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s = Streamer(params, cfg, dev, batch=B)
+    if eager:
+        s._graphs = None
     y = np.concatenate([s.feed(padded), s.flush()], axis=1)[:, ctx: ctx + L]
-    return torch.from_numpy(y), (time.perf_counter() - t0) * 1e3
+    return torch.from_numpy(y), (time.perf_counter() - t0) * 1e3, len(s._graphs or ())
 
 
 def _close(name, got, ref, tol=SP_TOL):
@@ -3823,7 +3859,7 @@ def run_sp(dev, smi, rep):
         got = r0[name]["y"]
         if not torch.equal(got, r1[name]["y"]):
             raise AssertionError(f"SP {name}: the ranks' outputs differ")
-        ref, stream_ms = _zero_primed(params, mcfg, x, 2, dev)
+        ref, stream_ms, _ = _zero_primed(params, mcfg, x, 2, dev)
         e_stream = _close(f"SP {name} vs zero-primed streaming", got, ref)
         one = sp_stream_denoise(params, mcfg, x, device=dev).cpu()
         e_one = _close(f"SP {name} vs one segment", got, one)
@@ -4066,9 +4102,13 @@ def run_graphs(dev, cfg, params32, smi, bundle=None):
                 return s.feed(audio[:, lo:lo + width])
             return feed
 
-        # prime and the first step (the capture) outside the comparison's counts
+        # prime and the first step (eager in both: a shape is captured at its
+        # second call) outside the comparison's counts, which hold the capture
         for s, kind in ((g, "graph"), (e, "eager")):
             feeder(s, kind, c.frame_length + hop)()
+        if len(g._graphs):
+            raise AssertionError(f"{name}: {len(g._graphs)} graphs captured at a shape's "
+                                 "first call")
         before = _counts_now(counters)
         outs = [feeder(g, "graph", hop)() for _ in range(n)]
         mid = _counts_now(counters)
@@ -4206,17 +4246,21 @@ def run_graphs(dev, cfg, params32, smi, bundle=None):
         gen_e = torch.Generator(device=dev).manual_seed(7)
         pg, sg = own(params32), optimizer.init(params32)
         pe, se = own(params32), optimizer.init(params32)
+        pg, sg, _ = stepper(pg, sg, gen_g)  # eager: the capture is at the second call
+        pe, se, _ = _eager_device_steps(step, B, L, 4, pe, se, gen_e)
+        if len(stepper.graphs):
+            raise AssertionError("make_device_data_steps: a graph captured at the first call")
         t0 = time.perf_counter()
         got = stepper(pg, sg, gen_g)
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         err = hold_train("make_device_data_steps K=4", got,
-                         _eager_device_steps(step, B, L, 4, pe, se, gen_e), 4)
+                         _eager_device_steps(step, B, L, 4, pe, se, gen_e), 8)
         if not torch.equal(gen_g.get_state(), gen_e.get_state()):
             raise AssertionError("device-data steps: the graph advanced its generator otherwise "
                                  "than the eager steps")
         print(f"  make_device_data_steps K=4, deterministic algorithms: graph against eager "
-              f"(params, opt state, aux; the generator's state equal) max|diff| {err:.3e}; first "
+              f"(params, opt state, aux; the generator's state equal) max|diff| {err:.3e}; second "
               f"call (3 warm-up calls and the capture) {capture_s:.1f} s", flush=True)
     del graphed, stepper, got, pg, sg, pe, se, aux_g, aux_e
     torch.cuda.empty_cache()
@@ -4234,7 +4278,8 @@ def run_graphs(dev, cfg, params32, smi, bundle=None):
             turn[kind] += 1
         return run
 
-    train_turn("graph", graphed)()  # the capture
+    for _ in range(2):  # eager, then the capture
+        train_turn("graph", graphed)()
     chk.measure("E8 bf16 train step, batch 2 x 10 s", 4, train_turn("graph", graphed),
                 train_turn("eager", step), graphed.graphs.pool)
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
@@ -4255,13 +4300,379 @@ def run_graphs(dev, cfg, params32, smi, bundle=None):
                 st[0], st[1], _ = _eager_device_steps(step, B, L, K, st[0], st[1], gens[kind])
         return run
 
-    device_turn("graph")()  # the capture
+    for _ in range(2):  # eager, then the capture
+        device_turn("graph")()
     chk.measure(f"E8 bf16 make_device_data_steps K={K}", 3, device_turn("graph"),
                 device_turn("eager"), stepper.graphs.pool, per_step=K)
     del stepper, state
     torch.cuda.empty_cache()
+    run_graphs_offline(dev, cfg, params32, smi, chk)
     print(f"  phase 24: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return chk.rows
+
+
+class _EagerOwner:
+    """A stand-in for ``graphs.ForwardGraphs`` that runs ``fn`` eagerly on the
+    card, on the same inputs (the eager side of a comparison)."""
+
+    def __init__(self, fn, device):
+        self.fn, self.device = fn, torch.device(device)
+
+    def __call__(self, params, *inputs):
+        return self.fn(params, *[x.to(self.device) for x in inputs])
+
+    def __len__(self):
+        return 0
+
+    def reset(self):
+        pass
+
+
+def run_graphs_offline(dev, cfg, params32, smi, chk):
+    """Phase 24 (b): the offline paths' graphs against their eager bodies on
+    the card.  The offline forward (``graphs.ForwardGraphs``: E8 bf16 as
+    ``cli/denoise.py --bf16`` runs it and fp32 at 10 s x 2, the
+    ``__graft_entry__`` shape (1, 16000) fp32, mamba2 and mamba_s4 at E8
+    widths), ``validate`` graphed and eager; the KD step (``graph_kd_step``,
+    phase 19's E8 teacher and FullMini student, bf16, 2 x 10 s), the E8 fp32
+    pruning gradient before and after a prune event, and a finetune step of
+    the pruned checkpoint (``graph_train_step``), each compared over three
+    calls under torch's deterministic algorithms and timed with the default
+    ones; ``cli/serve.py``'s bench rep at 8 x 16 bf16; phase 23's one-shot
+    10 s feeds (no graph may be captured).  Each graph's first call runs
+    eagerly and its second captures: three calls give eager, captured and
+    replayed outputs, each held bit for bit against the eager body (a
+    difference is printed and held to the path's tolerance).  The forward
+    owner must not write the caller's params and must see params changed
+    in place and replaced; the pruning gradient's reserved memory may grow
+    across the event by one graph pool at most."""
+    from cleanumamba_tpu_torch.cli.serve import make_bench_run
+    from cleanumamba_tpu_torch.config import LossConfig, OptimizationConfig
+    from cleanumamba_tpu_torch.data import SyntheticDenoiseDataset
+    from cleanumamba_tpu_torch.data.synth_device import synth_batch
+    from cleanumamba_tpu_torch.graphs import ForwardGraphs, launch_counters, own
+    from cleanumamba_tpu_torch.models.cleanumamba import forward, init_params, prepare_for_length
+    from cleanumamba_tpu_torch.params import (
+        load_checkpoint,
+        prepare_weight_view,
+        tensor_leaves,
+        tree_map,
+    )
+    from cleanumamba_tpu_torch.prune import driver
+    from cleanumamba_tpu_torch.prune.groups import build_groups
+    from cleanumamba_tpu_torch.prune.pruner import apply_pruning
+    from cleanumamba_tpu_torch.streaming import stream_prime
+    from cleanumamba_tpu_torch.train.distill import (
+        graph_kd_step,
+        make_kd_adapters,
+        make_kd_train_step,
+    )
+    from cleanumamba_tpu_torch.train.optim import make_optimizer
+    from cleanumamba_tpu_torch.train.trainer import graph_train_step, make_train_step
+
+    # the module (the package's ``validate`` is the function)
+    validate_mod = importlib.import_module("cleanumamba_tpu_torch.eval.validate")
+    t_part = time.perf_counter()
+    spent = {}  # seconds of each part
+
+    def lap(part):
+        spent[part] = time.perf_counter() - t_part - sum(spent.values())
+
+    counters = launch_counters()
+    gen = torch.Generator(device=dev).manual_seed(2413)
+
+    def moved(fn):
+        """The launch counts one call of ``fn`` adds."""
+        before = _counts_now(counters)
+        fn()
+        torch.cuda.synchronize()
+        after = _counts_now(counters)
+        return {k: after[k] - before[k] for k in before if after[k] != before[k]}
+
+    def same_counts(name, graphed, eager):
+        g, e = moved(graphed), moved(eager)
+        if g != e:
+            raise AssertionError(f"{name}: launches counted a replay {g}, an eager call {e}")
+        return g
+
+    def three_calls(name, owner, call, ref, tol, copy):
+        """The owner's first three calls (eager, captured, replayed) against
+        ``ref``: outputs through ``copy`` (read before the next replay)."""
+        err = 0.0
+        for i in range(3):
+            got = copy(call())
+            if len(owner) != min(i, 1):
+                raise AssertionError(f"{name}: {len(owner)} graphs after call {i + 1}, want "
+                                     f"{min(i, 1)}")
+            err = max(err, chk.state(f"{name} call {i + 1}", got, ref, tol))
+        return err
+
+    def host(out):
+        return [t.float().cpu() for t in tensor_leaves(out)]
+
+    # (1) the offline forward
+    x10 = synth_batch(gen, 2, 10 * SR)[1].cpu()
+    x1 = torch.from_numpy((np.random.default_rng(0).normal(size=(1, 16000)) * 0.1
+                           ).astype(np.float32))
+    fwd32 = lambda p, x: forward(p, x, cfg)  # noqa: E731
+    fwd16 = lambda p, x: forward(p, x.to(torch.bfloat16), cfg).float()  # noqa: E731
+
+    def offline(name, fn, params, x, tol, steps=6):
+        owner = ForwardGraphs(fn, dev)
+        with torch.no_grad():
+            ref = host(fn(params, x.to(dev)))
+            err = three_calls(name, owner, lambda: owner(params, x), ref, tol, host)
+            n = same_counts(name, lambda: owner(params, x), lambda: fn(params, x.to(dev)))
+            chk.measure(name, steps, lambda: owner(params, x), lambda: fn(params, x.to(dev)),
+                        owner.pool)
+        print(f"  {name}: graph == eager over its first 3 calls (eager, captured, replayed; "
+              f"max|diff| {err:.3e}); launches a call {n}", flush=True)
+        return owner
+
+    bf16 = tree_map(lambda v: v.to(torch.bfloat16) if isinstance(v, torch.Tensor)
+                    and v.dtype == torch.float32 else v, params32)
+    offline("E8 bf16 offline 10 s x 2 (cli/denoise.py --bf16)", fwd16, bf16, x10, BF16_TOL)
+    del bf16
+    offline("E8 fp32 offline 10 s x 2", fwd32, params32, x10, FP32_TOL)
+    kept = own(params32)
+    owner = offline("E8 fp32 (1, 16000), the __graft_entry__ shape", fwd32, params32, x1,
+                    FP32_TOL)
+    with torch.no_grad():
+        if not all(torch.equal(a, b) for a, b in zip(tensor_leaves(params32),
+                                                     tensor_leaves(kept))):
+            raise AssertionError("ForwardGraphs wrote the caller's params")
+        changed = own(params32)
+        for t in tensor_leaves(changed):
+            t.mul_(1.01)
+        replaced = tree_map(lambda t: t * 0.98 if isinstance(t, torch.Tensor) else t, params32)
+        for what, p in (("changed in place", changed), ("replaced", replaced)):
+            got, ref = owner(p, x1).cpu(), fwd32(p, x1.to(dev)).cpu()
+            if not torch.equal(got, ref) or len(owner) != 1:
+                raise AssertionError(f"ForwardGraphs: params {what} not seen by the replay "
+                                     f"({len(owner)} graphs)")
+    del kept, changed, replaced, owner
+    print("  ForwardGraphs left the caller's params as they were, and its replay saw params "
+          "changed in place and replaced (bit for bit against eager)", flush=True)
+    fams = {}  # E8 widths, seed 0 (phase 23's models; kept for its one-shot feeds)
+    for fam in ("mamba2", "mamba_s4"):
+        c = dataclasses.replace(cfg, bottleneck=fam)
+        fams[fam] = prepare_for_length(init_params(c, torch.Generator().manual_seed(0), dev), c,
+                                       10 * SR)
+        offline(f"E8 {fam} fp32 offline 10 s x 2", lambda q, x, c=c: forward(q, x, c),
+                fams[fam], x10, FP32_TOL, steps=4)
+
+    # validate: 3 items (eager, captured, replayed), eager and graphed in turns
+    ds = SyntheticDenoiseDataset(n_items=3, seed=4242)
+    walls, metrics = {"graph": [], "eager": []}, {}
+    for kind in ("eager", "graph", "graph", "eager"):
+        with _wrapped(validate_mod, "ForwardGraphs",
+                      (lambda real: _EagerOwner) if kind == "eager" else (lambda real: real)):
+            t1 = time.perf_counter()
+            metrics[kind] = validate_mod.validate(params32, cfg, ds, max_items=3, pad_to=4 * SR)
+            walls[kind].append(time.perf_counter() - t1)
+    if metrics["graph"] != metrics["eager"]:
+        raise AssertionError(f"validate: graphed {metrics['graph']} vs eager {metrics['eager']}")
+    print(f"  validate, E8 fp32, 3 items of 4 s, on {smi}: graphed "
+          f"{' '.join(f'{t:.3f}' for t in walls['graph'])} s, eager "
+          f"{' '.join(f'{t:.3f}' for t in walls['eager'])} s; the same metrics", flush=True)
+    lap("forward")
+
+    # (2) the KD step: phase 19's teacher and student, bf16, 2 x 10 s
+    s_cfg = _fullmini("mamba")
+    student = init_params(s_cfg, torch.Generator().manual_seed(19), dev)
+    adapters = make_kd_adapters(torch.Generator().manual_seed(20), s_cfg, cfg, device=dev)
+    opt_cfg = OptimizationConfig()
+    optimizer = make_optimizer(opt_cfg, schedule=lambda s: opt_cfg.learning_rate)
+    step = make_kd_train_step(s_cfg, cfg, LossConfig(kd_p=1.0), optimizer, bf16=opt_cfg.bf16)
+    batches = [synth_batch(gen, 2, 10 * SR) for _ in range(4)]
+
+    def fresh_kd():
+        return [own(student), own(adapters), optimizer.init((student, adapters))]
+
+    with _deterministic(True):
+        graphed = graph_kd_step(step, dev)
+        g, e = fresh_kd(), fresh_kd()
+        err = 0.0
+        for i in range(3):
+            *g, aux_g = graphed(*g, params32, batches[i])
+            *e, aux_e = step(*e, params32, batches[i])
+            if len(graphed.graphs) != min(i, 1):
+                raise AssertionError(f"KD: {len(graphed.graphs)} graphs after call {i + 1}")
+            err = max([err, chk.state(f"KD step {i}", g, e, BF16_TOL)]
+                      + [chk.same(f"KD step {i} aux {k}", aux_g[k].float().reshape(1),
+                                  aux_e[k].float().reshape(1), BF16_TOL) for k in aux_e])
+        n = same_counts("KD step", lambda: graphed(*g, params32, batches[3]),
+                        lambda: step(*e, params32, batches[3]))
+    print(f"  KD step, deterministic algorithms: graph against eager over 3 steps (student, "
+          f"adapters, Adam state, aux) max|diff| {err:.3e}; launches a step {n}", flush=True)
+    del graphed, g, e
+    graphed = graph_kd_step(step, dev)
+    st = {"graph": fresh_kd(), "eager": fresh_kd()}
+    turn = {"graph": 0, "eager": 0}
+
+    def kd_turn(kind, fn):
+        def run():
+            st[kind][:] = fn(*st[kind], params32, batches[turn[kind] % 4])[:3]
+            turn[kind] += 1
+        return run
+
+    for _ in range(2):  # eager, then the capture
+        kd_turn("graph", graphed)()
+    chk.measure("KD step, E8 teacher + FullMini student, bf16, 2 x 10 s", 3,
+                kd_turn("graph", graphed), kd_turn("eager", step), graphed.graphs.pool)
+    del graphed, st, student, adapters
+    torch.cuda.empty_cache()
+    lap("KD")
+
+    # (3) the E8 fp32 pruning gradient, before and after a prune event
+    loss_and_grad = driver.make_loss_and_grad(cfg, LossConfig())
+    clean, noisy = synth_batch(gen, 2, 10 * SR)
+    rng = np.random.default_rng(24)
+    selection = {gr.name: sorted(rng.choice(gr.n_channels, size=8 if gr.name.startswith(
+        "d_inner") else 3, replace=False).tolist()) for gr in build_groups(params32, cfg)}
+    timed = ForwardGraphs(loss_and_grad, dev)
+    reserved = {}
+    for label, p in (("at the start", params32),
+                     ("after a prune event", apply_pruning(params32, selection, cfg)[0])):
+        name = f"E8 fp32 pruning gradient {label}, 2 x 10 s"
+        with _deterministic(True):
+            checked = ForwardGraphs(loss_and_grad, dev)
+            ref = host(loss_and_grad(p, clean, noisy))
+            err = three_calls(name, checked, lambda: checked(p, clean, noisy), ref, FP32_TOL,
+                              host)
+            n = same_counts(name, lambda: checked(p, clean, noisy),
+                            lambda: loss_and_grad(p, clean, noisy))
+            del checked
+        torch.cuda.empty_cache()
+        if label != "at the start":  # the event: the old width's graphs go first
+            reserved["before the event"] = torch.cuda.memory_reserved()
+            timed.reset()
+            reserved["after the reset"] = torch.cuda.memory_reserved()
+        for _ in range(2):  # eager, then the capture
+            timed(p, clean, noisy)
+        chk.measure(name, 3, lambda: timed(p, clean, noisy),
+                    lambda: loss_and_grad(p, clean, noisy), timed.pool)
+        reserved[label] = torch.cuda.memory_reserved()
+        pool = _pool_mb(timed.pool) * 2 ** 20
+        print(f"  {name}: graph == eager over its first 3 calls, deterministic algorithms "
+              f"(loss and every gradient leaf; max|diff| {err:.3e}); launches a call {n}",
+              flush=True)
+    if not reserved["after a prune event"] <= reserved["before the event"] + pool:
+        raise AssertionError(f"pruning gradient: reserved memory grew across the event by more "
+                             f"than one graph pool: {reserved}")
+    print("  pruning gradient, reserved MiB " + ", ".join(
+        f"{k} {v / 2 ** 20:.0f}" for k, v in reserved.items())
+          + f"; the new width's pool {pool / 2 ** 20:.0f} MiB", flush=True)
+    del timed
+    lap("pruning")
+
+    # (4) a finetune step of the pruned checkpoint (cli/finetune.py's step)
+    fcfg, fparams = load_checkpoint(os.path.join(ROOT, CKPT), dev)
+    f_opt = OptimizationConfig(n_iters=10_000, learning_rate=1e-4)
+    foptim = make_optimizer(f_opt)
+    fstep = make_train_step(fcfg, LossConfig(), foptim, bf16=f_opt.bf16)
+    fb = [tuple(t.reshape(1, 2, 10 * SR) for t in synth_batch(gen, 2, 10 * SR))
+          for _ in range(4)]
+    name = f"finetune step, {CKPT}, bf16, 2 x 10 s"
+    with _deterministic(True):
+        graphed = graph_train_step(fstep, dev)
+        g = [own(fparams), foptim.init(fparams)]
+        e = [own(fparams), foptim.init(fparams)]
+        err = 0.0
+        for i in range(3):
+            *g, aux_g = graphed(*g, fb[i])
+            *e, aux_e = fstep(*e, fb[i])
+            if len(graphed.graphs) != min(i, 1):
+                raise AssertionError(f"finetune: {len(graphed.graphs)} graphs after call {i + 1}")
+            err = max([err, chk.state(f"finetune step {i}", g, e, BF16_TOL)]
+                      + [chk.same(f"finetune step {i} aux {k}", aux_g[k].float().reshape(1),
+                                  aux_e[k].float().reshape(1), BF16_TOL) for k in aux_e])
+        n = same_counts(name, lambda: graphed(*g, fb[3]), lambda: fstep(*e, fb[3]))
+    print(f"  {name}, deterministic algorithms: graph against eager over 3 steps (params, Adam "
+          f"state, aux) max|diff| {err:.3e}; launches a step {n}", flush=True)
+    graphed = graph_train_step(fstep, dev)
+    st = {"graph": [own(fparams), foptim.init(fparams)],
+          "eager": [own(fparams), foptim.init(fparams)]}
+    turn = {"graph": 0, "eager": 0}
+
+    def ft_turn(kind, fn):
+        def run():
+            st[kind][:] = fn(*st[kind], fb[turn[kind] % 4])[:2]
+            turn[kind] += 1
+        return run
+
+    for _ in range(2):  # eager, then the capture
+        ft_turn("graph", graphed)()
+    chk.measure(name, 3, ft_turn("graph", graphed), ft_turn("eager", fstep), graphed.graphs.pool)
+    del graphed, st, g, e
+    torch.cuda.empty_cache()
+    lap("finetune")
+
+    # (5) cli/serve.py's bench rep, 8 slots x block 16, bf16 weights
+    stored, view = prepare_weight_view(params32, "bf16", torch.bfloat16)
+    run = make_bench_run(cfg, view, 16, torch.bfloat16)
+    B, tick = 8, 16 * cfg.total_stride
+    n_ticks = 4  # a rep of 4 ticks: its eager trace stays short
+    audio = torch.from_numpy((np.random.default_rng(15).normal(
+        size=(B, cfg.frame_length + n_ticks * tick)) * 0.1).astype(np.float32)).to(dev)
+    ticks = audio[:, cfg.frame_length:].reshape(B, n_ticks, tick).transpose(0, 1).contiguous()
+    name = "cli/serve.py bench rep, E8 bf16, 8 slots x block 16"
+    with torch.no_grad():
+        state, _ = stream_prime(view(stored), cfg, audio[:, :cfg.frame_length].contiguous(),
+                                torch.bfloat16)
+        kept = own(state)
+        owner = ForwardGraphs(run, dev)
+        err = 0.0
+        for i, scale in enumerate((1.0, 1.001, 1.002)):
+            got = owner((stored, state), ticks, torch.tensor(scale)).reshape(1).cpu()
+            if len(owner) != min(i, 1):
+                raise AssertionError(f"serve bench: {len(owner)} graphs after call {i + 1}")
+            err = max(err, chk.same(f"{name} rep {i}", got, run(
+                (stored, state), ticks, torch.tensor(scale, device=dev)).reshape(1).cpu(),
+                BF16_TOL))
+        if not all(torch.equal(a, b) for a, b in zip(tensor_leaves(state), tensor_leaves(kept))):
+            raise AssertionError("serve bench: a rep wrote the primed state")
+        one = torch.tensor(1.0)
+        n = same_counts(name, lambda: owner((stored, state), ticks, one),
+                        lambda: run((stored, state), ticks, one.to(dev)))
+        chk.measure(name, 3, lambda: owner((stored, state), ticks, one).item(),
+                    lambda: run((stored, state), ticks, one.to(dev)).item(), owner.pool,
+                    per_step=n_ticks)
+    rate = {k: B * tick / SR / (v[0] / 1e3) for k, v in chk.rows[-1][1].items()}
+    print(f"  {name}: the rep's sum |output| graph == eager over 3 reps (max|diff| {err:.3e}), "
+          f"the primed state untouched; launches a rep {n}; {n_ticks} ticks a rep: graph "
+          f"{rate['graph']:.1f}, eager {rate['eager']:.1f} audio-s/s (median tick)", flush=True)
+    del owner, state, kept, stored
+    lap("serve bench")
+
+    # (6) phase 23's one-shot 10 s feeds: a shape that comes once is not
+    # captured (its models: E8 widths, seed 0, as above, and the checkpoint)
+    x = synth_batch(torch.Generator(device=dev).manual_seed(23), 1, SP_L)[1].cpu().numpy()
+    for case in SP_CASES:
+        if case.get("ckpt"):
+            mcfg, p = _sp_model(case, dev)
+        else:
+            mcfg = dataclasses.replace(cfg, **case["cfg"])
+            p = fams.get(mcfg.bottleneck, params32)
+        runs = {"graph": [], "eager": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            runs[kind].append(_zero_primed(p, mcfg, x, 2, dev, eager=kind == "eager"))
+        ref = runs["eager"][0][0]
+        for y, _, n_graphs in runs["graph"] + runs["eager"]:
+            if not torch.equal(y, ref):
+                raise AssertionError(f"one-shot feed {case['name']}: graphed differs from eager")
+            if n_graphs:
+                raise AssertionError(f"one-shot feed {case['name']}: {n_graphs} graphs captured")
+        ms = {k: [r[1] for r in v] for k, v in runs.items()}
+        print(f"  one-shot 10 s feed (phase 23's), {case['name']}, on {smi}: graphed Streamer "
+              f"{' '.join(f'{t:.1f}' for t in ms['graph'])} ms, eager "
+              f"{' '.join(f'{t:.1f}' for t in ms['eager'])} ms, in turns; nothing captured; "
+              f"equal bit for bit", flush=True)
+    del p, fams
+    torch.cuda.empty_cache()
+    lap("one-shot feeds")
+    print(f"  phase 24 (b): {time.perf_counter() - t_part:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")", flush=True)
 
 
 def _base_k5(checkout):

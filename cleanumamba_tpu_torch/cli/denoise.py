@@ -7,7 +7,11 @@ of noisy wavs in, ``enhanced_*.wav`` out.
 Reads either this project's checkpoints or the reference's PyTorch pickles
 (:func:`load_any_checkpoint`).  Runs on ``cuda:0`` unless ``--device`` names
 another device.  Before each file, ``prepare_for_length`` extends a mamba_s4
-model's kernels to the file's length where they are shorter.
+model's kernels to the file's length where they are shorter.  On a card the
+forward is a CUDA graph per input length (``graphs.ForwardGraphs``, the
+counterpart of the JAX CLI's ``jax.jit(forward)``): a length's first file
+runs eagerly, its second is captured, the later ones replay.  With
+``--pad-to-sec`` every file has one length.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from cleanumamba_tpu_torch.convert import convert_payload
 from cleanumamba_tpu_torch.data.dataset import NoisyOnlyDataset
 from cleanumamba_tpu_torch.data.wavio import write_wav
+from cleanumamba_tpu_torch.graphs import ForwardGraphs
 from cleanumamba_tpu_torch.models.cleanumamba import forward, prepare_for_length
 from cleanumamba_tpu_torch.params import from_numpy, payload_config, resolve_device, tree_map
 
@@ -70,6 +75,7 @@ def main(argv=None):
         params = tree_map(lambda v: v.to(torch.bfloat16) if isinstance(v, torch.Tensor)
                           and v.dtype == torch.float32 else v, params)
     in_dtype = torch.bfloat16 if args.bf16 else torch.float32
+    fwd = ForwardGraphs(lambda p, x: forward(p, x.to(in_dtype), cfg).float(), device)
     ds = NoisyOnlyDataset(args.input, args.sample_rate)
     os.makedirs(args.output, exist_ok=True)
 
@@ -83,9 +89,9 @@ def main(argv=None):
             x = np.pad(noisy, (0, max(0, target - L)))[:target]
         params = prepare_for_length(params, cfg, len(x))  # mamba_s4: kernels cover len(x)
         t0 = time.perf_counter()
-        with torch.no_grad():
-            xin = torch.from_numpy(np.ascontiguousarray(x[None], np.float32)).to(device)
-            den = forward(params, xin.to(in_dtype), cfg).float().cpu().numpy()[0][:L]
+        with torch.no_grad():  # the output is read before the next replay
+            xin = torch.from_numpy(np.ascontiguousarray(x[None], np.float32))
+            den = fwd(params, xin).cpu().numpy()[0][:L]
         dt = time.perf_counter() - t0
         total_audio += L / args.sample_rate
         total_time += dt

@@ -9,7 +9,11 @@ warmup-cosine, the same bf16 train step, loss and validation as
 
 Validates every 1,000 iterations, logs train and valid rows to
 ``metrics.jsonl`` beside ``--out``, and saves ``{out}/{iters - 1}.pkl``.
-Runs on ``cuda:0`` unless ``--device`` names another device.
+Runs on ``cuda:0`` unless ``--device`` names another device.  On a card
+the train step is a CUDA graph over params and Adam state as static
+buffers (``trainer.graph_train_step``, the counterpart of the JAX CLI's
+``jax.jit(raw_step, donate_argnums=(0, 1))``); ``--device-data K`` makes
+the K steps one graph instead.
 """
 
 from __future__ import annotations
@@ -32,7 +36,11 @@ from cleanumamba_tpu_torch.models.cleanumamba import count_params
 from cleanumamba_tpu_torch.params import resolve_device
 from cleanumamba_tpu_torch.train.checkpoint import save_checkpoint
 from cleanumamba_tpu_torch.train.optim import make_optimizer
-from cleanumamba_tpu_torch.train.trainer import make_device_data_steps, make_train_step
+from cleanumamba_tpu_torch.train.trainer import (
+    graph_train_step,
+    make_device_data_steps,
+    make_train_step,
+)
 from cleanumamba_tpu_torch.utils import MetricsLogger
 
 
@@ -80,6 +88,8 @@ def main(argv=None):
     if args.device_data:
         L0 = int(args.crop_sec * 16000)
         stepper = make_device_data_steps(step, args.batch_size, L0, args.device_data)
+    elif device.type == "cuda":
+        step = graph_train_step(step, device)
 
     if args.synthetic or not args.data_root:
         ds = SyntheticDenoiseDataset(crop_length_sec=args.crop_sec)

@@ -12,7 +12,10 @@
 weights are read once per tick whatever the number of sessions.  The bench
 primes ``slots`` streams, stages every tick's audio on the device, and runs
 the ticks back to back with one synchronisation at the end of each rep; it
-reports the audio-seconds per second of all slots together.  ``--ckpt
+reports the audio-seconds per second of all slots together.  On a card a
+rep is one CUDA graph over every tick (``graphs.ForwardGraphs``, the
+counterpart of the JAX bench's jitted ``lax.scan``): the primed state goes
+in as an input and nothing is donated, so every rep starts from it.  ``--ckpt
 flagship`` is the E8 model from ``init_params`` with a seeded generator.
 Runs on ``cuda:0`` unless ``--device`` names another device.
 """
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
+from cleanumamba_tpu_torch.graphs import ForwardGraphs
 from cleanumamba_tpu_torch.params import prepare_weight_view, resolve_device
 from cleanumamba_tpu_torch.serve import SessionMultiplexer
 from cleanumamba_tpu_torch.streaming import stream_prime, stream_step, stream_step_block
@@ -95,9 +99,28 @@ def demo(args, device) -> None:
           f"{dt:.1f} s host-loop wall on {device} (--bench for the throughput)")
 
 
+def make_bench_run(cfg: CleanUMambaConfig, view, block: int, dtype):
+    """The bench's rep: ``run((stored, state), ticks, scale) -> the sum of
+    |output|`` over every tick of ``ticks`` (n_ticks, B, block *
+    total_stride), each scaled by the 0-d tensor ``scale``, stepped from
+    ``state``.  Reads its arguments and writes none of them."""
+    step = stream_step if block == 1 else stream_step_block
+
+    def run(weights_and_state, ticks, scale):
+        stored, st = weights_and_state
+        acc = torch.zeros((), device=ticks.device)
+        for blk in ticks:
+            st, out = step(view(stored), cfg, st, blk * scale, dtype)
+            acc = acc + out.float().abs().sum()
+        return acc
+
+    return run
+
+
 def bench(args, device) -> None:
     """Aggregate throughput: the ticks of ``--seconds`` of audio at batch =
-    slots, back to back on the device, one synchronisation per rep."""
+    slots, back to back on the device (one graph on a card), one
+    synchronisation per rep."""
     cfg, params = _load(args, device)
     fl, ts = cfg.frame_length, cfg.total_stride
     B, block = args.slots, args.block
@@ -105,27 +128,25 @@ def bench(args, device) -> None:
     stored, view = prepare_weight_view(params, args.weights, dtype)
     tick = block * ts
     n_ticks = max(1, int(args.seconds * SR) // tick)
-    step = stream_step if block == 1 else stream_step_block
 
     rng = np.random.default_rng(0)
     audio = torch.from_numpy(
         (rng.normal(size=(B, fl + n_ticks * tick)) * 0.1).astype(np.float32)).to(device)
     ticks = audio[:, fl:].reshape(B, n_ticks, tick).transpose(0, 1).contiguous()
+    run = ForwardGraphs(make_bench_run(cfg, view, block, dtype), device)
     with torch.no_grad():
         state, _ = stream_prime(view(stored), cfg, audio[:, :fl].contiguous(), dtype)
 
-        def run(scale: float) -> float:
-            st, acc = state, torch.zeros((), device=device)
-            for blk in ticks:
-                st, out = step(view(stored), cfg, st, blk * scale, dtype)
-                acc = acc + out.float().abs().sum()
-            return acc.item()  # the rep's one synchronisation
+        def rep(scale: float) -> float:
+            # the rep's one synchronisation, after the replay
+            return run((stored, state), ticks, torch.tensor(scale, device=device)).item()
 
-        run(1.0)  # warm-up
+        for _ in range(2):  # warm-up: on a card the first runs eagerly, the second captures
+            rep(1.0)
         dts = []
         for i in range(args.reps):
             t0 = time.perf_counter()
-            run(1.0 + 0.001 * (i + 1))
+            rep(1.0 + 0.001 * (i + 1))
             dts.append(time.perf_counter() - t0)
     dt = min(dts)
     audio_s = n_ticks * tick / SR  # per session

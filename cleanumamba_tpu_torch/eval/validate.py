@@ -5,9 +5,12 @@ Runs the offline forward on each utterance on the params' device, converts
 to the int16 scale before the metrics (the reference's quirk,
 denoise_eval.py:99-100: PESQ/STOI are computed on int16-scaled arrays), and
 accumulates *length-weighted* metric means (:111-115).  The metrics are the
-host numpy suite of ``eval/metrics.py``.  With a data mesh
+host numpy suite of ``eval/metrics.py``.  On a card the forward is a CUDA
+graph per utterance length (``graphs.ForwardGraphs``, the counterpart of
+JAX's ``jax.jit(forward)``; with ``pad_to`` the first utterance runs
+eagerly, the second is captured, the rest replay).  With a data mesh
 (``parallel.make_mesh``) the forwards are spread over the ranks
-(:func:`_validate_sharded`).
+(:func:`_validate_sharded`), eagerly.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.distributed as dist
 
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
 from cleanumamba_tpu_torch.eval.metrics import eval_waveform
+from cleanumamba_tpu_torch.graphs import ForwardGraphs
 from cleanumamba_tpu_torch.models.cleanumamba import forward
 from cleanumamba_tpu_torch.parallel.mesh import Mesh
 from cleanumamba_tpu_torch.params import tensor_leaves
@@ -49,7 +53,7 @@ def validate(
         if pad_to is None:
             raise ValueError("sharded validation needs fixed lengths (pad_to)")
         return _validate_sharded(params, cfg, dataset, max_items, pad_to, verbose, mesh)
-    device = tensor_leaves(params)[0].device
+    fwd = ForwardGraphs(lambda p, x: forward(p, x, cfg), tensor_leaves(params)[0].device)
     totals: Dict[str, float] = {}
     weight_sum = 0.0
     n = len(dataset) if max_items is None else min(max_items, len(dataset))
@@ -63,9 +67,9 @@ def validate(
             else:
                 x = noisy[:pad_to]
                 L = pad_to
-        with torch.no_grad():
-            xin = torch.from_numpy(np.asarray(x[None], np.float32)).to(device)
-            den = forward(params, xin, cfg).float().cpu().numpy()[0][:L]
+        with torch.no_grad():  # the output is read before the next replay
+            xin = torch.from_numpy(np.asarray(x[None], np.float32))
+            den = fwd(params, xin).float().cpu().numpy()[0][:L]
         # int16 scaling before metrics (reference denoise_eval.py:99-100)
         c16 = np.clip(clean[:L] * 32768.0, -32768, 32767)
         d16 = np.clip(den * 32768.0, -32768, 32767)

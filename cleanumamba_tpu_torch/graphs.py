@@ -1,41 +1,59 @@
-"""CUDA graphs: the port's counterpart of ``jax.jit`` with donated buffers.
+"""CUDA graphs: the port's counterpart of ``jax.jit``.
 
-The JAX package runs a streaming step, a serving tick and a train step as one
-compiled dispatch each.  Here such a step is captured once per shape as a
-CUDA graph and replayed, on a CUDA device; on the CPU the same bodies run
-eagerly (and that is what the tests hold against JAX).
+The JAX package runs a streaming step, a serving tick, a train step and an
+offline forward as one compiled dispatch each.  Here such a call is
+captured as a CUDA graph per shape and replayed, on a CUDA device; on the
+CPU the same bodies run eagerly (and that is what the tests hold against
+JAX).  Two owners:
 
-A step is a function ``fn(state, *inputs) -> (new_state, out)`` that leaves
-its arguments as they were.  :class:`StepGraphs` keeps, for one owner (a
-``Streamer``, a ``SessionMultiplexer``, a trainer):
+- :class:`StepGraphs`, ``jax.jit`` with donated buffers, for a step
+  ``fn(state, *inputs) -> (new_state, out)`` that leaves its arguments as
+  they were.  It keeps, for one owner (a ``Streamer``, a
+  ``SessionMultiplexer``, a trainer):
 
-- **the static state**: the tree of tensors the owner's steps read and
-  write.  The captured body writes the new state into it with ``copy_`` as
-  its last ops, the counterpart of ``donate_argnums``: after a call the
-  state a caller passed in holds the new values, and any other reference
-  it kept to the old ones is not valid, as with a donated JAX buffer;
-- **static inputs**, one set a graph, that each call copies its arguments
-  into before the replay;
-- **the graphs**, keyed by (tag, the inputs' shapes and dtypes) as jit's
-  cache is, in one memory pool.  A graph's ``out`` lives in that pool and is
-  overwritten by the graph's next replay: read it (or copy it) before.
+  - **the static state**: the tree of tensors the owner's steps read and
+    write.  The captured body writes the new state into it with ``copy_``
+    as its last ops, the counterpart of ``donate_argnums``: after a call
+    the state a caller passed in holds the new values, and any other
+    reference it kept to the old ones is not valid, as with a donated JAX
+    buffer;
+  - **static inputs**, one set a graph, that each call copies its
+    arguments into before the replay;
+  - **the graphs**, keyed by (tag, the inputs' shapes and dtypes) as jit's
+    cache is, in one memory pool.  A graph's ``out`` lives in that pool and
+    is overwritten by the graph's next replay: read it (or copy it) before.
 
-Before a capture the body runs three times on a side stream, outside any
+- :class:`ForwardGraphs`, ``jax.jit`` without donation, for a read-only
+  ``fn(params, *inputs) -> out`` (the offline forward, the pruning
+  gradient, the serving bench's ticks).  It never writes the caller's
+  params: each call copies them into a private static copy (one
+  ``_foreach_copy_`` a dtype), so a replay computes with the caller's
+  current values whether they were replaced by new tensors or changed in
+  place; a param whose shape, dtype or static tag changed drops every graph
+  and their pool, as jit recompiles.
+
+**A shape is captured at its second call.**  The first call of a key runs
+the body eagerly on the card (with a state: :func:`step_in_place`, the
+same write-back a replay does), so a shape that comes once (a one-shot
+feed, a file of its own length) costs one eager run and nothing more.  At
+the second call the body runs three times on a side stream, outside any
 capture: the first run does every lazy first-call effect (kernels built,
 shared-memory attributes raised, cluster plans and K5's weight buffer made
-with its one ``.cpu()``, cuBLAS and cuFFT set up), the other two under
-``torch.cuda.set_sync_debug_mode("error")``, so a host sync hidden in the
-body raises there, with its stack, rather than breaking the capture.  A
-capture that fails raises with the graph's key; nothing falls back to the
-eager path.  The warm-up runs discard their results, so a capture changes
-no state; a registered generator is put back as it was.
+with its one ``.cpu()``, cuBLAS, cuDNN and cuFFT set up), the other two
+under ``torch.cuda.set_sync_debug_mode("error")``, so a host sync hidden in
+the body raises there, with its stack, rather than breaking the capture.
+Then the capture, and its first replay.  A capture that fails raises with
+the graph's key; nothing falls back to the eager path.  The warm-up runs
+discard their results, so a capture changes no state; a registered
+generator is put back as it was.
 
 The kernel wrappers count their launches in Python (``selective_scan.
-launches`` and the others of :func:`launch_counters`).  A capture records
-how far each count moved while the graph was recorded and puts every count
-back as it was before the warm-up; each replay adds the recorded launches,
-so the counts say what the steps ran on the card (the warm-up runs, like a
-compile, are not counted).
+launches`` and the others of :func:`launch_counters`).  An eager call
+counts its launches as it runs.  A capture records how far each count
+moved while the graph was recorded and puts every count back as it was
+before the warm-up; each replay adds the recorded launches, so the counts
+say what the steps ran on the card (the warm-up runs, like a compile, are
+not counted).
 """
 
 from __future__ import annotations
@@ -162,8 +180,10 @@ class StepGraphs:
         self.state = None
         self.pool = None  # the first capture's pool, shared by the later ones
         self._graphs: Dict[tuple, tuple] = {}
+        self._seen = set()  # keys called once, eagerly
 
     def __len__(self) -> int:
+        """The number of graphs captured."""
         return len(self._graphs)
 
     def __call__(self, tag: str, fn: Callable, state, *inputs):
@@ -175,8 +195,9 @@ class StepGraphs:
         kept as they are, but for a leaf that shares memory with an earlier
         one or is not contiguous, which is copied); a later call given
         another tree copies its values in first.  Without (None):
-        ``fn(*inputs) -> out``; returns ``out``.  ``fn`` is read only when
-        the graph is captured."""
+        ``fn(*inputs) -> out``; returns ``out``.  The first call of a key
+        runs ``fn`` eagerly on the card; the second captures it, and the
+        later ones replay what was captured (``fn`` is not read again)."""
         if state is not None:
             if self.state is None:
                 self.state = _distinct(state)
@@ -184,6 +205,12 @@ class StepGraphs:
                 write_back(self.state, state)
         key = (tag, _shape_key(inputs))
         if key not in self._graphs:
+            if key not in self._seen:
+                self._seen.add(key)
+                inputs = [x.to(self.device) for x in inputs]
+                if state is None:
+                    return fn(*inputs)
+                return self.state, step_in_place(fn, self.state, *inputs)
             self._graphs[key] = self._capture(key, fn, state is not None, inputs)
         graph, static_in, out, moved = self._graphs[key]
         for dst, src in zip(static_in, inputs):
@@ -229,3 +256,74 @@ def own(tree):
     """A tree whose tensor leaves are fresh copies of ``tree``'s: a state that
     no graph's memory and no other tree shares."""
     return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _layout(tree):
+    """``tree`` with each tensor leaf replaced by its (shape, dtype, device)
+    and the other leaves (static tags: an S4 kernel's ``l_kernel``, a
+    pruned level's None) kept: equal layouts read alike in a graph."""
+    return tree_map(lambda t: (tuple(t.shape), t.dtype, t.device)
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+class ForwardGraphs:
+    """``fn(params, *inputs) -> out`` replayed as one CUDA graph per input
+    shapes and dtypes: the counterpart of ``jax.jit(fn)``, which donates
+    nothing.
+
+    ``params`` is any tree; ``inputs`` are tensors on any device, copied
+    into the graph's static inputs.  On a CUDA device each call copies the
+    params into a private static copy that the graphs read (the caller's
+    tensors are never written, and the caller may replace them or change
+    them in place between calls), then runs the graph of the inputs'
+    shapes: eagerly at a shape's first call, captured at its second,
+    replayed after (:class:`StepGraphs`).  ``out`` lives in the graphs'
+    pool and is overwritten at the next replay: read or copy it first.  A
+    call whose params differ in structure, a shape, a dtype or a static
+    tag from the last call's drops every graph first (:meth:`reset`).  The
+    grad mode is the caller's, at capture as at replay: call under
+    ``torch.no_grad()`` for a forward.  On the CPU a call is ``fn(params,
+    *inputs)``.
+    """
+
+    def __init__(self, fn: Callable, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.params = None  # the static copy the graphs read
+        self._layout = None
+        self._graphs = StepGraphs(self.device) if self.device.type == "cuda" else None
+
+    def __len__(self) -> int:
+        """The number of graphs captured."""
+        return 0 if self._graphs is None else len(self._graphs)
+
+    @property
+    def pool(self):
+        """The graphs' memory pool (None before the first capture)."""
+        return None if self._graphs is None else self._graphs.pool
+
+    def __call__(self, params, *inputs):
+        if self._graphs is None:
+            return self.fn(params, *inputs)
+        layout = _layout(params)
+        if layout != self._layout:
+            if self._layout is not None:
+                self.reset()
+            self.params, self._layout = own(params), layout
+        else:
+            write_back(self.params, params)
+        return self._graphs("forward", self._body, None, *inputs)
+
+    def _body(self, *inputs):
+        return self.fn(self.params, *inputs)
+
+    def reset(self) -> None:
+        """Drop every graph, the static copy and the graphs' memory pool (given
+        back to the device once no output of theirs is referenced)."""
+        if self._graphs is None:
+            return
+        captured = len(self._graphs) > 0
+        self._graphs = StepGraphs(self.device)
+        self.params = self._layout = None
+        if captured:
+            torch.cuda.empty_cache()

@@ -15,7 +15,12 @@ in fp32, and the optimizer is the port's ``Optimizer`` with the chain of
 the JAX driver (clip by global norm, Adam with optax's defaults, a
 constant ``lr / lr_divider``).  Every tensor of the loop stays on the
 params' device; pruning makes new tensors, and the loop keeps no reference
-to the trees of the width before.
+to the trees of the width before.  On a card the gradient is a CUDA graph
+per width (``graphs.ForwardGraphs``, the counterpart of the JAX driver's
+``jax.jit(jax.value_and_grad(loss_of))``, which recompiles at every width):
+a width's first gradient runs eagerly, its second is captured, the later
+ones replay, and each prune event drops the old width's graphs and their
+memory before the new trees come.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Callable, Iterator, Optional
 import torch
 
 from cleanumamba_tpu_torch.config import CleanUMambaConfig, LossConfig
+from cleanumamba_tpu_torch.graphs import ForwardGraphs
 from cleanumamba_tpu_torch.models.cleanumamba import count_params
 from cleanumamba_tpu_torch.params import tensor_leaves, tree_map, tree_unflatten
 from cleanumamba_tpu_torch.prune.calibrate import Calibrator
@@ -117,6 +123,19 @@ def get_state(n_iter, batch_size, training_samples, grad_samples, pruning_repeat
     }
 
 
+def make_loss_and_grad(cfg: CleanUMambaConfig, loss_cfg: LossConfig) -> Callable:
+    """``loss_and_grad(params, clean, noisy) -> (loss, grads)``: the fp32 loss
+    of one (B, L) batch and its gradient, the pipeline's ``jax.value_and_grad``
+    of the JAX driver's ``loss_of``."""
+    grad_fn = make_grad_fn(cfg, loss_cfg, bf16=False)
+
+    def loss_and_grad(p, clean, noisy):
+        grads, aux = grad_fn(p, clean[None], noisy[None])
+        return aux["loss"], grads
+
+    return loss_and_grad
+
+
 def pruning_pipeline(
     params,
     cfg: CleanUMambaConfig,
@@ -157,11 +176,10 @@ def pruning_pipeline(
         raise ValueError("log_macs: the MAC count of a compiled function (XLA's cost analysis) "
                          "has no counterpart in this port")
     device = tensor_leaves(params)[0].device
-    grad_fn = make_grad_fn(cfg, loss_cfg, bf16=False)
-
-    def loss_and_grad(p, clean, noisy):
-        grads, aux = grad_fn(p, clean[None], noisy[None])
-        return aux["loss"], grads
+    loss_and_grad = make_loss_and_grad(cfg, loss_cfg)
+    # the loop's gradient: its outputs live in the graphs' pool until the next
+    # call, so every branch sums or applies them first
+    grad_step = ForwardGraphs(loss_and_grad, device)
 
     lr = prune_cfg.lr / prune_cfg.lr_divider
     optimizer = Optimizer(schedule=lambda s: lr, clip_norm=prune_cfg.clip_grad_norm_max)
@@ -214,7 +232,7 @@ def pruning_pipeline(
                         "scales": {k: float(v) for k, v in scales.items()}})
 
         if state["pruning"]:
-            loss, grads = loss_and_grad(params, clean, noisy)
+            loss, grads = grad_step(params, clean, noisy)
             grads_acc = tree_unflatten(grads_acc, [
                 a + g for a, g in zip(tensor_leaves(grads_acc), tensor_leaves(grads))])
             del grads
@@ -232,7 +250,10 @@ def pruning_pipeline(
                     min_prune_channels=prune_cfg.min_prune_channels_per_iter,
                     calibration_scales=calibrator.as_dict() if prune_cfg.calibration else None,
                 )
-                grads_acc = None  # the old widths' accumulator goes before the new trees come
+                loss = float(loss)  # read before the graphs' pool goes
+                # the old widths' accumulator and graphs go before the new trees come
+                grads_acc = None
+                grad_step.reset()
                 params, _, opt_state = apply_pruning(
                     params, selection, cfg, opt_state=opt_state
                 )
@@ -245,7 +266,7 @@ def pruning_pipeline(
                     "n_iter": n_iter,
                     "prune_samples": state["prune_samples"],
                     "train_samples": state["train_samples"],
-                    "loss": float(loss),
+                    "loss": loss,
                     "params": count_params(params),
                     "channels": n_ch,
                     "min_importance": (
@@ -258,7 +279,7 @@ def pruning_pipeline(
                 if n_ch < prune_cfg.min_total_channels:
                     stopped = "channel_floor"
         else:
-            loss, grads = loss_and_grad(params, clean, noisy)
+            loss, grads = grad_step(params, clean, noisy)
             updates, opt_state = optimizer.update(grads, opt_state, params)
             del grads
             params = apply_updates(params, updates)

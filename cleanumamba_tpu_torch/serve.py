@@ -25,9 +25,9 @@ sessions riding it.
   was (JAX keeps the old pool and writes its rows back; the same values).
   One step serves every pattern of starved sessions.
 - **One graph a tick on a card.**  On a CUDA device prime and the masked
-  step are captured at batch = slots as CUDA graphs (``graphs.StepGraphs``,
-  one memory pool a multiplexer) and replayed, for the live functions and
-  for a bundle's callables alike; the pool is the graphs' static state,
+  step run at batch = slots as CUDA graphs (``graphs.StepGraphs``, one
+  memory pool a multiplexer; each eager at its first call, captured at its
+  second), for the live functions and for a bundle's callables alike; the pool is the graphs' static state,
   written in place by each tick, and admitting a session is one
   ``index_copy_`` of its row into it, outside the graphs.  On the CPU both
   run eagerly and each tick makes a new pool tree.

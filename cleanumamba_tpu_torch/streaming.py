@@ -489,9 +489,10 @@ class Streamer:
     in ``dtype``.
 
     On a CUDA device the single-frame step (of whichever mode) and the block
-    step are each captured once per (batch, n_frames) as a CUDA graph
-    (``graphs.StepGraphs``, one memory pool a ``Streamer``) and replayed;
-    the int8 view's dequantization is replayed inside them.  ``prime`` runs
+    step run as CUDA graphs per (batch, n_frames) (``graphs.StepGraphs``,
+    one memory pool a ``Streamer``): a shape's first step runs eagerly, its
+    second is captured, the later ones replay; the int8 view's
+    dequantization is replayed inside them.  ``prime`` runs
     eagerly, and its state becomes the graphs' static state: ``self.state``
     is then updated in place by every step (a reference to one of its
     leaves sees the new values).  On the CPU every step runs eagerly and

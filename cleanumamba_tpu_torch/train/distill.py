@@ -5,17 +5,20 @@ The reference's loss supports KD (util.py:215-327: student skip -> 1x1
 projection + batch norm, teacher skip -> batch norm, log(sum |diff|^4) per
 connection, after Miles & Mikolajczyk 2023), but its student-teacher training loop
 is not shipped; the JAX package supplies the adapters and a KD train step,
-and so does this module.  There is no KD CLI in either package.
+and so does this module.  There is no KD CLI in either package.  On a card
+:func:`graph_kd_step` replays the step as a CUDA graph, as the JAX
+package's callers jit it with the trainable state donated.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import Callable, List
 
 import torch
 
 from cleanumamba_tpu_torch.config import CleanUMambaConfig, LossConfig
+from cleanumamba_tpu_torch.graphs import StepGraphs
 from cleanumamba_tpu_torch.losses import loss_fn
 from cleanumamba_tpu_torch.models.cleanumamba import forward
 from cleanumamba_tpu_torch.params import resolve_device, tensor_leaves, tree_map, tree_unflatten
@@ -106,3 +109,46 @@ def make_kd_train_step(student_cfg: CleanUMambaConfig, teacher_cfg: CleanUMambaC
         return params, adapters, opt_state, aux
 
     return step
+
+
+def graph_kd_step(step, device) -> Callable:
+    """``step`` (from :func:`make_kd_train_step`) as a CUDA graph per (B, L),
+    run eagerly at a shape's first call, captured at its second and replayed
+    after: the counterpart of ``jax.jit(step, donate_argnums=(0, 1, 2))``.
+
+    Returns ``kd_step(params, adapters, opt_state, teacher_params, batch) ->
+    (params, adapters, opt_state, aux)``.  The trainable state is donated as
+    in ``trainer.graph_train_step``: the first call adopts the three trees
+    as the graphs' static buffers and every call writes the new values into
+    them (the returned trees are those buffers); a call given other trees
+    copies their values in first.  The frozen teacher is read in place: the
+    graphs read the tensors of the first call's ``teacher_params`` (an
+    in-place change to them is seen), and a call with a teacher tree of
+    other tensors raises.  ``aux`` lives in the graph's memory until the
+    next step; ``batch`` is copied into the graph's inputs.  On the CPU
+    ``step`` runs as it is, on the same checks.
+    """
+    graphs = StepGraphs(device) if torch.device(device).type == "cuda" else None
+    frozen = []  # the first call's teacher tree and its tensor leaves
+
+    def body(state, clean, noisy):
+        params, adapters, opt_state, aux = step(state[0], state[1], state[2], frozen[0],
+                                                (clean, noisy))
+        return [params, adapters, opt_state], aux
+
+    def kd_step(params, adapters, opt_state, teacher_params, batch):
+        leaves = tensor_leaves(teacher_params)
+        if not frozen:
+            frozen.extend((teacher_params, leaves))
+        elif len(leaves) != len(frozen[1]) or any(a is not b for a, b in zip(leaves, frozen[1])):
+            raise ValueError("graph_kd_step: the graphs read the teacher of the first call in "
+                             "place; pass that tree (change its tensors in place to update it)")
+        state = [params, adapters, opt_state]
+        if graphs is None:
+            state, aux = body(state, *batch)
+        else:
+            state, aux = graphs("kd_step", body, state, *batch)
+        return state[0], state[1], state[2], aux
+
+    kd_step.graphs = graphs
+    return kd_step

@@ -140,8 +140,9 @@ def _where(ok, new, old):
 
 
 def graph_train_step(train_step, device) -> Callable:
-    """``train_step`` (from :func:`make_train_step` without a mesh) captured as
-    a CUDA graph per (accum, B, L) and replayed: the counterpart of
+    """``train_step`` (from :func:`make_train_step` without a mesh) as a CUDA
+    graph per (accum, B, L), run eagerly at a shape's first call, captured
+    at its second and replayed after: the counterpart of
     ``jax.jit(train_step, donate_argnums=(0, 1))``.
 
     Returns ``step(params, opt_state, batch) -> (params, opt_state, aux)``.
@@ -179,9 +180,9 @@ def make_device_data_steps(step_fn, batch: int, length: int, k_steps: int, accum
     ``torch.Generator`` on the params' device, advanced by each batch.
 
     On a CUDA device without ``mesh`` the K steps, batch synthesis included,
-    are captured as one CUDA graph (the counterpart of the JAX stepper's
-    jitted ``lax.scan``) with ``generator`` registered to it, and replayed
-    at each call; params and opt_state are donated as in
+    are one CUDA graph (the counterpart of the JAX stepper's jitted
+    ``lax.scan``) with ``generator`` registered to it: the first call runs
+    them eagerly, the second captures them, the later ones replay; params and opt_state are donated as in
     :func:`graph_train_step`, and every call must pass the generator of the
     first.  ``step_fn`` must then be the eager step of
     :func:`make_train_step` (without a mesh).  Elsewhere the K steps run

@@ -229,3 +229,19 @@ def test_data_mesh_refuses_a_rank_without_its_card(monkeypatch):
     monkeypatch.setenv("MASTER_PORT", "29500")
     with pytest.raises(RuntimeError, match="does not exist"):
         make_mesh()
+
+
+def test_compiled_dispatch_is_covered():
+    """The CUDA graph owners and the paths that replay them are among the
+    sources checked above, with the public functions of the offline slice."""
+    from cleanumamba_tpu_torch import graphs
+    from cleanumamba_tpu_torch.cli.serve import make_bench_run
+    from cleanumamba_tpu_torch.prune.driver import make_loss_and_grad
+    from cleanumamba_tpu_torch.train.distill import graph_kd_step
+
+    names = {str(p.relative_to(ROOT / "cleanumamba_tpu_torch")) for p in SOURCES
+             if "cleanumamba_tpu_torch" in p.parts}
+    assert {"graphs.py", "train/distill.py", "train/trainer.py", "prune/driver.py",
+            "cli/serve.py", "cli/denoise.py", "cli/finetune.py", "eval/validate.py"} <= names
+    assert all(callable(f) for f in (graphs.StepGraphs, graphs.ForwardGraphs, make_bench_run,
+                                     make_loss_and_grad, graph_kd_step))
