@@ -63,6 +63,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from cleanumamba_tpu_torch import tracing
 from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan, selective_scan_bwd
 from cleanumamba_tpu_torch.ops.cuda.stream_fused import fused_decoder_level, fused_encoder_level
 from cleanumamba_tpu_torch.ops.cuda.stream_mega import mega_stream_step
@@ -198,27 +199,39 @@ class StepGraphs:
         ``fn(*inputs) -> out``; returns ``out``.  The first call of a key
         runs ``fn`` eagerly on the card; the second captures it, and the
         later ones replay what was captured (``fn`` is not read again)."""
-        if state is not None:
-            if self.state is None:
-                self.state = _distinct(state)
-            elif not _same_leaves(state, self.state):
-                write_back(self.state, state)
         key = (tag, _shape_key(inputs))
         if key not in self._graphs:
             if key not in self._seen:
-                self._seen.add(key)
-                inputs = [x.to(self.device) for x in inputs]
-                if state is None:
-                    return fn(*inputs)
-                return self.state, step_in_place(fn, self.state, *inputs)
-            self._graphs[key] = self._capture(key, fn, state is not None, inputs)
+                with tracing.span("graphs.eager", tag):
+                    self._seen.add(key)
+                    self._adopt(state)
+                    inputs = [x.to(self.device) for x in inputs]
+                    if state is None:
+                        return fn(*inputs)
+                    return self.state, step_in_place(fn, self.state, *inputs)
+            with tracing.span("graphs.capture", tag):
+                self._adopt(state)
+                self._graphs[key] = self._capture(key, fn, state is not None, inputs)
         graph, static_in, out, moved = self._graphs[key]
-        for dst, src in zip(static_in, inputs):
-            dst.copy_(src)
-        graph.replay()
-        for (wrapper, attr), n in zip(launch_counters(), moved):
-            setattr(wrapper, attr, getattr(wrapper, attr) + n)
+        with tracing.span("graphs.copy_in", tag):
+            self._adopt(state)
+            for dst, src in zip(static_in, inputs):
+                dst.copy_(src)
+        with tracing.span("graphs.replay", tag):
+            graph.replay()
+            for (wrapper, attr), n in zip(launch_counters(), moved):
+                setattr(wrapper, attr, getattr(wrapper, attr) + n)
         return (self.state, out) if state is not None else out
+
+    def _adopt(self, state) -> None:
+        """Make ``state`` the static state: the first one given is kept (its
+        leaves donated), a later tree of other leaves is copied in."""
+        if state is None:
+            return
+        if self.state is None:
+            self.state = _distinct(state)
+        elif not _same_leaves(state, self.state):
+            write_back(self.state, state)
 
     def _capture(self, key, fn, stateful, inputs):
         static_in = [x.to(self.device, copy=True) for x in inputs]
@@ -305,13 +318,14 @@ class ForwardGraphs:
     def __call__(self, params, *inputs):
         if self._graphs is None:
             return self.fn(params, *inputs)
-        layout = _layout(params)
-        if layout != self._layout:
-            if self._layout is not None:
-                self.reset()
-            self.params, self._layout = own(params), layout
-        else:
-            write_back(self.params, params)
+        with tracing.span("graphs.params_sync"):
+            layout = _layout(params)
+            if layout != self._layout:
+                if self._layout is not None:
+                    self.reset()
+                self.params, self._layout = own(params), layout
+            else:
+                write_back(self.params, params)
         return self._graphs("forward", self._body, None, *inputs)
 
     def _body(self, *inputs):

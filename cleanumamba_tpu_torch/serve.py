@@ -50,6 +50,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from cleanumamba_tpu_torch import tracing
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
 from cleanumamba_tpu_torch.graphs import StepGraphs, own
 from cleanumamba_tpu_torch.params import (
@@ -218,13 +219,14 @@ class SessionMultiplexer:
         return sum(o.shape[0] for o in self._out[sid])
 
     def _drain(self, sid: int) -> np.ndarray:
-        outs = self._out[sid]
-        self._out[sid] = []
-        if not outs:
-            return np.zeros(0, np.float32)
-        out = np.concatenate(outs)
-        self._emitted[sid] += out.shape[0]
-        return out
+        with tracing.span("mux.drain", sid):
+            outs = self._out[sid]
+            self._out[sid] = []
+            if not outs:
+                return np.zeros(0, np.float32)
+            out = np.concatenate(outs)
+            self._emitted[sid] += out.shape[0]
+            return out
 
     def _admit_ready(self) -> None:
         """Prime every buffering session that has a full first frame."""
@@ -233,22 +235,23 @@ class SessionMultiplexer:
             if not (self._open[sid] and not self._primed[sid]
                     and self._buf[sid].shape[0] >= fl):
                 continue
-            frames = np.zeros((self.slots, fl), np.float32)
-            frames[sid] = self._buf[sid][:fl]
-            self._buf[sid] = self._buf[sid][fl:]
-            frames = torch.from_numpy(frames)
-            if self._graphs is None:
-                state, out = self._prime(self.params, frames.to(self.device))
-            else:  # the graph's outputs: read before its next replay
-                state, out = self._graphs("prime", self._prime_body, None, frames)
-            if self.pool is None:
-                self.pool = own(state)
-            else:  # batch-leading: one splice admits the session
-                row = self._rows([sid])
-                _map_rows(lambda pool, one: pool.index_copy_(0, row, one[sid:sid + 1]),
-                          self.slots, self.pool, state)
-            self._out[sid].append(out[sid].float().cpu().numpy())
-            self._primed[sid] = True
+            with tracing.span("mux.admit", sid):
+                frames = np.zeros((self.slots, fl), np.float32)
+                frames[sid] = self._buf[sid][:fl]
+                self._buf[sid] = self._buf[sid][fl:]
+                frames = torch.from_numpy(frames)
+                if self._graphs is None:
+                    state, out = self._prime(self.params, frames.to(self.device))
+                else:  # the graph's outputs: read before its next replay
+                    state, out = self._graphs("prime", self._prime_body, None, frames)
+                if self.pool is None:
+                    self.pool = own(state)
+                else:  # batch-leading: one splice admits the session
+                    row = self._rows([sid])
+                    _map_rows(lambda pool, one: pool.index_copy_(0, row, one[sid:sid + 1]),
+                              self.slots, self.pool, state)
+                self._out[sid].append(out[sid].float().cpu().numpy())
+                self._primed[sid] = True
 
     def _rows(self, sids):
         return torch.tensor(sids, dtype=torch.long, device=self.device)
@@ -269,22 +272,26 @@ class SessionMultiplexer:
                      if self._primed[s] and self._buf[s].shape[0] >= tick]
             if not ready:
                 return
-            # primed but starved sessions must not advance: their rows ride the
-            # step on zeros and the mask keeps their old state
-            live = np.array([[not (self._primed[s] and s not in ready)]
-                             for s in range(self.slots)])
-            new = np.zeros((self.slots, tick), np.float32)
-            for s in ready:
-                new[s] = self._buf[s][:tick]
-                self._buf[s] = self._buf[s][tick:]
-            live, new = torch.from_numpy(live), torch.from_numpy(new)
-            if self._graphs is None:
-                self.pool, out = self._step_body(self.pool, live.to(self.device),
-                                                 new.to(self.device))
-            else:
-                self.pool, out = self._graphs("step", self._step_body, self.pool, live, new)
-            out = out.float().cpu().numpy()  # the tick's one copy to the host
-            for s in ready:
-                self._out[s].append(out[s])
-            self.ticks += 1
+            with tracing.span("mux.tick"):
+                with tracing.span("mux.pack"):
+                    # primed but starved sessions must not advance: their rows ride
+                    # the step on zeros and the mask keeps their old state
+                    live = np.array([[not (self._primed[s] and s not in ready)]
+                                     for s in range(self.slots)])
+                    new = np.zeros((self.slots, tick), np.float32)
+                    for s in ready:
+                        new[s] = self._buf[s][:tick]
+                        self._buf[s] = self._buf[s][tick:]
+                    live, new = torch.from_numpy(live), torch.from_numpy(new)
+                if self._graphs is None:
+                    self.pool, out = self._step_body(self.pool, live.to(self.device),
+                                                     new.to(self.device))
+                else:
+                    self.pool, out = self._graphs("step", self._step_body, self.pool, live,
+                                                  new)
+                with tracing.span("mux.copy_out"):
+                    out = out.float().cpu().numpy()  # the tick's one copy to the host
+                for s in ready:
+                    self._out[s].append(out[s])
+                self.ticks += 1
             self._admit_ready()

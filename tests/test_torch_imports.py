@@ -146,7 +146,7 @@ def test_new_modules_are_covered():
     names = {str(p.relative_to(ROOT / "cleanumamba_tpu_torch")) for p in SOURCES
              if "cleanumamba_tpu_torch" in p.parts}
     assert {"eval/__init__.py", "eval/metrics.py", "eval/pesq_p862.py", "eval/synth.py",
-            "eval/validate.py", "utils.py", "cli/evaluate.py"} <= names
+            "eval/validate.py", "utils.py", "cli/evaluate.py", "tracing.py"} <= names
 
 
 def test_evaluate_cli_takes_the_gpu_by_default():
