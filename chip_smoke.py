@@ -23,7 +23,10 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
    states, a repeated call bit for bit.  K3/K4: every E8 level at block 1, with and
    without ``prev``; batch 2 and 8 at the four deepest levels; every ragged
    level of the pruned checkpoint; a repeated call bit for bit; the other
-   GLU gate activations in fp32.  Their times are device times from a
+   GLU gate activations in fp32; every E8 level at batch 16 with bf16
+   weights in fp32 packs fed fp32 (the tensor cores), the windows a view and
+   the skip a slice of a longer output as the multiplexer's tick passes
+   them.  Their times are device times from a
    ``torch.profiler`` trace of rounds through one frame's 16 level calls
    (per level and launch: us, the bytes it must move, GB/s), beside 16 empty
    launches (the launch floor) and the host's cost per wrapper call;
@@ -93,7 +96,13 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     streamed alone; slots 8 at block 16 (K1 launched) and slots 1 and 8 at
     block 1, each with bf16 and int8 weights: wall, device busy and kernels
     per tick of its traffic, and the batched step's audio-s/s with every
-    slot live (``cli/serve.py --bench`` in process); then ``cli/serve.py``
+    slot live (``cli/serve.py --bench`` in process); the block-1 tick with
+    its levels packed (K3/K4) against the same tick per op, both graphed,
+    for bf16 and fp32 weights with fp32 state and bf16, int8 and fp32
+    weights with bf16 state, at 16 and 8 slots (the first: the benchmark's live
+    multiplexer, the tensor cores): outputs, K3/K4 launches counted over
+    each arm's ticks, device busy and wall a tick, and the constructor's
+    choice to pack or not, which must not lose; then ``cli/serve.py``
     (bench and demo), ``cli/denoise.py`` on a reference-format checkpoint
     and ``cli/stream_demo.py --synthetic`` as subprocesses;
 16. the offline forward of mamba2 (the SSD scan) and mamba_s4 (the S4
@@ -253,10 +262,12 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 # Published peaks of one H100 SXM: device memory 3.35 TB/s; 67 TFLOP/s fp32
-# outside the tensor cores, 989 TFLOP/s dense bf16 in them; the special-function
-# units (exp) have 16 lanes per SM against 128 fp32 lanes: 1/8 of the FMA rate.
+# outside the tensor cores, 989 TFLOP/s dense bf16 and 494.7 dense TF32 in
+# them (K3/K4's fp32 products of bf16 weights take two TF32 products each:
+# "tf32x2", half that rate); the special-function units (exp) have 16 lanes
+# per SM against 128 fp32 lanes: 1/8 of the FMA rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32x2": 494.7e12 / 2}
 SFU_OPS_PER_S = 67e12 / 2 / 8
 
 
@@ -599,18 +610,17 @@ def _dec_case(pk, B, T, rn, has_prev):
     return x, skip, (rn(B, 1, SC).to(cdt) if has_prev else None)
 
 
-def _check_enc(rep, sf, win, pk, label):
+def _check_enc(rep, sf, win, pk, label, kernel="fused_encoder_level"):
     cdt = pk[1]["cdt"]
     got = sf.fused_encoder_level(win, *pk)
     if cdt == torch.float32:
         ref = sf.fused_encoder_level_plain(win, *pk)
     else:
         ref = sf.fused_encoder_level_plain(win.to(cdt).float(), *_fp32_pack(pk))
-    rep.check("fused_encoder_level", label, got, ref,
-              FP32_TOL if cdt == torch.float32 else BF16_TOL)
+    rep.check(kernel, label, got, ref, FP32_TOL if cdt == torch.float32 else BF16_TOL)
 
 
-def _check_dec(rep, sf, x, skip, prev, pk, relu, label):
+def _check_dec(rep, sf, x, skip, prev, pk, relu, label, kernel="fused_decoder_level"):
     cdt = pk[1]["cdt"]
     out, tail = sf.fused_decoder_level(x, skip, prev, *pk, relu=relu)
     if cdt == torch.float32:
@@ -620,8 +630,8 @@ def _check_dec(rep, sf, x, skip, prev, pk, relu, label):
             x.float(), skip.float(), None if prev is None else prev.float(),
             *_fp32_pack(pk), relu=relu)
     tol = FP32_TOL if cdt == torch.float32 else BF16_TOL
-    rep.check("fused_decoder_level", label + " out", out, r_out, tol)
-    rep.check("fused_decoder_level", label + " tail", tail, r_tail, tol)
+    rep.check(kernel, label + " out", out, r_out, tol)
+    rep.check(kernel, label + " tail", tail, r_tail, tol)
 
 
 def _level_bytes(sf, pk, *tensors):
@@ -630,11 +640,45 @@ def _level_bytes(sf, pk, *tensors):
     return _nbytes(*sf.unpack_level(*pk).values(), *tensors)
 
 
+MMA_B = 16  # the benchmark's live multiplexer's slots: the batch of its tick's level calls
+
+
+def _mma_level_calls(sf, cfg, params, B, rn, dev):
+    """The E8 tick's 16 level calls at batch ``B``, the weights stored bf16 in
+    fp32 packs (the tensor cores' products), on inputs laid out as
+    ``stream_step`` lays them: encoder level i's windows a view of the suffix
+    of level i - 1's output (of the frame at level 0), decoder level j's skip
+    the first T tokens of encoder level D - 1 - j's output.  Returns (encoder
+    calls (win, pk), decoder calls (x, skip, prev, pk, relu))."""
+    from cleanumamba_tpu_torch.params import prepare_weight_view
+    from cleanumamba_tpu_torch.streaming import _level_strides, stream_prime
+
+    K, S, D = cfg.kernel_size, cfg.stride, cfg.encoder_n_layers
+    stored = prepare_weight_view(params, "bf16")[0]
+    state, _ = stream_prime(params, cfg, torch.zeros(1, cfg.frame_length, device=dev))
+    strides = _level_strides(cfg)
+    # the step's level outputs: the cache before the new tokens
+    lengths = [cfg.frame_length] + [c.shape[1] + t for c, t in zip(state["enc"], strides)]
+    enc, dec = [], []
+    for i, ep in enumerate(stored["encoder"]):
+        pk = sf.pack_encoder_level(ep, cfg, i, torch.float32)
+        level_in = rn(B, lengths[i], pk[1]["Cin"])
+        enc.append((sf.encoder_windows(level_in[:, -(K + S * (strides[i] - 1)):], K, S), pk))
+    for j, dp in enumerate(stored["decoder"]):
+        pk = sf.pack_decoder_level(dp, cfg, D - 1 - j, torch.float32)
+        x, _, prev = _dec_case(pk, B, S ** j, rn, True)
+        skip = rn(B, lengths[D - j], pk[1]["Cx"])[:, :S ** j]
+        dec.append((x, skip, prev, pk, j != D - 1))
+    return enc, dec
+
+
 def check_fused(dev, cfg, params, rep: Report, smi):
     """K3/K4 at every E8 level at block 1 (T = 2^(7-i) tokens at encoder
     level i), fp32 and bf16 packs, with and without a decoder prev tail; at
     batch 2 and 8 on the four deepest levels; on the ragged levels of the
-    pruned checkpoint; a repeated call bit for bit; then their times."""
+    pruned checkpoint; every level at batch ``MMA_B`` with bf16 weights in
+    fp32 packs on the multiplexer's strided inputs (the tensor cores); a
+    repeated call bit for bit; then their times."""
     from cleanumamba_tpu_torch.ops.cuda import stream_fused as sf
     from cleanumamba_tpu_torch.params import load_checkpoint
 
@@ -734,17 +778,46 @@ def check_fused(dev, cfg, params, rep: Report, smi):
         x, skip, prev = _dec_case(pk, 1, S ** (D - 5), rn, True)
         _check_dec(rep, sf, x, skip, prev, pk, True, f"level {D - 5} pack=fp32 act={act}")
 
+    # bf16 weights in an fp32 pack fed fp32 (the tensor cores), as the
+    # 16-slot multiplexer's tick calls them: every E8 level at B = 16, the
+    # windows a view of the level input's suffix (encoder_windows), the skip
+    # the first T tokens of the encoder level's longer output (rev_skips[j][:, :T])
+    mma_enc, mma_dec = _mma_level_calls(sf, cfg, params, MMA_B, rn, dev)
+    for i, (win, pk) in enumerate(mma_enc):
+        if win.is_contiguous() and win.shape[1] > 1:
+            raise AssertionError(f"level {i}: encoder_windows copied its input")
+        _check_enc(rep, sf, win, pk, f"level {i} B={MMA_B} T={win.shape[1]} bf16 weights "
+                   "pack=fp32 (windows a view)", "fused_encoder_level_mma")
+    for j, (x, skip, prev, pk, relu) in enumerate(mma_dec):
+        if skip.is_contiguous() and skip.shape[1] > 1:
+            raise AssertionError(f"level {j}: the skip is no slice of a longer output")
+        _check_dec(rep, sf, x, skip, prev, pk, relu, f"level {j} B={MMA_B} T={x.shape[1]} "
+                   "bf16 weights pack=fp32 (skip a slice)", "fused_decoder_level_mma")
+    (win, pk), (x, skip, prev, pk4, relu) = mma_enc[0], mma_dec[-1]
+    for what, call in (("K3 level 0", lambda: [sf.fused_encoder_level(win, *pk)]),
+                       (f"K4 level {D - 1}",
+                        lambda: sf.fused_decoder_level(x, skip, prev, *pk4, relu=relu))):
+        first = [t.clone() for t in call()]
+        if not all(torch.equal(a, b) for _ in range(3) for a, b in zip(call(), first)):
+            raise AssertionError(f"{what} B={MMA_B} on the tensor cores: a repeated call differs")
+    print(f"  K3 (level 0) and K4 (level {D - 1}) at B={MMA_B} on the tensor cores: 3 repeated "
+          "calls bitwise equal")
+
     # bounds of the 8 levels together: windows/x/skip/prev and packs in, outputs
-    # out; 2 operations per multiply-add of the level's products
+    # out (in the pack's compute dtype); 2 operations per multiply-add of the
+    # level's products
+    def out_size(pk):
+        return torch.empty(0, dtype=pk[1]["cdt"]).element_size()
+
     def enc_work(win, pk):
         M, w = win.shape[0] * win.shape[1], sf.unpack_level(*pk)
-        return (_level_bytes(sf, pk, win) + M * (pk[1]["C2"] // 2) * 2,
+        return (_level_bytes(sf, pk, win) + M * (pk[1]["C2"] // 2) * out_size(pk),
                 2 * M * (w["cw"].numel() + w["mwa"].numel() + w["mwb"].numel()))
 
     def dec_work(x, skip, prev, pk):
         M, w = x.shape[0] * x.shape[1], sf.unpack_level(*pk)
         return (_level_bytes(sf, pk, x, skip, prev)
-                + (M + x.shape[0]) * S * pk[1]["Cout"] * 2,
+                + (M + x.shape[0]) * S * pk[1]["Cout"] * out_size(pk),
                 2 * M * sum(w[k].numel() for k in ("mwa", "mwb", "cwlo", "cwhi")))
 
     enc_w = [enc_work(win, pk) for win, pk in enc_calls]
@@ -753,6 +826,9 @@ def check_fused(dev, cfg, params, rep: Report, smi):
         sum(b for b, _ in enc_w), sum(f for _, f in enc_w), torch.bfloat16)
     rep.bound["fused_decoder_level"] = _bound(
         sum(b for b, _ in dec_w), sum(f for _, f in dec_w), torch.bfloat16)
+    mma_w = ([enc_work(*c) for c in mma_enc], [dec_work(*c[:4]) for c in mma_dec])
+    for name, work in zip(("fused_encoder_level_mma", "fused_decoder_level_mma"), mma_w):
+        rep.bound[name] = _bound(sum(b for b, _ in work), sum(f for _, f in work), "tf32x2")
 
     # device time per level from a trace: rounds of one frame's 16 level calls
     def enc_fn(win, pk):
@@ -763,17 +839,20 @@ def check_fused(dev, cfg, params, rep: Report, smi):
 
     frame = [enc_fn(*c) for c in enc_calls] + [dec_fn(*c) for c in dec_calls]
     total = {}
-    for B, calls, work, levels in (
-            (1, frame, enc_w + dec_w, list(range(D)) + list(range(D))),
-            (8, [enc_fn(*c) for c in deep_enc] + [dec_fn(*c) for c in deep_dec],
+    mma_case = f"B={MMA_B} fp32 pack of bf16 weights"
+    for case, calls, work, levels in (
+            ("B=1 bf16", frame, enc_w + dec_w, list(range(D)) + list(range(D))),
+            ("B=8 bf16", [enc_fn(*c) for c in deep_enc] + [dec_fn(*c) for c in deep_dec],
              [enc_work(*c) for c in deep_enc] + [dec_work(*c[:4]) for c in deep_dec],
-             list(range(D - 4, D)) + list(range(4)))):
+             list(range(D - 4, D)) + list(range(4))),
+            (mma_case, [enc_fn(*c) for c in mma_enc] + [dec_fn(*c) for c in mma_dec],
+             mma_w[0] + mma_w[1], list(range(D)) + list(range(D)))):
         n_enc = len(calls) // 2
         for c, ((kernels, busy, span), (nb, _), lvl) in enumerate(
                 zip(_trace_calls(calls, 2), work, levels)):
             name = "K3" if c < n_enc else "K4"
-            total[name, B] = total.get((name, B), 0.0) + busy
-            print(f"  {name} level {lvl} B={B} bf16, device us from a trace on {smi}: "
+            total[name, case] = total.get((name, case), 0.0) + busy
+            print(f"  {name} level {lvl} {case}, device us from a trace on {smi}: "
                   f"launch 1 {kernels[0]:.2f}, launch 2 {kernels[1]:.2f}, busy {busy:.2f}, first "
                   f"start to last end {span:.2f}; must move {nb / 1e6:.3f} MB: "
                   f"{nb / busy / 1e3:.1f} GB/s")
@@ -808,11 +887,22 @@ def check_fused(dev, cfg, params, rep: Report, smi):
                                        ("fused_decoder_level", "K4", frame[D:], plains[1])):
         loop_ms = _time_ms(lambda: [fn() for fn in thunks])
         plain_ms = _time_ms(plain)
-        rep.ms[name] = (total[short, 1] / 1e3, plain_ms)
+        rep.ms[name] = (total[short, "B=1 bf16"] / 1e3, plain_ms)
         print(f"  {name} all 8 E8 levels at block 1, bf16, on {smi}: device "
-              f"{total[short, 1] / 1e3:.4f} ms (trace; B=8 levels 4-7: "
-              f"{total[short, 8] / 1e3:.4f} ms), plain {plain_ms:.4f} ms; a loop of wrapper "
-              f"calls timed with events (the host's launch rate): {loop_ms:.4f} ms")
+              f"{total[short, 'B=1 bf16'] / 1e3:.4f} ms (trace; B=8 levels 4-7: "
+              f"{total[short, 'B=8 bf16'] / 1e3:.4f} ms), plain {plain_ms:.4f} ms; a loop of "
+              f"wrapper calls timed with events (the host's launch rate): {loop_ms:.4f} ms")
+    for name, short, plain in (
+            ("fused_encoder_level_mma", "K3",
+             lambda: [sf.fused_encoder_level_plain(win, *pk) for win, pk in mma_enc]),
+            ("fused_decoder_level_mma", "K4",
+             lambda: [sf.fused_decoder_level_plain(x, s, p, *pk, relu=r)
+                      for x, s, p, pk, r in mma_dec])):
+        plain_ms = _time_ms(plain)
+        rep.ms[name] = (total[short, mma_case] / 1e3, plain_ms)
+        print(f"  {name} all 8 E8 levels, {mma_case} (the tensor cores), on {smi}: device "
+              f"{total[short, mma_case] / 1e3:.4f} ms (trace), plain {plain_ms:.4f} ms; bound "
+              f"{rep.bound[name][0]:.4f} ms ({rep.bound[name][1]})")
 
 
 # --------------------------------------------------------------------------
@@ -1988,6 +2078,120 @@ def _serve_solo(view, cfg, audio, dev):
     return torch.cat(outs).cpu().numpy()
 
 
+# (weights, state dtype, slots) of the packed ticks against the per-op ticks:
+# the benchmark's live multiplexer first (bf16 weights, fp32 state, 16 slots)
+TICK_CASES = [(w, d, n) for w, d in (("bf16", torch.float32), ("fp32", torch.float32),
+                                     ("bf16", torch.bfloat16), ("int8", torch.bfloat16),
+                                     ("fp32", torch.bfloat16))
+              for n in (MMA_B, 8)]
+CHOICE_MARGIN = 0.05  # the constructor's choice may lose by this share of a tick at most
+
+
+def _tick_times(mux, x, rounds):
+    """``mux``'s ticks over ``x`` (slots, frame + 3 * rounds ticks): every
+    slot's first frame, then rounds of one tick's samples to each slot in
+    turn (a tick a feed): ``rounds`` to warm up (eager, captured), ``rounds``
+    timed, ``rounds`` traced.  Returns (each slot's output, wall ms a tick,
+    device-busy ms a tick, ticks)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fl, tick, slots = mux.cfg.frame_length, mux.tick_samples, mux.slots
+    outs = []
+    for s in range(slots):
+        mux.open()
+        outs.append([mux.feed(s, x[s, :fl])])
+
+    def feed_rounds(r0):
+        for r in range(r0, r0 + rounds):
+            for s in range(slots):
+                outs[s].append(mux.feed(s, x[s, fl + r * tick: fl + (r + 1) * tick]))
+
+    feed_rounds(0)
+    torch.cuda.synchronize()
+    t0, n0 = time.perf_counter(), mux.ticks
+    feed_rounds(rounds)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / (mux.ticks - n0)
+    n1 = mux.ticks
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        feed_rounds(2 * rounds)
+        torch.cuda.synchronize()
+    busy, _ = _device_busy(prof)
+    return [np.concatenate(o) for o in outs], wall * 1e3, busy / (mux.ticks - n1), mux.ticks
+
+
+def check_tick_packs(dev, cfg, params32, smi):
+    """Phase 15 (b): the multiplexer's block-1 tick with its levels packed
+    (K3/K4) against the same tick per op, each graphed, on one traffic, for
+    every ``TICK_CASES`` entry: the outputs (fp32 state 1e-4, bf16 4e-2 of
+    max|ref|), K3/K4's launches (counted from zero over each arm's ticks: a
+    tick launches each packed level once; per op none), and device-busy and
+    wall ms a tick.  The constructor's own choice (``packed_levels``) is
+    one arm; the other runs through ``fns``.  Its choice must not lose by
+    more than ``CHOICE_MARGIN`` of a tick.  Returns the K3/K4 launches of the
+    first case (the tensor cores' products) for the kernel table."""
+    from cleanumamba_tpu_torch.ops.cuda import stream_fused as sf
+    from cleanumamba_tpu_torch.params import prepare_weight_view
+    from cleanumamba_tpu_torch.serve import SessionMultiplexer
+    from cleanumamba_tpu_torch.streaming import stream_prime, stream_step, without_packed_levels
+
+    kernels = (sf.fused_encoder_level, sf.fused_decoder_level)
+    rng = np.random.default_rng(151)
+    rounds, D = 4, cfg.encoder_n_layers
+    first, faults = None, []
+    for weights, dtype, slots in TICK_CASES:
+        stored, view = prepare_weight_view(params32, weights, dtype)
+        packs = sf.pack_stream_params(stored, cfg, dtype)
+
+        def fns(pk, stored=stored, view=view, dtype=dtype):
+            return {"prime": lambda p, f: stream_prime(view(stored), cfg, f, dtype),
+                    "step": lambda p, s, n: stream_step(view(p), cfg, s, n, dtype, packs=pk)}
+
+        live = SessionMultiplexer(params32, cfg, slots=slots, dtype=dtype, weights=weights)
+        arms = {
+            "packed": live if live.packed_levels else SessionMultiplexer(
+                without_packed_levels(stored, packs[1]), cfg, slots=slots, dtype=dtype,
+                fns=fns(packs)),
+            "per-op": SessionMultiplexer(stored, cfg, slots=slots, dtype=dtype, fns=fns(None))
+            if live.packed_levels else live}
+        x = (rng.normal(size=(slots, cfg.frame_length + 3 * rounds * live.tick_samples)) * 0.1
+             ).astype(np.float32)
+        got = {}
+        for arm, mux in arms.items():
+            for k in kernels:
+                k.launches = k.int8_launches = 0
+            outs, wall, busy, ticks = _tick_times(mux, x, rounds)
+            counts = [k.launches + k.int8_launches for k in kernels]
+            want = [ticks * D if arm == "packed" else 0] * 2
+            if counts != want:
+                faults.append(f"{weights}/{dtype}/{slots} {arm}: K3/K4 launches {counts}, "
+                              f"expected {want} over {ticks} ticks")
+            got[arm] = (outs, wall, busy)
+            if first is None:
+                first = {"fused_encoder_level_mma": counts[0],
+                         "fused_decoder_level_mma": counts[1]}
+        # each bf16 arm lies within BF16_TOL of the fp32 tick, so the two within twice it
+        tol = FP32_TOL if dtype == torch.float32 else 2 * BF16_TOL
+        rel = max(_rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
+                  for a, b in zip(got["packed"][0], got["per-op"][0]))
+        (_, wall_p, busy_p), (_, wall_o, busy_o) = got["packed"], got["per-op"]
+        chosen, other = (busy_p, busy_o) if live.packed_levels else (busy_o, busy_p)
+        print(f"  tick of {weights} weights, {str(dtype)[6:]} state, {slots} slots on {smi}: "
+              f"the constructor packs {live.packed_levels} levels; packed (K3/K4) device busy "
+              f"{busy_p:.4f} ms a tick, wall {wall_p:.4f}; per op busy {busy_o:.4f}, wall "
+              f"{wall_o:.4f}; packed / per op {busy_p / busy_o:.3f}; outputs rel {rel:.3e} "
+              f"(tol {tol:g})", flush=True)
+        if not rel <= tol:
+            faults.append(f"{weights}/{dtype}/{slots}: packed vs per-op outputs rel {rel:.3e}")
+        if chosen > (1 + CHOICE_MARGIN) * other:
+            faults.append(f"{weights}/{dtype}/{slots}: the constructor's choice "
+                          f"({live.packed_levels} levels packed) takes {chosen:.4f} ms a tick, "
+                          f"the other {other:.4f}")
+    if faults:
+        raise AssertionError("packed ticks: " + "; ".join(faults))
+    return first
+
+
 def run_multiplexer(dev, cfg, params32, smi, scan):
     """Phase 15: ``SessionMultiplexer`` on E8 at full width.  Three staggered
     sessions (int8 weights, fp32 state) equal each streamed alone; slots 8 at
@@ -1995,7 +2199,9 @@ def run_multiplexer(dev, cfg, params32, smi, scan):
     int8: traffic through the multiplexer (one tick a feed), its wall and
     device-busy per tick, and the batched step's throughput with every slot
     live (``cli/serve.py``'s bench, in process); then the serving CLIs as
-    subprocesses.  Returns K1's launches on the multiplexer's block-16 runs."""
+    subprocesses.  Between them, ``check_tick_packs``.  Returns K1's launches
+    on the multiplexer's block-16 runs, and the tensor cores' K3/K4 launches
+    (``check_tick_packs``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from cleanumamba_tpu_torch.cli import serve as serve_cli
@@ -2078,6 +2284,8 @@ def run_multiplexer(dev, cfg, params32, smi, scan):
                   f"{n_kernels / n_ticks:.0f} kernels a tick; every slot live (bench): tick "
                   f"{bench['tick_ms']} ms, {bench['value']} audio-s/s together")
 
+    mma = check_tick_packs(dev, cfg, params32, smi)
+
     # the serving CLIs as their users start them
     with tempfile.TemporaryDirectory() as tmp:
         from cleanumamba_tpu_torch.convert import save_reference_checkpoint
@@ -2124,7 +2332,7 @@ def run_multiplexer(dev, cfg, params32, smi, scan):
               f"serve demo: {done['serve demo'].stdout.strip().splitlines()[-1]}; denoise (a "
               f"reference-format checkpoint): {done['denoise'].stdout.strip().splitlines()[-1]}; "
               f"stream_demo: {done['stream_demo'].stdout.strip().splitlines()[-1]}")
-    return k1
+    return k1, mma
 
 
 # --------------------------------------------------------------------------
@@ -4859,7 +5067,9 @@ def main() -> int:
     print("phase 14 the int8 serving path (E8 Streamer, int8 K3/K4):", flush=True)
     launches.update(run_int8_streamer(dev, cfg, params32))
     print("phase 15 SessionMultiplexer on E8, and the serving CLIs:", flush=True)
-    launches["selective_scan"] += run_multiplexer(dev, cfg, params32, smi, selective_scan)
+    k1, mma = run_multiplexer(dev, cfg, params32, smi, selective_scan)
+    launches["selective_scan"] += k1
+    launches.update(mma)
     print("phase 16 the offline forward of mamba2 and mamba_s4:", flush=True)
     check_offline_families(dev, smi)
     print("phase 17 evaluation (validate, cli/evaluate.py, validation inside cli/train.py):",
@@ -4921,6 +5131,14 @@ def main() -> int:
         "fused_decoder_level_int8": ("fused_decoder_level_int8",
                                      "cleanumamba_tpu_torch/csrc/stream_fused.cu",
                                      "cleanumamba_tpu/ops/pallas/stream_fused.py:365"),
+        # bf16 weights in an fp32 pack fed fp32 (the tensor cores), at the
+        # multiplexer's 16 slots: launches of its ticks (phase 15)
+        "fused_encoder_level_mma": ("fused_encoder_level_mma",
+                                    "cleanumamba_tpu_torch/csrc/stream_fused.cu",
+                                    "cleanumamba_tpu/ops/pallas/stream_fused.py:297"),
+        "fused_decoder_level_mma": ("fused_decoder_level_mma",
+                                    "cleanumamba_tpu_torch/csrc/stream_fused.cu",
+                                    "cleanumamba_tpu/ops/pallas/stream_fused.py:365"),
     }
     kernels = []
     for fn_name, (kname, src, replaces) in sources.items():

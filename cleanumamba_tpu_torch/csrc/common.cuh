@@ -106,3 +106,21 @@ __device__ __forceinline__ float load_cluster(const float* p, int rank) {
 __device__ __forceinline__ void store_cluster(float* p, int rank, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(cluster_addr(p, rank)), "f"(v) : "memory");
 }
+
+// ---- tensor cores: TF32 products with fp32 accumulation ----
+
+// D (16 x 8) += A (16 x 8) B (8 x 8), TF32 operands (fp32 bit patterns).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = hi + lo, both TF32 (lo carries the 11 bits that hi drops).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}

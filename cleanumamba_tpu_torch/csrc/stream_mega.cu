@@ -331,21 +331,6 @@ __device__ __noinline__ int simt_core(const TW* __restrict__ w, const Rows rows,
 
 // ---- tensor cores, fp32 weights: three TF32 products a step keep fp32 accuracy ----
 
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// x = hi + lo, both TF32 (lo carries the 11 bits that hi drops).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
 // D (16 x 8) += A (16 x 8) B (8 x 8) for k0 .. k0 + 7, transposed: the weights
 // are A (16 output columns x k), the input rows B (k x 8 rows).  Lane
 // (g = lane / 4, q = lane % 4) loads A's columns m_a = m0 + g, m_b = m0 + g + 8

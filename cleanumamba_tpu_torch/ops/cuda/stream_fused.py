@@ -10,16 +10,22 @@ A pack is ``(arrays, meta)``: ``arrays`` a dict of contiguous tensors,
 The weight matrices are stored once, tiled for the kernels (``_tile``: per
 tile of ``TILE`` output columns all contraction rows, a GLU's value and gate
 or a ConvTranspose's lo and hi taps interleaved per row, zero padded at the
-ragged edge), in the compute dtype or, for a ``quant.py`` leaf, as its int8
+ragged edge), in the compute dtype, or in bf16 where a bf16 leaf serves an
+fp32 pack (the kernels widen it exactly, so the pack streams the bytes the
+configuration stores and computes as the per-op path does on the same
+leaf), or, for a ``quant.py`` leaf, as its int8
 values with the per-column fp32 scales tiled the same way (``<name>_scale``:
 per tile the NW x ``TILE`` scales); the biases fp32 in the JAX package's
 shapes; beside them the ``scratch`` that holds a level's first product, sized
 at pack time.  The weight type is per product: at ``min_size=4096`` a level's
 small conv may stay dense while its mix is int8.  An int8 weight computes in
 bf16, as the JAX package's ``_deq`` does: ``bf16(float(q) * scale)`` before
-the product.  ``unpack_level`` gives back
+the product.  On the card a bf16 weight of an fp32 pack fed fp32 is
+multiplied on the tensor cores (``csrc/stream_fused.cu``), which the planner
+(``_plan``'s ``mma``) sizes the shared memory for.  ``unpack_level`` gives back
 the logical ``(K, N)`` matrices under the JAX pack's names (an int8 weight
-dequantised so): the plain versions read the weights through it, so the CPU
+dequantised so, a bf16 weight as stored): the plain versions read the
+weights through it and multiply in fp32, so the CPU
 tests hold the layout and the values the kernels read.  The decoder's grouped
 layout ``(B, T, S*Cout)`` with column order ``k*Cout + cout`` is the JAX
 package's, so ``prev`` and the tail interchange with the per-op path.  The
@@ -106,8 +112,9 @@ def _untile(t, N):
 
 
 def _unpack_weight(arrays, name, N, cdt):
-    """The NW logical matrices of tiled weight ``name``; an int8 weight
-    dequantised as the kernels decode it: ``cdt(float(q) * scale)``."""
+    """The NW logical matrices of tiled weight ``name`` in its stored dtype;
+    an int8 weight dequantised as the kernels decode it:
+    ``cdt(float(q) * scale)``."""
     mats = _untile(arrays[name], N)
     if name + "_scale" not in arrays:
         return mats
@@ -119,7 +126,8 @@ def _unpack_weight(arrays, name, N, cdt):
 def unpack_level(arrays, meta):
     """The logical matrices and biases of a level pack under the JAX pack's
     names (``cw, cb, mwa, mwb, mba, mbb`` or ``mwa, mwb, mba, mbb, cwlo, cwhi,
-    cb_tiled``): what the tiled pack was built from, int8 weights dequantised."""
+    cb_tiled``): what the tiled pack was built from, int8 weights dequantised,
+    a bf16 weight of an fp32 pack in bf16."""
     half, cdt = meta["C2"] // 2, meta["cdt"]
     out = {k: arrays[k] for k in _BIASES if k in arrays}
     out["mwa"], out["mwb"] = _unpack_weight(arrays, "mw", half, cdt)
@@ -130,8 +138,20 @@ def unpack_level(arrays, meta):
     return out
 
 
+def _smem(NW, NI, R, kblk, rpb, esize, mma):
+    """Bytes of dynamic shared memory a block of the plan asks for
+    (``smem_bytes`` of ``csrc/stream_fused.cu``)."""
+    scales = NW * TILE * 4 if esize == 1 else 0
+    if mma:  # every row (and the GLU's skip) staged, kblk + 4 apart; one range's sums
+        rows = (NI + (NW == 2 and NI == 1)) * _cdiv(rpb, 8) * 8
+        staged = rows * (kblk + 4) + (_WARPS // (NW * TILE // 16) - 1) * rpb * NW * TILE
+    else:  # R rows staged; every warp's sums
+        staged = NI * kblk * R + _WARPS * R * NW * TILE
+    return 128 + kblk * TILE * NW * esize + scales + (staged + rpb * NW * TILE) * 4
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(rows, K, N, NW, NI, esize):
+def _plan(rows, K, N, NW, NI, esize, mma=False):
     """How one product (rows, K) @ NW x (K, N) is cut into thread blocks:
     ``(splits, groups, kblk, rpb, R)``, or None if a tile's weights do not fit
     the shared memory of one cluster.
@@ -140,7 +160,10 @@ def _plan(rows, K, N, NW, NI, esize):
     contraction ranges of ``kblk`` rows (the blocks of a cluster: 1, 2, 4 or
     8) and one of ``groups`` row groups of ``rpb`` rows, taken ``R`` at a time.
     ``esize``: bytes of a stored weight (1: int8, whose NW x TILE fp32 scales
-    are staged beside the slab).
+    are staged beside the slab).  ``mma``: the product runs on the tensor
+    cores (bf16 weights in an fp32 pack), which stage every row of a group at
+    once; a contraction is then split further where that staging would not
+    fit.
     A contraction whose whole tile is small (in bf16 bytes) stays in one
     block; otherwise it is halved while a range keeps ``_MIN_RANGE`` rows and
     the grid is short of two blocks an SM.  Rows are split while the grid is
@@ -168,13 +191,14 @@ def _plan(rows, K, N, NW, NI, esize):
                    and _cdiv(K, 2 * splits) >= _MIN_RANGE):
                 splits *= 2
         kblk = _cdiv(_cdiv(K, splits), 8) * 8
+        while (splits < _MAX_SPLITS
+               and _smem(NW, NI, R, kblk, rpb, esize, mma) > _SMEM_LIMIT):
+            splits *= 2
+            kblk = _cdiv(_cdiv(K, splits), 8) * 8
         if rpb <= _GROUP_ROWS and (nt * groups * splits >= _N_SM or rpb <= _ROW_TILES[-1]):
             break
         G *= 2
-    scales = NW * TILE * 4 if esize == 1 else 0
-    smem = (128 + kblk * row_bytes + scales
-            + (NI * R * kblk + (_WARPS * R + rpb) * NW * TILE) * 4)
-    assert smem <= _SMEM_LIMIT, (rows, K, N, NW, NI, esize)
+    assert _smem(NW, NI, R, kblk, rpb, esize, mma) <= _SMEM_LIMIT, (rows, K, N, NW, NI, esize)
     return splits, groups, kblk, rpb, R
 
 
@@ -188,12 +212,15 @@ def _products(kind, B, T, dims):
 
 
 @functools.lru_cache(maxsize=None)
-def _level_plan(kind, B, T, dims, esizes):
+def _level_plan(kind, B, T, dims, esizes, f32=(False, False)):
     """Both products' plans of a level call as the kernels take them (10
     ints), and the elements of scratch (the first product's result) it needs;
     None if a product does not fit (the level then does not pack).
-    ``esizes``: the bytes of each product's stored weight."""
-    plans = [_plan(*p, e) for p, e in zip(_products(kind, B, T, dims), esizes)]
+    ``esizes``: the bytes of each product's stored weight; ``f32``: for each
+    product, whether an fp32 pack multiplies fp32 inputs (a bf16 weight's
+    product then runs on the tensor cores)."""
+    plans = [_plan(*p, e, f and e == 2)
+             for p, e, f in zip(_products(kind, B, T, dims), esizes, f32)]
     if None in plans:
         return None
     return (ctypes.c_int * 10)(*plans[0], *plans[1]), B * T * dims[1]
@@ -220,7 +247,8 @@ def _finish_pack(arrays, meta, device):
         raise TypeError(f"compute dtype {meta['cdt']} not supported (float32 or bfloat16)")
     kind, dims = _level_dims(meta)
     esizes = tuple(_ESIZE[w.dtype] for w in _level_weights(arrays))
-    plans = [_level_plan(kind, B, meta["T"], dims, esizes)
+    f32 = (meta["cdt"] == torch.float32,) * 2
+    plans = [_level_plan(kind, B, meta["T"], dims, esizes, f32)
              for B in range(1, _PACK_BATCH + 1)]
     if None in plans:
         return None
@@ -235,13 +263,15 @@ def check_pack(arrays, meta):
     device = arrays["scratch"].device
     for name, t in arrays.items():
         if name in _BIASES or name.endswith("_scale"):
-            want = torch.float32
+            want = (torch.float32,)
         elif name + "_scale" in arrays:
-            want = torch.int8
+            want = (torch.int8,)
+        elif name in _WEIGHTS:  # a bf16 weight may serve an fp32 pack
+            want = (meta["cdt"], torch.bfloat16)
         else:
-            want = meta["cdt"]
-        if t.dtype != want:
-            raise TypeError(f"pack entry {name} is {t.dtype}, expected {want}")
+            want = (meta["cdt"],)
+        if t.dtype not in want:
+            raise TypeError(f"pack entry {name} is {t.dtype}, expected {want[0]}")
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"pack entry {name} must be contiguous on {device}")
 
@@ -262,11 +292,12 @@ def _cols(m, lo, hi):
 
 
 def _store(arrays, name, mats, cdt):
-    """Tile the NW matrices of one product under ``name``: dense in ``cdt``, or
-    int8 values with their scales under ``name + "_scale"`` (which compute in
+    """Tile the NW matrices of one product under ``name``: dense in ``cdt``
+    (bf16 leaves stay bf16 whatever ``cdt``: widening them is exact), or int8
+    values with their scales under ``name + "_scale"`` (which compute in
     bf16: an int8 pack's compute dtype is bf16, as ``Streamer`` makes it)."""
     if not isinstance(mats[0], tuple):
-        arrays[name] = _tile(mats, cdt)
+        arrays[name] = _tile(mats, torch.bfloat16 if mats[0].dtype == torch.bfloat16 else cdt)
         return
     if cdt != torch.bfloat16:
         raise TypeError(f"int8 weight {name}: an int8 pack computes in bfloat16, not {cdt}")
@@ -360,11 +391,15 @@ def pack_stream_params(params, cfg, compute_dtype=torch.bfloat16):
 
 def encoder_windows(x, K: int, S: int):
     """(B, L, C) -> (B, T, K*C) strided conv windows (K == 2S): window t is
-    the input samples [S*t, S*t + K), sample-major then channel."""
+    the input samples [S*t, S*t + K), sample-major then channel.  A view of
+    ``x`` (of a copy only where a sample's channels or the samples do not lie
+    contiguous): window t starts S*C elements after window t - 1, and K3
+    reads the windows in place."""
     B, L, C = x.shape
     T = (L - K) // S + 1
-    xg = x[:, : (T + 1) * S, :].reshape(B, T + 1, S * C)
-    return torch.cat([xg[:, :-1, :], xg[:, 1:, :]], dim=-1)
+    if x.stride(2) != 1 or x.stride(1) != C:
+        x = x.contiguous()
+    return x.as_strided((B, T, K * C), (x.stride(0), S * C, 1))
 
 
 # --------------------------------------------------------------------------
@@ -372,7 +407,8 @@ def encoder_windows(x, K: int, S: int):
 # --------------------------------------------------------------------------
 
 def _dot(x, w):
-    """fp32-accumulated product of compute-dtype operands (exact products)."""
+    """fp32-accumulated product of operands in the compute dtype or a weight's
+    stored one (exact products)."""
     return x.float() @ w.float()
 
 
@@ -431,14 +467,17 @@ def _no_tokens(x, prev, SC, cdt):
 def _kernels():
     lib = load_library("stream_fused")
     plan_t = ctypes.POINTER(ctypes.c_int)
+    ll = ctypes.c_longlong
     enc = lib.fused_encoder_level
-    enc.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 8 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [plan_t, ctypes.c_void_p])
+    enc.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int, ll, ll]
+                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 4 + [plan_t, ctypes.c_void_p])
     enc.restype = ctypes.c_int
     dec = lib.fused_decoder_level
-    dec.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                    + [ctypes.c_int] * 5 + [plan_t, ctypes.c_void_p])
+    dec.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [ll]
+                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+                    + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                    + [plan_t, ctypes.c_void_p])
     dec.restype = ctypes.c_int
     empty = lib.empty_launches
     empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
@@ -446,16 +485,37 @@ def _kernels():
     return enc, dec, empty
 
 
-def _plan_for(what, arrays, meta, B, T, device):
-    """The level call's plan; the pack's scratch grown if the call is larger
-    than the pack was sized for.  The pack itself was checked when it was made
-    (``check_pack``); here only that it lies where the activations do."""
+def _check_inputs(what, arrays, meta, x):
+    """A bf16 weight in an fp32 pack takes fp32 activations alone: the
+    kernels multiply it on the tensor cores, which read fp32 inputs."""
+    if (meta["cdt"] == torch.float32 and x.dtype != torch.float32
+            and any(w.dtype == torch.bfloat16 for w in _level_weights(arrays))):
+        raise TypeError(f"{what}: bf16 weights in an fp32 pack take float32 activations, "
+                        f"not {x.dtype}")
+
+
+def _on_tensor_cores(meta, weight, x):
+    """Whether a product of ``weight`` over ``x`` runs on the tensor cores
+    (``kMma`` of ``csrc/stream_fused.cu``): a bf16 weight in an fp32 pack, fed
+    fp32.  Only they read a strided input; the SIMT loop reads it contiguous."""
+    return (meta["cdt"] == torch.float32 and weight.dtype == torch.bfloat16
+            and x.dtype == torch.float32)
+
+
+def _plan_for(what, arrays, meta, B, T, x):
+    """The level call's plan for its first product's input ``x``; the pack's
+    scratch grown if the call is larger than the pack was sized for.  The pack
+    itself was checked when it was made (``check_pack``); here only that it
+    lies where the activations do."""
+    device = x.device
     scratch = arrays["scratch"]
     if scratch.device != device:
         raise ValueError(f"{what}: the pack is on {scratch.device}, the activations on {device}")
     kind, dims = _level_dims(meta)
     weights = _level_weights(arrays)
-    plan, need = _level_plan(kind, B, T, dims, tuple(_ESIZE[w.dtype] for w in weights))
+    f32 = meta["cdt"] == torch.float32
+    plan, need = _level_plan(kind, B, T, dims, tuple(_ESIZE[w.dtype] for w in weights),
+                             (f32 and x.dtype == torch.float32, f32))
     if need > scratch.numel():
         arrays["scratch"] = torch.empty(need, dtype=meta["cdt"], device=device)
     return plan, [_WEIGHT_CODES[w.dtype] for w in weights]
@@ -470,11 +530,14 @@ def empty_launches(n: int, device) -> None:
 def fused_encoder_level(win, arrays, meta):
     """K3.  win (B, T, K*Cin) gathered windows -> (B, T, C2/2) in the pack's
     compute dtype: relu(win @ cw + cb) -> (h @ mwa + mba) * act(h @ mwb + mbb).
+    ``win`` may be a strided view whose windows are each contiguous (what
+    :func:`encoder_windows` returns for a level's output).
 
     The kernel for CUDA tensors, the plain version for CPU tensors.  A call
     counts in ``launches``, or in ``int8_launches`` if the pack holds an int8
     weight.
     """
+    _check_inputs("fused_encoder_level", arrays, meta, win)
     if win.device.type == "cpu":
         return fused_encoder_level_plain(win, arrays, meta)
     if win.device.type != "cuda":
@@ -486,14 +549,18 @@ def fused_encoder_level(win, arrays, meta):
         raise ValueError(f"{what}: windows have {KC} features, pack expects "
                          f"{meta['K'] * meta['Cin']}")
     tx = dtype_code(win, what)
-    require_cuda(what, win.device, win=win)
+    if not _on_tensor_cores(meta, arrays["cw"], win):
+        win = win.contiguous()
+    if win.stride(2) != 1:
+        raise ValueError(f"{what}: a window's {KC} features must be contiguous")
     M = B * T
     out = torch.empty((B, T, N2), dtype=cdt, device=win.device)
     if M == 0:
         return out
-    plan, wcodes = _plan_for(what, arrays, meta, B, T, win.device)
+    plan, wcodes = _plan_for(what, arrays, meta, B, T, win)
     status = _kernels()[0](
-        tx, DTYPE_CODES[cdt], *wcodes, ptr(win), ptr(arrays["cw"]), ptr(arrays.get("cw_scale")),
+        tx, DTYPE_CODES[cdt], *wcodes, ptr(win), T, win.stride(0), win.stride(1),
+        ptr(arrays["cw"]), ptr(arrays.get("cw_scale")),
         ptr(arrays["cb"]), ptr(arrays["mw"]), ptr(arrays.get("mw_scale")), ptr(arrays["mba"]),
         ptr(arrays["mbb"]), _ACT_CODES[meta["act"]], ptr(arrays["scratch"]), ptr(out), M, KC, C,
         N2, plan, stream_ptr(win.device))
@@ -514,13 +581,15 @@ fused_encoder_level.int8_launches = 0
 def fused_decoder_level(x, skip, prev, arrays, meta, relu: bool):
     """K4.  One decoder level on T tokens in the grouped layout.
 
-    x, skip (B, T, C); prev (B, 1, S*Cout) overlap tail without the
+    x, skip (B, T, C), skip possibly the first T tokens of a longer (B, L, C)
+    tensor (a strided view); prev (B, 1, S*Cout) overlap tail without the
     ConvTranspose bias, or None.  Returns (out (B, T, S*Cout), tail
     (B, 1, S*Cout)) in the pack's compute dtype: ``out.reshape(B, T*S, Cout)``
     is the level output after overlap-add (and ReLU), ``tail`` the next
     frame's carry (no bias).  The kernel for CUDA tensors, the plain version
     for CPU tensors.  Counted as :func:`fused_encoder_level` is.
     """
+    _check_inputs("fused_decoder_level", arrays, meta, x)
     if x.device.type == "cpu":
         return fused_decoder_level_plain(x, skip, prev, arrays, meta, relu)
     if x.device.type != "cuda":
@@ -538,14 +607,19 @@ def fused_decoder_level(x, skip, prev, arrays, meta, relu: bool):
     if Cx != meta["Cx"]:
         raise ValueError(f"{what}: x has {Cx} channels, pack expects {meta['Cx']}")
     tx = dtype_code(x, what)
-    require_cuda(what, x.device, x=x, skip=skip, prev=prev)
+    if not _on_tensor_cores(meta, arrays["mw"], x):
+        skip = skip.contiguous()
+    if skip.device != x.device or skip.stride(2) != 1 or skip.stride(1) != Cx:
+        raise ValueError(f"{what}: skip must lie on {x.device}, each token {Cx} contiguous "
+                         "channels")
+    require_cuda(what, x.device, x=x, prev=prev)
     if B == 0 or T == 0:
         return _no_tokens(x, prev, SC, cdt)
-    plan, wcodes = _plan_for(what, arrays, meta, B, T, x.device)
+    plan, wcodes = _plan_for(what, arrays, meta, B, T, x)
     out = torch.empty((B, T, SC), dtype=cdt, device=x.device)
     tail = torch.empty((B, 1, SC), dtype=cdt, device=x.device)
     status = _kernels()[1](
-        tx, DTYPE_CODES[cdt], *wcodes, ptr(x), ptr(skip), ptr(arrays["mw"]),
+        tx, DTYPE_CODES[cdt], *wcodes, ptr(x), ptr(skip), skip.stride(0), ptr(arrays["mw"]),
         ptr(arrays.get("mw_scale")), ptr(arrays["mba"]), ptr(arrays["mbb"]),
         _ACT_CODES[meta["act"]], ptr(arrays["scratch"]), ptr(arrays["ctw"]),
         ptr(arrays.get("ctw_scale")), ptr(arrays["cb_tiled"]), ptr(prev), int(relu), ptr(out),

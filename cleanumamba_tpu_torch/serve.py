@@ -31,10 +31,16 @@ sessions riding it.
   written in place by each tick, and admitting a session is one
   ``index_copy_`` of its row into it, outside the graphs.  On the CPU both
   run eagerly and each tick makes a new pool tree.
-- Block 1 runs ``stream_step``; a larger block ``stream_step_block``, whose
-  mamba bottleneck is one selective scan (K1 on CUDA) at batch = slots.  No
-  level packs and no whole-frame kernel: the multiplexer steps the model as
-  the JAX package's does.  The output comes to the host once per tick.
+- Block 1 runs ``stream_step`` with every encoder and decoder level that
+  ``pack_stream_params`` packs as the fused level kernels (K3/K4 on CUDA,
+  their plain versions on the CPU) at batch = slots, inside the tick's
+  graph.  The packs compute in ``dtype`` and keep each weight as stored
+  (bf16 weights stay bf16 in an fp32 pack); int8 weights pack only where
+  ``dtype`` is bf16, as an int8 pack computes in bf16.  Weights stored in
+  ``dtype`` pack only up to ``_SIMT_SLOTS`` slots.  A larger block runs
+  ``stream_step_block``, whose mamba bottleneck is one selective scan (K1 on
+  CUDA) at batch = slots, with no packs; so do a bundle's callables.  No
+  whole-frame kernel.  The output comes to the host once per tick.
 - **Artifact-driven.**  ``SessionMultiplexer.from_bundle`` serves the prime
   and step of an exported bundle (``export.py``): the serving process
   imports no model code; the live-function constructor is the development
@@ -60,6 +66,14 @@ from cleanumamba_tpu_torch.params import (
     tree_leaves,
     tree_unflatten,
 )
+
+
+# Most slots at which a tick packs levels whose weights are stored in its
+# dtype: beyond, cuBLAS's GEMMs outrun the fused kernels' SIMT loop (E8 on an
+# H100, device time a tick at 16 slots: fp32 1.04x, bf16 1.08x the per-op
+# tick; at 8: 0.84x, 0.89x).  bf16 weights in fp32 state (the tensor cores)
+# and int8 weights pack at any slots: the per-op tick converts every weight.
+_SIMT_SLOTS = 8
 
 
 def _map_rows(fn, slots, a, b):
@@ -91,6 +105,9 @@ class SessionMultiplexer:
              functions, e.g. the callables of an exported bundle whose traced
              batch and block are ``slots`` and ``block`` (:meth:`from_bundle`);
              they take ``(params, frame)`` and ``(params, state, samples)``.
+
+    ``packed_levels``: the encoder and decoder levels a tick runs through the
+    fused level kernels (0 on the per-op path).
     """
 
     def __init__(self, params, cfg: CleanUMambaConfig, slots: int = 8, block: int = 1,
@@ -107,24 +124,45 @@ class SessionMultiplexer:
         self.dtype = dtype
         self.tick_samples = block * cfg.total_stride
         self.device = resolve_device(device)
+        self.packed_levels = 0
         if fns is not None:
             if weights != "fp32":
                 raise ValueError(f"SessionMultiplexer: weights={weights!r} with fns: the "
                                  "functions take the params as given")
-            self.params = to_device(params, self.device)
+            self.params = self._step_params = to_device(params, self.device)
             self._prime, self._step = fns["prime"], fns["step"]
         else:
+            from cleanumamba_tpu_torch.ops.cuda.stream_fused import pack_stream_params
             from cleanumamba_tpu_torch.streaming import (
                 stream_prime,
                 stream_step,
                 stream_step_block,
+                without_packed_levels,
             )
 
             self.params, view = prepare_weight_view(to_device(params, self.device), weights,
                                                     dtype)
-            step = stream_step if block == 1 else stream_step_block
+            # the levels pack where the per-op tick converts every weight at
+            # every tick (int8, or a storage type other than ``dtype``), and
+            # otherwise up to _SIMT_SLOTS; an int8 pack computes in bf16
+            converts = weights != ("fp32" if dtype == torch.float32 else "bf16")
+            packs = None
+            if (block == 1 and dtype in (torch.float32, torch.bfloat16)
+                    and (weights != "int8" or dtype == torch.bfloat16)
+                    and (converts or slots <= _SIMT_SLOTS)):
+                # the first tick, eager, grows each scratch to ``slots`` streams
+                packs = pack_stream_params(self.params, cfg, dtype)
+                packs = None if packs[1] is None else packs
+            # what the tick reads: a packed level's weights are in its pack
+            self._step_params = (self.params if packs is None
+                                 else without_packed_levels(self.params, packs[1]))
+            if packs is not None:
+                self.packed_levels = sum(m is not None for m in packs[1]["enc"] + packs[1]["dec"])
             self._prime = lambda p, f: stream_prime(view(p), cfg, f, dtype)
-            self._step = lambda p, s, n: step(view(p), cfg, s, n, dtype)
+            if block == 1:
+                self._step = lambda p, s, n: stream_step(view(p), cfg, s, n, dtype, packs=packs)
+            else:
+                self._step = lambda p, s, n: stream_step_block(view(p), cfg, s, n, dtype)
         self.pool = None  # batched state tree, made at the first admission
         self._graphs = StepGraphs(self.device) if self.device.type == "cuda" else None
         # host-side per-slot bookkeeping
@@ -261,7 +299,7 @@ class SessionMultiplexer:
 
     def _step_body(self, pool, live, samples):
         """The tick: the step at batch = slots, paused rows kept."""
-        new, out = self._step(self.params, pool, samples)
+        new, out = self._step(self._step_params, pool, samples)
         return _map_rows(lambda n, o: _keep_paused(live, n, o), self.slots, new, pool), out
 
     def _pump(self) -> None:

@@ -208,8 +208,8 @@ def _decode_frame(params, cfg, skips, bott_cache, dec_caches, dtype, packs=None)
         B, T, Cout = x.shape[0], x.shape[1], pk["Cout"]
         prev_g = prev.reshape(B, 1, S * Cout) if prev is not None else None
         out_g, tail_g = fused_decoder_level(
-            x.contiguous(), rev_skips[j][:, :T, :].contiguous(), prev_g,
-            packs[0]["dec"][j], pk, relu=j != D - 1)
+            x.contiguous(), rev_skips[j][:, :T, :], prev_g, packs[0]["dec"][j], pk,
+            relu=j != D - 1)
         new_dec.append(tail_g.reshape(B, S, Cout).to(dtype))
         x = out_g.reshape(B, T * S, Cout).to(dtype)
     return bott_cache, new_dec, x
@@ -458,6 +458,15 @@ def stream_many(params, cfg: CleanUMambaConfig, state, blocks, dtype=torch.float
     return state, torch.cat(outs, dim=1)
 
 
+def without_packed_levels(params, meta):
+    """``params`` with None in place of every level that ``meta`` (of
+    ``pack_stream_params``) packs: what :func:`stream_step` reads beside those
+    packs, so no view or cast of a packed level's weights runs in a step."""
+    return dict(params, **{
+        name: [None if m is not None else lp for lp, m in zip(params[name], meta[side])]
+        for side, name in (("enc", "encoder"), ("dec", "decoder"))})
+
+
 class Streamer:
     """Host-side feed/flush wrapper: accepts chunks of any length, returns
     denoised audio as it becomes available.
@@ -527,13 +536,8 @@ class Streamer:
                 self.packs = (arrays, meta)
         # what the single-frame step reads: a packed level's weights are in its
         # pack, so the view need not dequantize them at every step
-        self._step_params = self.params
-        if self.packs is not None:
-            meta = self.packs[1]
-            self._step_params = dict(self.params, **{
-                name: [None if m is not None else lp
-                       for lp, m in zip(self.params[name], meta[side])]
-                for side, name in (("enc", "encoder"), ("dec", "decoder"))})
+        self._step_params = (self.params if self.packs is None
+                             else without_packed_levels(self.params, self.packs[1]))
         self.fused_mode = ("mega" if self.mega is not None
                            else "fused" if self.packs is not None else "plain")
         self.state = None

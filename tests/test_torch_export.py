@@ -190,18 +190,25 @@ def test_block4_bundle_equals_four_single_steps(model, tmp_path):
 
 def test_from_bundle_serves_as_the_live_multiplexer(model, tmp_path):
     """An exported bundle drives the multiplexer (batch 2 -> slots, block 1):
-    two staggered sessions give what the live multiplexer gives, bit for
-    bit on the CPU; a bundle without batch/block is refused."""
+    two staggered sessions give what the multiplexer gives over the live
+    functions the bundle traced, bit for bit on the CPU, and what the live
+    multiplexer gives (its ticks run the level packs: another sum order) at
+    the serving tests' 1e-5; a bundle without batch/block is refused."""
     cfg, params, _, _ = model
     fl, tsr = cfg.frame_length, cfg.total_stride
     prime_exp, step_exp = ex.export_stream(params, cfg, batch=2, block=1)
     ex.save_bundle(str(tmp_path), cfg, {"prime": prime_exp, "step": step_exp})
     mux_b = SessionMultiplexer.from_bundle(str(tmp_path), params)
     assert (mux_b.slots, mux_b.block, mux_b.device) == (2, 1, torch.device("cpu"))
+    assert mux_b.packed_levels == 0
+    traced = {"prime": lambda p, f: stream_prime(p, cfg, f),
+              "step": lambda p, s, n: stream_step(p, cfg, s, n)}
+    mux_f = SessionMultiplexer(params, cfg, slots=2, device="cpu", fns=traced)
     mux_l = SessionMultiplexer(params, cfg, slots=2, device="cpu")
+    assert mux_l.packed_levels == 2 * cfg.encoder_n_layers
     a0, a1 = _audio(40, fl + 6 * tsr)[0].numpy(), _audio(41, fl + 4 * tsr)[0].numpy()
     outs = []
-    for mux in (mux_b, mux_l):
+    for mux in (mux_b, mux_f, mux_l):
         s0 = mux.open()
         first = mux.feed(s0, a0[:fl + 2 * tsr])
         s1 = mux.open()
@@ -209,9 +216,10 @@ def test_from_bundle_serves_as_the_live_multiplexer(model, tmp_path):
         rest = mux.feed(s0, a0[fl + 2 * tsr:])
         outs.append([np.concatenate([first, rest, mux._drain(s0)]),
                      np.concatenate([second, mux._drain(s1)])])
-    for got, want in zip(*outs):
-        assert got.shape == want.shape and got.size > 0
+    for got, want, live in zip(*outs):
+        assert got.shape == want.shape == live.shape and got.size > 0
         np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(got, live, rtol=1e-5, atol=1e-5)
 
     meta = json.loads((tmp_path / "bundle.json").read_text())
     del meta["block"]

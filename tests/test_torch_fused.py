@@ -25,7 +25,12 @@ from cleanumamba_tpu.models.cleanumamba import init_params
 from cleanumamba_tpu.ops.pallas import stream_fused as jsf
 from cleanumamba_tpu.train.checkpoint import load_checkpoint as jax_load_checkpoint
 from cleanumamba_tpu_torch.ops.cuda import stream_fused as tsf
-from cleanumamba_tpu_torch.params import from_numpy, load_checkpoint, to_device
+from cleanumamba_tpu_torch.params import (
+    from_numpy,
+    load_checkpoint,
+    prepare_weight_view,
+    to_device,
+)
 
 CFG = CleanUMambaConfig(channels_H=8, max_H=16, encoder_n_layers=4, tsfm_n_layers=2,
                         tsfm_n_head=2, tsfm_d_model=16, tsfm_d_inner=32)
@@ -138,6 +143,23 @@ def test_pack_static_constraints_and_int8(params):
         tsf.pack_encoder_level(q, CFG, 0, torch.float32)
 
 
+def test_bf16_weights_in_an_fp32_pack_take_fp32_activations(params):
+    """The kernels multiply the bf16 weights of an fp32 pack on the tensor
+    cores, which read fp32 inputs: both wrappers refuse other activations on
+    every device (here before their plain versions)."""
+    _, pt = params
+    bf = prepare_weight_view(pt, "bf16")[0]
+    enc = tsf.pack_encoder_level(bf["encoder"][0], CFG, 0, torch.float32)
+    win = torch.from_numpy(_rand(51, 1, 8, enc[1]["K"] * enc[1]["Cin"]))
+    assert tsf.fused_encoder_level(win, *enc).dtype == torch.float32
+    with pytest.raises(TypeError, match="float32 activations"):
+        tsf.fused_encoder_level(win.bfloat16(), *enc)
+    dec = tsf.pack_decoder_level(bf["decoder"][0], CFG, D - 1, torch.float32)
+    x = torch.from_numpy(_rand(52, 1, 1, dec[1]["Cx"])).bfloat16()
+    with pytest.raises(TypeError, match="float32 activations"):
+        tsf.fused_decoder_level(x, x, None, *dec, relu=True)
+
+
 def test_decoder_without_tokens_carries_the_tail(params):
     _, pt = params
     tpk = tsf.pack_decoder_level(pt["decoder"][0], CFG, D - 1, torch.float32)
@@ -198,23 +220,36 @@ def _level_packs(cfg, pt, cdt):
         yield "dec", j, tsf.pack_decoder_level(pt["decoder"][j], cfg, depth - 1 - j, cdt)
 
 
-@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+# (stored weights, compute dtype): a pack in its compute dtype, and bf16
+# weights in an fp32 pack, as a multiplexer serving bf16 weights in fp32 packs
+PACK_DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("wdt,cdt", PACK_DTYPES, ids=["fp32", "bf16", "bf16w-fp32"])
 @pytest.mark.parametrize("model", ["small", "pruned"])
-def test_tiled_pack_returns_its_logical_matrices(params, pruned, model, cdt):
+def test_tiled_pack_returns_its_logical_matrices(params, pruned, model, wdt, cdt):
     """``unpack_level`` gives back, bit for bit, the matrices the pack was
-    built from (cast to the compute dtype); the columns that pad a tile to
-    ``TILE`` are zero; every tiled weight starts each (tile, row) on 16 bytes."""
+    built from (cast to the compute dtype; bf16 weights of an fp32 pack stored
+    and returned as bf16, equal to the weights in fp32); the columns that pad
+    a tile to ``TILE`` are zero; every tiled weight starts each (tile, row) on
+    16 bytes."""
     cfg, pt = _models(params, pruned)[model]
+    if wdt == torch.bfloat16:
+        pt = prepare_weight_view(pt, "bf16")[0]
+    stored = torch.bfloat16 if wdt == torch.bfloat16 else cdt
     ragged = False
     for kind, idx, (arrays, meta) in _level_packs(cfg, pt, cdt):
+        assert meta["cdt"] == cdt and arrays["scratch"].dtype == cdt
         logical = tsf.unpack_level(arrays, meta)
         for name, want in _logical_matrices(cfg, pt, kind, idx).items():
-            assert logical[name].dtype == cdt
-            assert torch.equal(logical[name], want.to(cdt)), (kind, idx, name)
+            assert want.dtype == wdt and logical[name].dtype == stored
+            assert torch.equal(logical[name].float(), want.to(stored).float()), (kind, idx, name)
         for name in ("cw", "mw", "ctw"):
             if name not in arrays:
                 continue
             t = arrays[name]
+            assert t.dtype == stored
             nt, K, NW, tile = t.shape
             N = logical["cw" if name == "cw" else "mwa" if name == "mw" else "cwlo"].shape[1]
             assert tile == tsf.TILE and nt == -(-N // tsf.TILE) and t.is_contiguous()
@@ -267,6 +302,44 @@ def test_plan_keeps_the_kernel_limits(rows, K, N, NW, NI, esize):
     assert groups * rpb >= rows and (groups - 1) * rpb < rows
     if K * tsf.TILE * NW * esize <= tsf._SLAB_WHOLE:
         assert splits == 1  # a small contraction is not split
+
+
+def _level_widths(cfg, pt):
+    """(kind, block-1 tokens, the widths of the two products) of every level:
+    from the packs of ``pt``, or from E8's regular widths when it is None."""
+    depth, S_ = cfg.encoder_n_layers, cfg.stride
+    if pt is not None:
+        return [(kind, meta["T"], tsf._level_dims(meta)[1])
+                for kind, _, (_, meta) in _level_packs(cfg, pt, torch.float32)]
+    out = []
+    for i in range(depth):
+        C = min(cfg.channels_H * 2 ** i, cfg.max_H)
+        Cin = 1 if i == 0 else min(cfg.channels_H * 2 ** (i - 1), cfg.max_H)
+        out += [("enc", S_ ** (depth - 1 - i), (cfg.kernel_size * Cin, C, C)),
+                ("dec", S_ ** i, (C, C, S_ * Cin))]
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+@pytest.mark.parametrize("model", ["e8", "pruned"])
+def test_tensor_core_plan_keeps_the_kernel_limits(pruned, model, B):
+    """The plans of bf16 weights in an fp32 pack (the tensor cores, which
+    stage every row of a group at once, 8 or 40 floats a contraction row) at
+    every level of E8 and of the pruned checkpoint: within the kernels' limits
+    as ``test_plan_keeps_the_kernel_limits`` holds them, a group of at most 32
+    rows (four row tiles of 8), and a split no coarser than the SIMT plan's."""
+    if model == "e8":
+        cfg, pt = CleanUMambaConfig(), None
+    else:
+        cfg, pt = pruned[0], pruned[2]
+    for kind, T, dims in _level_widths(cfg, pt):
+        for rows, K, N, NW, NI in tsf._products(kind, B, T, dims):
+            splits, groups, kblk, rpb, R = tsf._plan(rows, K, N, NW, NI, 2, True)
+            assert splits in (1, 2, 4, 8) and kblk % 8 == 0 and splits * kblk >= K
+            assert R in (2, 4, 8) and rpb % R == 0 and rpb <= 32
+            assert groups * rpb >= rows and (groups - 1) * rpb < rows
+            assert tsf._smem(NW, NI, R, kblk, rpb, 2, True) <= tsf._SMEM_LIMIT
+            assert splits >= tsf._plan(rows, K, N, NW, NI, 2)[0]
 
 
 def test_too_wide_a_level_does_not_pack(params):
@@ -330,9 +403,10 @@ def test_kernels_match_plain_on_cuda(params, cdt, act):
         close(tail, r_tail)
 
 
-def _cuda_level_cases(pt, cfg, cdt, B, dev):
-    """(encoder calls, decoder calls) of the two deepest levels at batch B."""
-    pc = to_device(pt, dev)
+def _cuda_level_cases(pt, cfg, cdt, B, dev, wdt=None):
+    """(encoder calls, decoder calls) of the two deepest levels at batch B,
+    the weights stored as ``wdt`` (None: as given)."""
+    pc = to_device(pt if wdt != torch.bfloat16 else prepare_weight_view(pt, "bf16")[0], dev)
     enc, dec = [], []
     for i in (D - 2, D - 1):
         pk = tsf.pack_encoder_level(pc["encoder"][i], cfg, i, cdt)
@@ -349,11 +423,13 @@ def _cuda_level_cases(pt, cfg, cdt, B, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [2, 8])
-@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_kernels_match_plain_at_batch_on_cuda(params, cdt, B):
-    """K3/K4 at batch 2 and 8 on the deepest levels (several rows per block,
-    an odd count of decoder rows), fp32 1e-4 / bf16 2e-2 of max|ref|."""
+@pytest.mark.parametrize("B", [2, 8, 16])
+@pytest.mark.parametrize("wdt,cdt", PACK_DTYPES, ids=["fp32", "bf16", "bf16w-fp32"])
+def test_kernels_match_plain_at_batch_on_cuda(params, wdt, cdt, B):
+    """K3/K4 at batch 2, 8 and 16 on the deepest levels (several rows per
+    block, an odd count of decoder rows; 16 grows the scratch sized for 8),
+    fp32 1e-4 / bf16 2e-2 of max|ref|; bf16 weights in an fp32 pack at fp32's
+    1e-4 (the reference widens them, as the kernels do)."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernels need a GPU")
     tol = 1e-4 if cdt == torch.float32 else 2e-2
@@ -364,7 +440,7 @@ def test_kernels_match_plain_at_batch_on_cuda(params, cdt, B):
     def close(got, want):
         assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
 
-    enc, dec = _cuda_level_cases(params[1], CFG, cdt, B, torch.device("cuda"))
+    enc, dec = _cuda_level_cases(params[1], CFG, cdt, B, torch.device("cuda"), wdt)
     for win, pk in enc:
         close(tsf.fused_encoder_level(win, *pk),
               tsf.fused_encoder_level_plain(win.float(), *f32(pk)))

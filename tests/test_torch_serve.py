@@ -7,8 +7,10 @@ gives the audio it gives streamed alone at batch 1 (1e-5), ``flush`` trims to
 the fed length and a full pool refuses a session.  Beyond it: a paused
 session's state rows are bitwise unchanged across ticks of others, and the
 step writes nothing into its input state; the port's multiplexer equals the
-JAX package's on the same weights and traffic in fp32 and int8 (1e-4 of
-max|ref|: the two frameworks' CPU sums).  The long-audio cases are marked
+JAX package's on the same weights and traffic in fp32, bf16 and int8 (1e-4
+of max|ref|: the two frameworks' CPU sums).  At block 1 the port's ticks run
+every level through the fused level kernels' plain versions (the packs the
+card runs as K3/K4); the JAX package's run per op.  The long-audio cases are marked
 slow as the JAX package's are; a fast case of each runs in the tier.
 """
 
@@ -25,6 +27,7 @@ from cleanumamba_tpu.models.cleanumamba import init_params as jax_init_params
 from cleanumamba_tpu.serve import SessionMultiplexer as JaxMultiplexer
 from cleanumamba_tpu_torch import streaming as ts
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
+from cleanumamba_tpu_torch.ops.cuda.stream_fused import pack_stream_params
 from cleanumamba_tpu_torch.params import from_numpy, tree_leaves
 from cleanumamba_tpu_torch.serve import SessionMultiplexer
 
@@ -182,6 +185,7 @@ def test_paused_session_state_is_bitwise_unchanged(model):
     cfg, params, _, _ = model
     fl, tsr = cfg.frame_length, cfg.total_stride
     mux = SessionMultiplexer(params, cfg, slots=3, device="cpu")
+    assert mux.packed_levels == 2 * cfg.encoder_n_layers  # the ticks run the packs
     a, b = mux.open(), mux.open()
     mux.feed(a, _audio(40, fl + tsr))
     mux.feed(b, _audio(41, fl + tsr))  # both primed and stepped once
@@ -197,6 +201,9 @@ def test_paused_session_state_is_bitwise_unchanged(model):
     state, _ = ts.stream_prime(params, cfg, torch.from_numpy(_audio(43, fl)[None]))
     snapshot = [t.clone() for t in tree_leaves(state)]
     ts.stream_step(params, cfg, state, torch.from_numpy(_audio(44, tsr)[None]))
+    packs = pack_stream_params(params, cfg, torch.float32)
+    ts.stream_step(ts.without_packed_levels(params, packs[1]), cfg, state,
+                   torch.from_numpy(_audio(44, tsr)[None]), packs=packs)
     ts.stream_step_block(params, cfg, state, torch.from_numpy(_audio(45, 4 * tsr)[None]))
     assert all(torch.equal(t, s) for t, s in zip(tree_leaves(state), snapshot))
 
@@ -207,10 +214,29 @@ WIDER = dict(channels_H=16, max_H=64, tsfm_n_head=2, tsfm_d_model=32, tsfm_d_inn
              normalize_input=True)
 
 
-@pytest.mark.parametrize("weights", ["fp32", "int8"])
+@pytest.mark.parametrize("weights,dtype,slots,block,packed", [
+    ("fp32", torch.float32, 8, 1, True), ("fp32", torch.float32, 16, 1, False),
+    ("bf16", torch.bfloat16, 16, 1, False), ("bf16", torch.float32, 16, 1, True),
+    ("fp32", torch.bfloat16, 16, 1, True), ("int8", torch.bfloat16, 16, 1, True),
+    ("int8", torch.float32, 4, 1, False), ("fp32", torch.float32, 4, 4, False)])
+def test_levels_pack_where_the_constructor_chooses(model, weights, dtype, slots, block, packed):
+    """Every level packs where the per-op tick would convert each weight at
+    every tick (weights stored in another type than the state's, int8 in
+    bf16 state) and, over weights stored in the state's type, up to 8 slots;
+    never for int8 weights in fp32 state (an int8 pack computes in bf16) or
+    at a block above 1."""
+    cfg, params, _, _ = model
+    mux = SessionMultiplexer(params, cfg, slots=slots, block=block, dtype=dtype,
+                             weights=weights, device="cpu")
+    assert mux.packed_levels == (2 * cfg.encoder_n_layers if packed else 0)
+
+
+@pytest.mark.parametrize("weights", ["fp32", "bf16", "int8"])
 def test_matches_jax_multiplexer(model, weights):
     """The same weights and traffic through the port's multiplexer and the
-    JAX package's."""
+    JAX package's.  The port's ticks run every level through the packs, bf16
+    weights as stored in an fp32 pack; int8 weights with fp32 state stay per
+    op (an int8 pack computes in bf16)."""
     if weights == "fp32":
         cfg, params, jcfg, pn = model
     else:
@@ -218,6 +244,7 @@ def test_matches_jax_multiplexer(model, weights):
         pn = jax.tree_util.tree_map(np.asarray, jax_init_params(jax.random.PRNGKey(1), jcfg))
         cfg, params = CleanUMambaConfig(**dataclasses.asdict(jcfg)), from_numpy(pn, "cpu")
     mux = SessionMultiplexer(params, cfg, slots=4, weights=weights, device="cpu")
+    assert mux.packed_levels == (0 if weights == "int8" else 2 * cfg.encoder_n_layers)
     if weights == "int8":
         from cleanumamba_tpu_torch.quant import count_quantized
 

@@ -1,0 +1,75 @@
+"""The multiplexer's packed tick on the card (``serve.py``), against the
+unpacked step.
+
+At block 1 a ``SessionMultiplexer`` runs every encoder and decoder level
+through K3/K4 inside the tick's CUDA graph.  Here, at E8's geometry, bf16
+weights at slots = 16 (the tensor cores) and fp32 weights at slots = 8 (the
+most at which fp32 weights pack), each tick of the graphed multiplexer (the
+first eager, the second captured, the rest replayed) is held against eager, unpacked
+``stream_step`` on the same card from the same pool: the live rows' output
+and state at 1e-5 of max|ref| (fp32, TF32 off; another sum order), the
+paused rows' state bit for bit.  Needs a CUDA device and imports no JAX:
+``python -m pytest --noconftest -q -m cuda tests/test_torch_serve_card.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cleanumamba_tpu_torch.config import CleanUMambaConfig
+from cleanumamba_tpu_torch.graphs import own
+from cleanumamba_tpu_torch.models.cleanumamba import init_params
+from cleanumamba_tpu_torch.params import tree_leaves
+from cleanumamba_tpu_torch.serve import SessionMultiplexer
+from cleanumamba_tpu_torch.streaming import stream_step
+
+REL = 1e-5
+
+
+def _close(got, want, what):
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= REL * max(scale, 1e-6), (what, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights,slots", [("fp32", 8), ("bf16", 16)])
+def test_packed_ticks_match_the_unpacked_step_on_the_card(weights, slots):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K3/K4 and the graphs have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    cfg = CleanUMambaConfig()  # E8
+    fl, tsr = cfg.frame_length, cfg.total_stride
+    mux = SessionMultiplexer(init_params(cfg, torch.Generator().manual_seed(0), dev), cfg,
+                             slots=slots, weights=weights, device=dev)
+    assert mux.packed_levels == 2 * cfg.encoder_n_layers
+    rng = np.random.default_rng(0)
+    for s in range(slots):  # every slot admitted (primed); no tick yet
+        assert mux.open() == s
+        mux.feed(s, (rng.normal(size=fl) * 0.1).astype(np.float32))
+    assert mux.ticks == 0
+    for k in range(5):  # eager, captured, replayed
+        for s in range(slots):
+            mux._drain(s)
+        live = np.array([(s + k) % 3 != 0 for s in range(slots)])
+        x = (rng.normal(size=(slots, tsr)) * 0.1).astype(np.float32) * live[:, None]
+        for s in np.flatnonzero(live):
+            mux._buf[s] = x[s]  # a hop for each live session; the others pause
+        before = own(mux.pool)
+        with torch.no_grad():
+            ref_state, ref_out = stream_step(mux.params, cfg, before, torch.from_numpy(x).to(dev))
+        mux._pump()
+        assert mux.ticks == k + 1
+        rows = torch.from_numpy(np.flatnonzero(live)).to(dev)
+        got_out = torch.from_numpy(np.stack([mux._out[s][0] for s in np.flatnonzero(live)]))
+        _close(got_out, ref_out[rows].cpu(), f"tick {k} output")
+        assert all(not mux._out[s] for s in np.flatnonzero(~live))
+        for i, (got, want, old) in enumerate(zip(tree_leaves(mux.pool), tree_leaves(ref_state),
+                                                 tree_leaves(before))):
+            if got.ndim == 0 or got.shape[0] != slots or not got.numel():
+                continue
+            paused = torch.from_numpy(np.flatnonzero(~live)).to(dev)
+            assert torch.equal(got[paused], old[paused]), (k, i)
+            _close(got[rows], want[rows], f"tick {k} state leaf {i}")
