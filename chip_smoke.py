@@ -10,6 +10,7 @@
     python3 chip_smoke.py --export-only  # K1/K2 built, phase 21 alone (serving bundles)
     python3 chip_smoke.py --parallel-only  # K1/K2 built, phases 22-23 (tensor, sequence parallel)
     python3 chip_smoke.py --graphs-only  # every kernel built, phase 24 alone (CUDA graphs)
+    python3 chip_smoke.py --kv-only      # K6 and K3/K4 built, phase 25 alone (K6)
 
 Phases, each printed as it passes; any failure raises (non-zero exit):
 
@@ -200,7 +201,24 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     and after a prune event (reserved memory grown by one pool at most) and
     a finetune step of the pruned checkpoint, compared under torch's
     deterministic algorithms; ``cli/serve.py``'s bench rep at 8 x 16 bf16
-    (audio-s/s); phase 23's one-shot 10 s feeds, which capture nothing.
+    (audio-s/s); phase 23's one-shot 10 s feeds, which capture nothing;
+25. K6 (``ops/cuda/kv_attention.py``, one token of attention over per-row
+    KV rings) against its plain version at 16 rows and a ring of 625, rows
+    at positions from empty to wrapped many times: every head width it is
+    built for (CleanUNet's 8 heads of 64, 8 of 8, 2 of 16), fp32 and bf16,
+    one live row, every row live and paused rows: outputs, the rings bit for
+    bit, a paused row's zero output, a repeated call bit for bit.  Then, at
+    CleanUNet's shape in fp32 with full windows, one live row and all 16:
+    device times from a trace of K6 a launch, its plain version, the
+    simplest in-place step in plain torch (a ``where`` on each row's slot,
+    then one masked ``scaled_dot_product_attention`` over the rings) and
+    that masked attention alone (``library_ms``), beside the bound of the
+    bytes and operations ``portbench/counts/k6.py`` counts.  Then the
+    CleanUNet multiplexer's graphed tick (16 slots, bf16 weights, fp32
+    state, six sessions with full windows, one live row a tick) with K6 and
+    with that plain step in its place: wall and device busy a tick, the top
+    kernels, the outputs of the two within 1e-4, and K6's launches counted
+    from zero over the ticks (one a layer and tick).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernels' summary as JSON: each kernel's launches on its path, error, time,
@@ -291,6 +309,7 @@ class Report:
         self.err = {}
         self.ms = {}
         self.bound = {}
+        self.library = {}  # the nearest library call's ms, where there is one
 
     def check(self, kernel, label, got, ref, tol, quiet=False):
         err, rel = _rel_err(got, ref)
@@ -4883,6 +4902,247 @@ def run_graphs_offline(dev, cfg, params32, smi, chk):
           + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()) + ")", flush=True)
 
 
+# --------------------------------------------------------------------------
+# Phase 25: K6, one token of attention over per-row KV rings
+# --------------------------------------------------------------------------
+
+KV_KERNEL = "kv_attention_kernel"  # K6's name in a trace
+# 16 rows (the multiplexer's slots): an empty window to rings wrapped many times
+KV_POS = (0, 1, 2, 7, 78, 79, 80, 300, 623, 624, 625, 626, 1249, 1250, 5000, 40)
+KV_FULL_ROW = 14  # KV_POS[14]: a window wrapped and full, as a call's after 10 s
+# (d_model, heads) of every head width K6 is built for: CleanUNet's (E8's
+# widths), the released small geometry's, a test configuration's
+KV_GEOMETRIES = ((512, 8), (64, 8), (32, 2))
+KV_LAYERS, KV_WINDOW = 5, 625  # CleanUNet's layers; 10 s of tokens
+CLEANUNET = dict(bottleneck="mha", tsfm_n_layers=5, norm_epsilon=1e-6)  # E8's U-Net and widths
+
+
+def _kv_live(pattern, dev, B=16):
+    rows = {"one live row": [b == KV_FULL_ROW for b in range(B)],
+            "all rows live": [True] * B,
+            "paused rows": [b % 5 != 3 for b in range(B)]}[pattern]
+    return torch.tensor(rows, device=dev)
+
+
+def _kv_inputs(g, dev, d, dtype, B=16):
+    """q, k, v (B, d) and the rings (B, layers, W, d), scaled so that the
+    softmax is neither flat nor one-hot."""
+    rings = [torch.randn((B, KV_LAYERS, KV_WINDOW, d), generator=g, device=dev).to(dtype)
+             for _ in range(2)]
+    tok = [(torch.randn((B, d), generator=g, device=dev) * 8 / d ** 0.5).to(dtype)
+           for _ in range(3)]
+    return (*tok, *rings)
+
+
+def _kv_in_place_plain(q, k, v, k_ring, v_ring, live, pos, n_head):
+    """The simplest in-place step in plain torch, for the times only: each
+    live row's slot written by one ``where`` over that slot (no host read,
+    so a tick's graph captures it), then one masked
+    ``scaled_dot_product_attention`` over the whole rings."""
+    B, W, d = k_ring.shape
+    idx = (pos % W).long()[:, None, None].expand(B, 1, d)
+    keep = ~live[:, None, None]
+    for ring, new in ((k_ring, k), (v_ring, v)):
+        ring.scatter_(1, idx, torch.where(keep, ring.gather(1, idx), new[:, None, :]))
+    out = _kv_library(q, k_ring, v_ring, pos, n_head).reshape(B, d)
+    return torch.where(live[:, None], out, torch.zeros_like(q))
+
+
+def _kv_library(q, k_ring, v_ring, pos, n_head):
+    """One masked ``scaled_dot_product_attention`` over the rings (the
+    library's nearest call: it neither writes the rings nor skips a row)."""
+    B, W, d = k_ring.shape
+    dk = d // n_head
+    valid = torch.arange(W, device=q.device)[None, :] < torch.clamp(pos + 1, max=W)[:, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.reshape(B, n_head, 1, dk), k_ring.reshape(B, W, n_head, dk).transpose(1, 2),
+        v_ring.reshape(B, W, n_head, dk).transpose(1, 2), attn_mask=valid[:, None, None, :])
+
+
+def _trace_per_call(fn, iters=50, warmup=5, kernel=None):
+    """(device-busy ms a call, median ms of the kernels named ``kernel`` or
+    None) from a ``torch.profiler`` trace of ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy, _ = _device_busy(prof)
+    own = [e.time_range.end - e.time_range.start for e in prof.events()
+           if kernel and e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    if kernel and len(own) < iters // 2:
+        raise AssertionError(f"a trace of {iters} calls held {len(own)} {kernel} launches")
+    return busy / iters, (_median(own) / 1e3 if own else None)
+
+
+def _kv_cost(live, pos, d, H, esize):
+    """(bytes, operations, exps) of one launch, counted as the benchmark's
+    ``portbench/counts/k6.py`` counts them: per attended position its key and
+    value read, 4 d operations and an exp a head; per live row q read, the
+    output written, the new key and value written."""
+    n = torch.clamp(pos.long() + 1, max=KV_WINDOW)[live]
+    positions, rows = int(n.sum()), int(live.sum())
+    return (2 * d * positions + 4 * d * rows) * esize, 4 * d * positions, H * positions
+
+
+def _kv_tick_arm(dev, cfg, params32, label, sessions=6, fill=640, timed=200, traced=150):
+    """The CleanUNet multiplexer's tick (16 slots, bf16 weights, fp32 state,
+    graphed) with one live row a tick: ``sessions`` sessions each stepped
+    ``fill`` ticks (full windows), then one hop to each in turn.  Returns
+    (the outputs of the timed and traced hops, wall ms a tick, device-busy
+    ms a tick, K6 launches over those ticks, ticks, the top kernels of the
+    traced ticks)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cleanumamba_tpu_torch.ops.cuda.kv_attention import kv_attention
+    from cleanumamba_tpu_torch.serve import SessionMultiplexer
+
+    rng = np.random.default_rng(251)
+    mux = SessionMultiplexer(params32, cfg, slots=16, block=1, weights="bf16", device=dev)
+    fl, ts = cfg.frame_length, cfg.total_stride
+    sids = [mux.open() for _ in range(sessions)]
+    for s in sids:
+        mux.feed(s, (rng.normal(size=fl + fill * ts) * 0.1).astype(np.float32))
+    hops = (rng.normal(size=(timed + traced, ts)) * 0.1).astype(np.float32)
+    torch.cuda.synchronize()
+    kv_attention.launches = 0
+    outs, n0 = [], mux.ticks
+    t0 = time.perf_counter()
+    for i in range(timed):
+        outs.append(mux.feed(sids[i % sessions], hops[i]))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / timed
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(timed, timed + traced):
+            outs.append(mux.feed(sids[i % sessions], hops[i]))
+        torch.cuda.synchronize()
+    busy, _ = _device_busy(prof)
+    ticks = mux.ticks - n0
+    top = sorted(((e.device_time_total / traced, e.key) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)[:6]
+    launches = kv_attention.launches
+    print(f"  {label}: wall {wall:.4f} ms a tick, device busy {busy / traced:.4f} ms a tick "
+          f"({ticks} ticks, one live row each, windows full), K6 launches {launches}, "
+          f"memory peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
+    for us, name in top:
+        print(f"      {us:9.2f} us a tick  {name[:100]}", flush=True)
+    del mux
+    torch.cuda.empty_cache()
+    return np.concatenate(outs), wall, busy / traced, launches, ticks
+
+
+def check_kv_attention(dev, rep: Report, smi):
+    """Phase 25: K6 against its plain version on the card, its times, and
+    the CleanUNet tick with K6 against the plain in-place step.  Returns K6's
+    launches over the K6 arm's ticks."""
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig
+    from cleanumamba_tpu_torch.models import bottleneck_mha
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+    from cleanumamba_tpu_torch.ops.cuda.kv_attention import kv_attention, kv_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    pos = torch.tensor(KV_POS, dtype=torch.int32, device=dev)
+    li = KV_LAYERS - 1  # the last layer's rings: a view 4 * W * d into each row
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        for d, H in KV_GEOMETRIES:
+            q, k, v, kc, vc = _kv_inputs(g, dev, d, dtype)
+            for pattern in ("one live row", "all rows live", "paused rows"):
+                live = _kv_live(pattern, dev)
+                kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                got = kv_attention(q, k, v, kk[:, li], vk[:, li], live, pos, H)
+                again = kv_attention(q, k, v, kk[:, li], vk[:, li], live, pos, H)
+                want = kv_attention_ref(q, k, v, kp[:, li], vp[:, li], live, pos, H)
+                torch.cuda.synchronize()
+                label = f"{str(dtype)[6:]} {H} heads of {d // H}, W {KV_WINDOW}, {pattern}"
+                _same_bits(f"kv_attention {label}", [got], [again])
+                if not (torch.equal(kk, kp) and torch.equal(vk, vp)):
+                    raise AssertionError(f"kv_attention {label}: the rings differ from the "
+                                         "plain version's")
+                if not torch.equal(got[~live], torch.zeros_like(got[~live])):
+                    raise AssertionError(f"kv_attention {label}: a paused row's output is "
+                                         "not zero")
+                rep.check("kv_attention_kernel", label, got, want, tol)
+
+    # times at the cell's shape (fp32), every live row's window full
+    d, H = KV_GEOMETRIES[0]
+    q, k, v, kc, vc = _kv_inputs(g, dev, d, torch.float32)
+    full = torch.full((16,), 1000, dtype=torch.int32, device=dev) + torch.arange(
+        16, dtype=torch.int32, device=dev)
+    kr, vr = kc[:, li], vc[:, li]
+    for pattern in ("one live row", "all rows live"):
+        live = _kv_live(pattern, dev)
+        plain_inplace = _kv_in_place_plain(q, k, v, kr.clone(), vr.clone(), live, full, H)
+        want = kv_attention_ref(q, k, v, kr.clone(), vr.clone(), live, full, H)
+        err = _rel_err(plain_inplace, want)[1]
+        if not err <= FP32_TOL:
+            raise AssertionError(f"the plain in-place step ({pattern}): rel {err:.3e}")
+        _, k6_ms = _trace_per_call(
+            lambda: kv_attention(q, k, v, kr, vr, live, full, H), kernel=KV_KERNEL)
+        plain_ms, _ = _trace_per_call(
+            lambda: kv_attention_ref(q, k, v, kr, vr, live, full, H), iters=20)
+        inplace_ms, _ = _trace_per_call(
+            lambda: _kv_in_place_plain(q, k, v, kr, vr, live, full, H))
+        lib_ms, _ = _trace_per_call(lambda: _kv_library(q, kr, vr, full, H))
+        nbytes, flops, exps = _kv_cost(live, full, d, H, 4)
+        bound_ms, by = _bound(nbytes, flops, torch.float32, sfu=exps)
+        print(f"  K6 times on {smi}, fp32, 16 rows, {H} heads of {d // H}, W {KV_WINDOW}, "
+              f"{pattern} (windows full): K6 {k6_ms * 1e3:.2f} us a launch; plain version "
+              f"{plain_ms * 1e3:.2f} us busy; plain in-place step (one-slot where + masked "
+              f"SDPA) {inplace_ms * 1e3:.2f} us busy; masked SDPA alone {lib_ms * 1e3:.2f} us "
+              f"busy; bound {bound_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.3f} MB, "
+              f"{flops / 1e6:.3f} MFLOP, {exps} exps), K6 at {100 * bound_ms / k6_ms:.1f} % "
+              f"of it", flush=True)
+        if pattern == "one live row":  # the cell's tick: about one live row
+            rep.ms["kv_attention_kernel"] = (k6_ms, plain_ms)
+            rep.bound["kv_attention_kernel"] = (bound_ms, by)
+            rep.library["kv_attention_kernel"] = lib_ms
+
+    # the CleanUNet tick: K6 against the plain in-place step in its place
+    cfg = CleanUMambaConfig(**CLEANUNET)
+    params32 = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    arms = {}
+    for label in ("K6", "plain in-place step", "K6 again"):
+        if label == "plain in-place step":
+            bottleneck_mha.kv_attention = _kv_in_place_plain
+        try:
+            arms[label] = _kv_tick_arm(dev, cfg, params32, f"CleanUNet tick, {label}")
+        finally:
+            bottleneck_mha.kv_attention = kv_attention
+    (y_k6, _, busy_k6, n_k6, ticks), (y_pl, _, busy_pl, n_pl, _) = \
+        arms["K6"], arms["plain in-place step"]
+    err = _rel_err(torch.from_numpy(y_k6), torch.from_numpy(y_pl))[1]
+    print(f"  CleanUNet tick on {smi}: plain in-place step - K6 = "
+          f"{busy_pl - busy_k6:.4f} ms device busy a tick ({busy_pl:.4f} against {busy_k6:.4f}; "
+          f"K6 again {arms['K6 again'][2]:.4f}); outputs rel {err:.3e}", flush=True)
+    if not err <= FP32_TOL:
+        raise AssertionError(f"the CleanUNet tick, K6 against the plain step: rel {err:.3e}")
+    if n_k6 != ticks * KV_LAYERS or n_pl != 0:
+        raise AssertionError(f"K6 launches {n_k6} over {ticks} ticks of {KV_LAYERS} layers "
+                             f"(the plain arm: {n_pl})")
+    return n_k6
+
+
+def _kv_entry(rep: Report, launches):
+    """K6's entry of the kernels' summary: its launches over the CleanUNet
+    tick (phase 25), its time and bound at one live row with a full window,
+    and the masked ``scaled_dot_product_attention`` over the rings as the
+    library's nearest call (which neither writes the rings nor skips a
+    paused row)."""
+    ms, plain_ms = rep.ms["kv_attention_kernel"]
+    bound_ms, bound_by = rep.bound["kv_attention_kernel"]
+    return {"name": "kv_attention_kernel", "route": "cuda",
+            "source": "cleanumamba_tpu_torch/csrc/kv_attention.cu",
+            "replaces": "cleanumamba_tpu/models/bottleneck_mha.py:114 (no TPU kernel: XLA's "
+                        "whole-ring where and softmax, one position for the batch)",
+            "launches": launches, "max_abs_err": rep.err["kv_attention_kernel"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": rep.library["kv_attention_kernel"]}
+
+
 def _base_k5(checkout):
     """The K5 wrapper module of another checkout, launching that checkout's kernel."""
     import importlib.util
@@ -4922,6 +5182,9 @@ def main() -> int:
     parser.add_argument("--graphs-only", action="store_true",
                         help="build every kernel and run phase 24 (the CUDA graphs against "
                              "the eager steps) and print no result lines")
+    parser.add_argument("--kv-only", action="store_true",
+                        help="build K6 and K3/K4 only and run phase 25 (K6) and print K6's "
+                             "entry of the kernels' summary")
     parser.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--parallel-worker", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--export-worker", metavar="DIR", help=argparse.SUPPRESS)
@@ -4965,7 +5228,8 @@ def main() -> int:
     sources = ("stream_fused",) if args.fused_only else \
         ("selective_scan",) if (args.scan_only or args.prune_only or args.dist_only
                                 or args.export_only or args.parallel_only) else \
-        ("selective_scan", "stream_fused", "stream_mega")
+        ("stream_fused", "kv_attention") if args.kv_only else \
+        ("selective_scan", "stream_fused", "stream_mega", "kv_attention")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
         jobs = [pool.submit(build.load_library, name) for name in sources]  # one nvcc each
         if args.base_k5:
@@ -5013,6 +5277,12 @@ def main() -> int:
         print("phase 24 CUDA graphs against the eager steps:", flush=True)
         run_graphs(dev, cfg, params32, smi)
         print("graphs-only run: phase 24 passed (no result lines)")
+        return 0
+    if args.kv_only:
+        print("phase 25 K6 vs its plain version, its times, the CleanUNet tick:", flush=True)
+        launches = check_kv_attention(dev, rep, smi)
+        print(json.dumps({"kernels": [_kv_entry(rep, launches)]}))
+        print("kv-only run: phase 25 passed (K6's entry above; no result lines)")
         return 0
     if args.parallel_only:
         print("phase 22 tensor parallelism (gloo ranks on one card, torchrun on the CPU):",
@@ -5100,6 +5370,8 @@ def main() -> int:
         run_graphs(dev, cfg, params32, smi, bundle=bundle16)
     finally:
         shutil.rmtree(kept, ignore_errors=True)
+    print("phase 25 K6 vs its plain version, its times, the CleanUNet tick:", flush=True)
+    kv_launches = check_kv_attention(dev, rep, smi)
 
     # launches: each path's own run (serving, phase 4; training, phase 7; the
     # int8 serving path, phase 14; the multiplexer's block-16 ticks, phase 15;
@@ -5150,6 +5422,7 @@ def main() -> int:
                         "launches": launches[fn_name], "max_abs_err": rep.err[kname],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+    kernels.append(_kv_entry(rep, kv_launches))
     print(f"E8 streaming RTF on {smi}: block 16 (bf16) {rtf16:.1f}x, "
           f"block 1 (Streamer, bf16 packs) {rtf1:.1f}x realtime")
     print(f"nvidia-smi: {smi}")

@@ -108,6 +108,9 @@ def make_bench_run(cfg: CleanUMambaConfig, view, block: int, dtype):
 
     def run(weights_and_state, ticks, scale):
         stored, st = weights_and_state
+        if cfg.bottleneck == "mha":  # a step writes the rings in place: step a copy
+            st = dict(st, bottleneck=dict(st["bottleneck"], k=st["bottleneck"]["k"].clone(),
+                                          v=st["bottleneck"]["v"].clone()))
         acc = torch.zeros((), device=ticks.device)
         for blk in ticks:
             st, out = step(view(stored), cfg, st, blk * scale, dtype)

@@ -740,9 +740,10 @@ mega_kernel(const IO io, const TW* __restrict__ wk, const TW* __restrict__ W,
     }
   } else if (kind == kMha) {
     const int M = max_len;
-    const int pos = *static_cast<const int*>(ptrs.p[4 * D + 6 * L]);
+    // each stream's position; its rings lie L * M * d values apart (batch-leading)
+    const int pos = static_cast<const int*>(ptrs.p[4 * D + 6 * L])[b];
     const int slot = pos % M, n_valid = min(pos, M - 1) + 1;
-    if (b == 0 && rank == 0 && tid == 0) *static_cast<int*>(ptrs.p[4 * D + 6 * L + 1]) = pos + 1;
+    if (rank == 0 && tid == 0) static_cast<int*>(ptrs.p[4 * D + 6 * L + 1])[b] = pos + 1;
     // this block's ring slots
     const int per = (M + C - 1) / C, m0 = min(M, rank * per), m1 = min(M, m0 + per), mn = m1 - m0;
     float* logits = bufs[0];  // (mn, n_head), across the activation buffers
@@ -754,7 +755,7 @@ mega_kernel(const IO io, const TW* __restrict__ wk, const TW* __restrict__ W,
       const float inv_sqrt_dk = rsqrtf((float)dk);
       const float* f1b = F + r[11];
       const float* f2b = F + r[13];
-      const size_t ring = (size_t)b * M * d;
+      const size_t ring = (size_t)b * L * M * d;
       const float* __restrict__ k_in = PTR_F(pin + 3 * li) + ring;
       const float* __restrict__ v_in = PTR_F(pin + 3 * li + 1) + ring;
       float* __restrict__ k_out = PTR_F(pout + 3 * li) + ring;

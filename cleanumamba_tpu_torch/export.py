@@ -11,7 +11,10 @@ bundle and the kernels' op library.
   A ragged pruned checkpoint has its shapes traced into the artifact.
 - **The streaming step is stateless**: ``(params, state, samples) ->
   (state', out)`` with the state tree in the open, so the serving loop owns
-  each session's state and one artifact serves many streams.
+  each session's state and one artifact serves many streams.  An mha
+  model's step is not (it writes its KV rings in place, through K6, which
+  is no custom op), so :func:`export_stream` refuses it; its offline
+  forward exports.
 - **Tied to the op library, as the JAX bundle is to libtpu.**  The selective
   scan enters the graph as the custom op ``cleanumamba::selective_scan``
   (``ops/cuda/selective_scan.py``): on CUDA its implementation launches K1,
@@ -91,9 +94,14 @@ def export_stream(params, cfg: CleanUMambaConfig, batch: int = 1, block: int = 1
     ``(state, out)``; step takes ``block * total_stride`` new samples and
     returns ``(state', out)``: ``stream_step`` at block 1,
     ``stream_step_block`` (one selective scan per layer over the block) above.
+    An mha model is refused: its step writes the state's KV rings in place.
     """
     from cleanumamba_tpu_torch.streaming import stream_prime, stream_step, stream_step_block
 
+    if cfg.bottleneck == "mha":
+        raise ValueError("export_stream: an mha model's step writes its KV rings in place "
+                         "(K6), so it has no stateless step to export; serve it from the live "
+                         "functions (SessionMultiplexer, Streamer)")
     dev = _device_of(params)
     frame = torch.zeros((batch, cfg.frame_length), dtype=torch.float32, device=dev)
     prime_exp = _export_fn(lambda p, f: stream_prime(p, cfg, f), params, frame)

@@ -8,8 +8,14 @@ JAX).  Two owners:
 
 - :class:`StepGraphs`, ``jax.jit`` with donated buffers, for a step
   ``fn(state, *inputs) -> (new_state, out)`` that leaves its arguments as
-  they were.  It keeps, for one owner (a ``Streamer``, a
-  ``SessionMultiplexer``, a trainer):
+  they were, or writes a state leaf in place only idempotently: running
+  the step twice on the same state and inputs must leave that leaf as
+  running it once does, and give the same ``out``.  (The mha bottleneck's
+  step writes the key and value of the rows that step into slot ``pos mod
+  W`` of their rings and returns the rings themselves; it reads that slot
+  from the new key and value, and ``pos`` is advanced only in the returned
+  state, so a warm-up run writes what the replay writes.)  It keeps, for
+  one owner (a ``Streamer``, a ``SessionMultiplexer``, a trainer):
 
   - **the static state**: the tree of tensors the owner's steps read and
     write.  The captured body writes the new state into it with ``copy_``
@@ -44,8 +50,9 @@ under ``torch.cuda.set_sync_debug_mode("error")``, so a host sync hidden in
 the body raises there, with its stack, rather than breaking the capture.
 Then the capture, and its first replay.  A capture that fails raises with
 the graph's key; nothing falls back to the eager path.  The warm-up runs
-discard their results, so a capture changes no state; a registered
-generator is put back as it was.
+discard their results, so a capture changes no state but what an
+idempotent in-place write puts there, which the replay then writes again;
+a registered generator is put back as it was.
 
 The kernel wrappers count their launches in Python (``selective_scan.
 launches`` and the others of :func:`launch_counters`).  An eager call
@@ -64,6 +71,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from cleanumamba_tpu_torch import tracing
+from cleanumamba_tpu_torch.ops.cuda.kv_attention import kv_attention
 from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan, selective_scan_bwd
 from cleanumamba_tpu_torch.ops.cuda.stream_fused import fused_decoder_level, fused_encoder_level
 from cleanumamba_tpu_torch.ops.cuda.stream_mega import mega_stream_step
@@ -77,7 +85,7 @@ def launch_counters():
     return ((selective_scan, "launches"), (selective_scan_bwd, "launches"),
             (fused_encoder_level, "launches"), (fused_encoder_level, "int8_launches"),
             (fused_decoder_level, "launches"), (fused_decoder_level, "int8_launches"),
-            (mega_stream_step, "launches"))
+            (mega_stream_step, "launches"), (kv_attention, "launches"))
 
 
 def _counts():

@@ -8,8 +8,12 @@ stack.  Per layer:
     a   = softmax(QK^T / sqrt(d_k) + causal mask) V -> fc -> + residual -> LN
     ffn = W2 relu(W1 a + b1) + b2 -> + residual -> LN
 
-Streaming keeps a ring KV cache of ``max_len`` positions per layer and one
-position counter shared by the batch.
+Streaming keeps, for each row of the batch (a session), a ring of the keys
+and values of its last ``W`` tokens in every layer and its own count of the
+tokens written: a row attends to ``min(pos + 1, W)`` slots, whatever the
+other rows' ages.  A step writes this token's key and value into the ring in
+place (K6, ``ops/cuda/kv_attention.py``), at ``pos mod W`` of the rows that
+step; the rest of its state is new tensors.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import math
 import torch
 
 from cleanumamba_tpu_torch.models.bottleneck_mamba import uniform
+from cleanumamba_tpu_torch.ops.cuda.kv_attention import kv_attention
 from cleanumamba_tpu_torch.ops.norms import layer_norm
 
 
@@ -80,50 +85,50 @@ def mha_max_len(cfg) -> int:
     return max(1, (16000 * 10) // cfg.total_stride)
 
 
-def init_cache(params, cfg, batch_size: int, max_len: int, dtype=torch.float32, device="cpu"):
-    """Ring KV cache: ``max_len`` slots per layer, one shared position."""
+def init_cache(params, cfg, batch_size: int, max_len=None, dtype=torch.float32, device="cpu"):
+    """Empty rings: ``k``, ``v`` (batch, layers, window, d_model) and ``pos``
+    (batch,) int32.  ``max_len``: the window W, ``mha_max_len(cfg)`` when
+    None."""
     d = params["layers"][0]["w_qs"].shape[0]
     n = len(params["layers"])
-    return {"k": torch.zeros((n, batch_size, max_len, d), dtype=dtype, device=device),
-            "v": torch.zeros((n, batch_size, max_len, d), dtype=dtype, device=device),
-            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    W = mha_max_len(cfg) if max_len is None else max_len
+    return {"k": torch.zeros((batch_size, n, W, d), dtype=dtype, device=device),
+            "v": torch.zeros((batch_size, n, W, d), dtype=dtype, device=device),
+            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
 
 
 def ring_mask(pos, max_len: int):
-    """(slot one-hot, valid) over the ring's ``max_len`` slots, both (max_len,)
-    bool: the slot this step writes (``pos mod max_len``) and the slots
-    written so far (0..min(pos, max_len - 1)).  ``pos`` is a 0-d int tensor;
-    no host read."""
-    idx = torch.arange(max_len, device=pos.device)
+    """(slot one-hot, valid), each (B, max_len) bool, of rows at positions
+    ``pos`` (B,): the slot a step writes (``pos mod max_len``) and the slots
+    written so far with it (0..min(pos, max_len - 1)).  No host read."""
+    idx = torch.arange(max_len, device=pos.device)[None, :]
+    pos = pos[:, None]
     return idx == pos % max_len, idx <= torch.clamp(pos, max=max_len - 1)
 
 
-def step(params, cfg, cache, x):
+def step(params, cfg, cache, x, live=None):
     """Single-token streaming step.  x: (B, d_model) -> (cache', (B, d_model)).
 
-    Attends to at most ``max_len`` past positions (the ring); beyond that the
-    window slides."""
+    A row attends to at most W past tokens (its ring); beyond that the window
+    slides.  ``live``: (B,) bool, the rows that step (None: every row); a
+    paused row's ring and position stay as they were, and its output row is
+    not meaningful.  The rings of ``cache`` are written in place and returned
+    as they are; ``pos`` comes back advanced for the live rows, in a new
+    tensor.  The write is idempotent: a second call on the same ``cache``
+    and ``x`` writes the same slots with the same values and returns the
+    same output (K6 reads the token's own slot from its new key and value),
+    which ``graphs.StepGraphs``' warm-up runs rely on.  Not traceable by
+    ``torch.export`` on a card (K6 is not a custom op): ``export.
+    export_stream`` refuses an mha model."""
     eps, n_head = cfg.norm_epsilon, cfg.tsfm_n_head
-    max_len = cache["k"].shape[2]
-    onehot, valid = ring_mask(cache["pos"], max_len)
-    new_k, new_v = [], []
+    pos = cache["pos"]
+    if live is None:
+        live = torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
     x = _ln(params["enc_norm"], x, eps)
-    B, d = x.shape
-    d_k = d // n_head
     for li, p in enumerate(params["layers"]):
         q = x @ p["w_qs"].to(x.dtype)
         k = x @ p["w_ks"].to(x.dtype)
         v = x @ p["w_vs"].to(x.dtype)
-        kc = torch.where(onehot[None, :, None], k[:, None, :], cache["k"][li])
-        vc = torch.where(onehot[None, :, None], v[:, None, :], cache["v"][li])
-        new_k.append(kc)
-        new_v.append(vc)
-        kh = kc.reshape(B, max_len, n_head, d_k)
-        vh = vc.reshape(B, max_len, n_head, d_k)
-        logits = torch.einsum("bhd,bshd->bhs", q.reshape(B, n_head, d_k).float(), kh.float())
-        logits = logits / math.sqrt(d_k)
-        logits = torch.where(valid[None, None, :], logits, torch.full_like(logits, -1e9))
-        attn = torch.softmax(logits, dim=-1).to(x.dtype)
-        a = torch.einsum("bhs,bshd->bhd", attn, vh).reshape(B, d) @ p["fc"].to(x.dtype)
-        x = _ffn(p, _ln(p["attn_norm"], a + x, eps), eps)
-    return {"k": torch.stack(new_k), "v": torch.stack(new_v), "pos": cache["pos"] + 1}, x
+        a = kv_attention(q, k, v, cache["k"][:, li], cache["v"][:, li], live, pos, n_head)
+        x = _ffn(p, _ln(p["attn_norm"], a @ p["fc"].to(x.dtype) + x, eps), eps)
+    return {"k": cache["k"], "v": cache["v"], "pos": pos + live.to(pos.dtype)}, x

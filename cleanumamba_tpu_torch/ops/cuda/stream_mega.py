@@ -636,13 +636,13 @@ def mega_stream_step_ref(x_norm, state, arrays, meta):
     elif kind == "mha":
         n_head, d = meta["n_head"], meta["bott"][0]["d"]
         max_len = cache["k"].shape[2]
-        onehot, valid = (m[None, :, None] for m in ring_mask(cache["pos"], max_len))
+        onehot, valid = (m[..., None] for m in ring_mask(cache["pos"], max_len))
         xh = r(_norm(t, f("nfs"), f("nfb"), False, eps))
         new_k, new_v = [], []
         for li in range(n_layers):
             q, k, v = (xh @ w(f"m{li}{n}") for n in ("wq", "wk", "wv"))
-            kc = torch.where(onehot, k[:, None, :], cache["k"][li].float())
-            vc = torch.where(onehot, v[:, None, :], cache["v"][li].float())
+            kc = torch.where(onehot, k[:, None, :], cache["k"][:, li].float())
+            vc = torch.where(onehot, v[:, None, :], cache["v"][:, li].float())
             new_k.append(kc.to(cache["k"].dtype))
             new_v.append(vc.to(cache["v"].dtype))
             logits = (kc * q[:, None, :]).reshape(B, max_len, n_head, d // n_head).sum(-1) \
@@ -654,7 +654,7 @@ def mega_stream_step_ref(x_norm, state, arrays, meta):
             ff = r(torch.relu(xh @ w(f"m{li}f1") + f(f"m{li}f1b")))
             xh = r(_norm(ff @ w(f"m{li}f2") + f(f"m{li}f2b") + xh, f(f"m{li}fns"),
                          f(f"m{li}fnb"), False, eps))
-        bott = {"k": torch.stack(new_k), "v": torch.stack(new_v), "pos": cache["pos"] + 1}
+        bott = {"k": torch.stack(new_k, 1), "v": torch.stack(new_v, 1), "pos": cache["pos"] + 1}
         tok = xh
     else:
         hidden, residual, bott = t, torch.zeros_like(t), []
@@ -805,13 +805,14 @@ def _bottleneck_io(what, device, meta, cache, B):
     new cache built from those outputs, and MHA's (position, new position)
     pair (None for the other families)."""
     kind = meta["kind"]
-    if kind == "mha":
-        shape = (len(meta["bott"]), B, meta["max_len"], meta["bott"][0]["d"])
+    if kind == "mha":  # each layer's rings start at k[0, li]; a row's lie L * W * d further
+        shape = (B, len(meta["bott"]), meta["max_len"], meta["bott"][0]["d"])
         k = _checked(what, device, cache["k"], shape, "k ring")
         v = _checked(what, device, cache["v"], shape, "v ring")
-        pos = _checked(what, device, cache["pos"], (), "pos", torch.int32)
+        pos = _checked(what, device, cache["pos"], (B,), "pos", torch.int32)
         new = {"k": torch.empty_like(k), "v": torch.empty_like(v), "pos": torch.empty_like(pos)}
-        pairs = [[(k[li], new["k"][li]), (v[li], new["v"][li])] for li in range(shape[0])]
+        pairs = [[(k[:, li], new["k"][:, li]), (v[:, li], new["v"][:, li])]
+                 for li in range(shape[1])]
         return pairs, new, (pos, new["pos"])
     pairs, new = [], []
     for li, (lc, bm) in enumerate(zip(cache, meta["bott"])):

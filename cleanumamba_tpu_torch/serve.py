@@ -7,22 +7,24 @@ sessions riding it.
 
 - **The state pool is one batched tree.**  Every streaming-state leaf is
   batch-leading (``streaming.py`` keeps even the normalisation EMA and its
-  frame counter per session, (B, 1)), so admitting a session is one splice of
-  row ``sid`` of a batched prime into the pool.  A leaf that does not lead
-  with the batch (mamba_s4's discretised system) is the same for every
-  session and is kept as it is.  The mha bottleneck's ring position is one
-  for the whole batch, so an mha model cannot be served so (nor can it in
-  the JAX package, whose splice fails on that leaf).
+  frame counter per session, (B, 1); the mha bottleneck's KV rings and each
+  row's position), so admitting a session is one splice of row ``sid`` of a
+  batched prime into the pool.  A leaf that does not lead with the batch
+  (mamba_s4's discretised system) is the same for every session and is kept
+  as it is.  (The JAX package cannot serve mha: its ring position is one
+  for the whole batch.)
 - **Sessions are mutually exact.**  Every op of prime and step is batch
   parallel: a session beside any other traffic gives the audio it gives
   alone.
 - **Ticks never wait for a starved session.**  A tick consumes
-  ``block * total_stride`` samples from every session that has them; the
-  others ride the step on zeros and their output rows are dropped.  A
-  primed session that is starved (paused) keeps its state rows: the step
-  takes a ``(slots, 1)`` live mask and returns ``torch.where(live, new,
-  old)`` over the batch-leading leaves, so a paused row is bitwise what it
-  was (JAX keeps the old pool and writes its rows back; the same values).
+  ``block * total_stride`` samples from every session that has them (the
+  live rows); the other rows (paused sessions, closed and buffering slots)
+  ride the step on zeros, their output rows are dropped and their state
+  rows are kept: the step takes a ``(slots, 1)`` live mask and returns
+  ``torch.where(live, new, old)`` over the batch-leading leaves, so such a
+  row is bitwise what it was (JAX keeps the old pool and writes its rows
+  back; the same values).  The mha rings are left to the step, which writes
+  only the live rows' slots in place (K6), so no ``where`` runs over them.
   One step serves every pattern of starved sessions.
 - **One graph a tick on a card.**  On a CUDA device prime and the masked
   step run at batch = slots as CUDA graphs (``graphs.StepGraphs``, one
@@ -105,9 +107,14 @@ class SessionMultiplexer:
              functions, e.g. the callables of an exported bundle whose traced
              batch and block are ``slots`` and ``block`` (:meth:`from_bundle`);
              they take ``(params, frame)`` and ``(params, state, samples)``.
+             Not for an mha model, whose step takes the live mask.
 
     ``packed_levels``: the encoder and decoder levels a tick runs through the
-    fused level kernels (0 on the per-op path).
+    fused level kernels (0 on the per-op path).  ``kv_window``: the tokens an
+    mha session attends to (``bottleneck_mha.mha_max_len``; 0 for the other
+    bottlenecks).  Counters, on the host: ``ticks``; for an mha model
+    ``kv_positions``, the window lengths the live rows attended to, summed
+    over the tokens of every tick.
     """
 
     def __init__(self, params, cfg: CleanUMambaConfig, slots: int = 8, block: int = 1,
@@ -115,9 +122,6 @@ class SessionMultiplexer:
                  fns: Optional[Dict[str, Callable]] = None):
         if slots < 1 or block < 1:
             raise ValueError("slots and block must be >= 1")
-        if cfg.bottleneck == "mha":
-            raise ValueError("SessionMultiplexer: the mha bottleneck's KV ring position is one "
-                             "for the whole batch, so its sessions cannot be multiplexed")
         self.cfg = cfg
         self.slots = slots
         self.block = block
@@ -125,10 +129,19 @@ class SessionMultiplexer:
         self.tick_samples = block * cfg.total_stride
         self.device = resolve_device(device)
         self.packed_levels = 0
+        self.kv_window = 0
+        if cfg.bottleneck == "mha":
+            from cleanumamba_tpu_torch.models.bottleneck_mha import mha_max_len
+
+            self.kv_window = mha_max_len(cfg)
         if fns is not None:
             if weights != "fp32":
                 raise ValueError(f"SessionMultiplexer: weights={weights!r} with fns: the "
                                  "functions take the params as given")
+            if cfg.bottleneck == "mha":
+                raise ValueError("SessionMultiplexer: an mha model's step takes the live mask, "
+                                 "which a bundle's step does not: serve it from the live "
+                                 "functions")
             self.params = self._step_params = to_device(params, self.device)
             self._prime, self._step = fns["prime"], fns["step"]
         else:
@@ -160,9 +173,11 @@ class SessionMultiplexer:
                 self.packed_levels = sum(m is not None for m in packs[1]["enc"] + packs[1]["dec"])
             self._prime = lambda p, f: stream_prime(view(p), cfg, f, dtype)
             if block == 1:
-                self._step = lambda p, s, n: stream_step(view(p), cfg, s, n, dtype, packs=packs)
+                self._step = lambda p, s, n, live=None: stream_step(view(p), cfg, s, n, dtype,
+                                                                    packs=packs, live=live)
             else:
-                self._step = lambda p, s, n: stream_step_block(view(p), cfg, s, n, dtype)
+                self._step = lambda p, s, n, live=None: stream_step_block(view(p), cfg, s, n,
+                                                                          dtype, live=live)
         self.pool = None  # batched state tree, made at the first admission
         self._graphs = StepGraphs(self.device) if self.device.type == "cuda" else None
         # host-side per-slot bookkeeping
@@ -172,7 +187,9 @@ class SessionMultiplexer:
         self._out: List[List[np.ndarray]] = [[] for _ in range(slots)]
         self._fed = [0] * slots
         self._emitted = [0] * slots
+        self._tokens = [0] * slots  # bottleneck tokens each session has attended with
         self.ticks = 0
+        self.kv_positions = 0
 
     # -- session lifecycle --------------------------------------------------
 
@@ -190,13 +207,16 @@ class SessionMultiplexer:
         raise RuntimeError(f"all {self.slots} slots busy")
 
     def close(self, sid: int) -> None:
-        """Release a slot.  Its state rows are stepped over zeros (finite)
-        until the slot is admitted again, when the splice overwrites them."""
+        """Release a slot.  Its state rows are kept as they are until the slot
+        is admitted again, when the splice overwrites them (an mha row's
+        rings and position too, so its next session starts from an empty
+        window); no tick reads them meanwhile."""
         self._check(sid)
         self._open[sid] = False
         self._primed[sid] = False
         self._buf[sid] = np.zeros(0, np.float32)
         self._out[sid] = []
+        self._tokens[sid] = 0
 
     def feed(self, sid: int, samples: np.ndarray) -> np.ndarray:
         """Buffer raw samples for session ``sid``, advance the pool as far as
@@ -286,10 +306,20 @@ class SessionMultiplexer:
                     self.pool = own(state)
                 else:  # batch-leading: one splice admits the session
                     row = self._rows([sid])
-                    _map_rows(lambda pool, one: pool.index_copy_(0, row, one[sid:sid + 1]),
-                              self.slots, self.pool, state)
+
+                    def splice(pool, new):
+                        _map_rows(lambda a, b: a.index_copy_(0, row, b[sid:sid + 1]),
+                                  self.slots, pool, new)
+
+                    kv = "bottleneck" if self.kv_window else None
+                    splice({k: v for k, v in self.pool.items() if k != kv},
+                           {k: v for k, v in state.items() if k != kv})
+                    if kv:
+                        with tracing.span("mux.admit_kv", sid):  # the row's rings and position
+                            splice(self.pool[kv], state[kv])
                 self._out[sid].append(out[sid].float().cpu().numpy())
                 self._primed[sid] = True
+                self._tokens[sid] = 1  # the prime's token
 
     def _rows(self, sids):
         return torch.tensor(sids, dtype=torch.long, device=self.device)
@@ -298,9 +328,22 @@ class SessionMultiplexer:
         return self._prime(self.params, frames)
 
     def _step_body(self, pool, live, samples):
-        """The tick: the step at batch = slots, paused rows kept."""
-        new, out = self._step(self._step_params, pool, samples)
-        return _map_rows(lambda n, o: _keep_paused(live, n, o), self.slots, new, pool), out
+        """The tick: the step at batch = slots, the rows that are not live
+        kept; a leaf the step wrote in place (the mha rings) is its own.  An
+        mha step takes the live mask: it writes the live rows' rings alone."""
+        kv_live = (live.reshape(-1),) if self.kv_window else ()
+        new, out = self._step(self._step_params, pool, samples, *kv_live)
+        return _map_rows(lambda n, o: n if n is o else _keep_paused(live, n, o), self.slots,
+                         new, pool), out
+
+    def _count_kv(self, ready) -> None:
+        """The counters of a tick's attention: each live row's ``block``
+        tokens attend to min(tokens so far, window) slots each."""
+        W = self.kv_window
+        for s in ready:
+            n0 = self._tokens[s]
+            self._tokens[s] = n0 + self.block
+            self.kv_positions += sum(min(n + 1, W) for n in range(n0, n0 + self.block))
 
     def _pump(self) -> None:
         self._admit_ready()
@@ -312,10 +355,10 @@ class SessionMultiplexer:
                 return
             with tracing.span("mux.tick"):
                 with tracing.span("mux.pack"):
-                    # primed but starved sessions must not advance: their rows ride
-                    # the step on zeros and the mask keeps their old state
-                    live = np.array([[not (self._primed[s] and s not in ready)]
-                                     for s in range(self.slots)])
+                    # rows without a hop (starved sessions, free slots) must not
+                    # advance: they ride the step on zeros and the mask keeps them
+                    live = np.zeros((self.slots, 1), bool)
+                    live[ready] = True
                     new = np.zeros((self.slots, tick), np.float32)
                     for s in ready:
                         new[s] = self._buf[s][:tick]
@@ -332,4 +375,6 @@ class SessionMultiplexer:
                 for s in ready:
                     self._out[s].append(out[s])
                 self.ticks += 1
+                if self.kv_window:
+                    self._count_kv(ready)
             self._admit_ready()

@@ -12,8 +12,9 @@ output samples.  The carried state is a dict:
   bias* so the bias is not added twice when the next frame lands on them;
 - ``bottleneck``: per-layer mixer caches (conv_state and fp32 ssm_state for
   mamba and mamba2, h and fp32 c for lstm, conv_state, the complex s4_state
-  as (re, im) pairs and its discrete system for mamba_s4) or, for mha, the
-  ring KV caches of every layer and one shared position.
+  as (re, im) pairs and its discrete system for mamba_s4) or, for mha, each
+  row's KV rings (batch, layers, window, d_model) and its own position
+  (batch,), the rings written in place by every step (``bottleneck_mha``).
 
 At level i each frame produces ``S^(D-1-i)`` new outputs from the last
 ``K + S*(S^(D-1-i) - 1)`` samples of the previous level's frame output.
@@ -79,19 +80,20 @@ def _bottleneck_init_cache(params, cfg: CleanUMambaConfig, batch: int, dtype, de
     if cfg.bottleneck == "lstm":
         return bottleneck_lstm.init_cache(bp["layers"], batch, dtype, device)
     if cfg.bottleneck == "mha":
-        return bottleneck_mha.init_cache(bp, cfg, batch, bottleneck_mha.mha_max_len(cfg), dtype,
-                                         device)
+        return bottleneck_mha.init_cache(bp, cfg, batch, None, dtype, device)
     mixer = STEP_MIXERS[cfg.bottleneck]
     return [mixer.mixer_init_cache(lp["mixer"], batch, dtype, device) for lp in bp["layers"]]
 
 
-def _bottleneck_step(params, cfg: CleanUMambaConfig, cache, x):
-    """x: (B, d_model) single bottleneck token -> (cache', y)."""
+def _bottleneck_step(params, cfg: CleanUMambaConfig, cache, x, live=None):
+    """x: (B, d_model) single bottleneck token -> (cache', y).  ``live``
+    (B,) bool: the rows whose mha rings the step writes (None: all); the
+    other families step every row."""
     bp = params["bottleneck"]
     if cfg.bottleneck == "lstm":
         return bottleneck_lstm.step(bp["layers"], cache, x)
     if cfg.bottleneck == "mha":
-        return bottleneck_mha.step(bp, cfg, cache, x)
+        return bottleneck_mha.step(bp, cfg, cache, x, live)
     mixer_step = STEP_MIXERS[cfg.bottleneck].mixer_step
     new_cache = []
 
@@ -142,11 +144,11 @@ def _mamba2_mixer_tokens(p, lc, hidden):
     return {"conv_state": new_conv_state, "ssm_state": h_last}, hidden
 
 
-def _bottleneck_tokens(params, cfg: CleanUMambaConfig, cache, x):
+def _bottleneck_tokens(params, cfg: CleanUMambaConfig, cache, x, live=None):
     """N bottleneck tokens (B, N, d_model) with carried state.  mamba and
     mamba2 with N > 1: one selective scan per layer with h0 = the carried
     state (K1 on CUDA).  Otherwise (lstm, mha, mamba_s4, or one token) a loop
-    of single-token steps."""
+    of single-token steps (``live`` as in :func:`_bottleneck_step`)."""
     N = x.shape[1]
     if cfg.bottleneck in ("mamba", "mamba2") and N > 1:
         mixer_tokens = (_mamba_mixer_tokens if cfg.bottleneck == "mamba"
@@ -161,7 +163,7 @@ def _bottleneck_tokens(params, cfg: CleanUMambaConfig, cache, x):
         return new_cache, residual_stack(params["bottleneck"], x, cfg, mixer)
     ys = []
     for t in range(N):
-        cache, y = _bottleneck_step(params, cfg, cache, x[:, t])
+        cache, y = _bottleneck_step(params, cfg, cache, x[:, t], live)
         ys.append(y)
     return cache, torch.stack(ys, dim=1)
 
@@ -183,17 +185,18 @@ def _overlap_decoder_level(dp, cfg, j, x, skip, prev):
     return (torch.relu(x) if j != D - 1 else x), tail
 
 
-def _decode_frame(params, cfg, skips, bott_cache, dec_caches, dtype, packs=None):
+def _decode_frame(params, cfg, skips, bott_cache, dec_caches, dtype, packs=None, live=None):
     """From one frame's level-wise skips to total_stride samples.
 
     skips[i]: (B, len_i, C_i) frame output of encoder level i.  Returns
     (bott_cache', dec_caches', out (B, total_stride, 1)).  Levels packed in
     ``packs`` (see ``pack_stream_params``) run as the fused decoder kernel
     (K4 on CUDA); the dec cache layout (B, S, Cout) is shared by both paths.
+    ``live``: as in :func:`_bottleneck_step`.
     """
     D, S = cfg.encoder_n_layers, cfg.stride
     x = pointwise(params["tsfm_conv1"], skips[-1])
-    bott_cache, y = _bottleneck_step(params, cfg, bott_cache, x[:, 0, :])
+    bott_cache, y = _bottleneck_step(params, cfg, bott_cache, x[:, 0, :], live)
     x = pointwise(params["tsfm_conv2"], y[:, None, :])
 
     new_dec = []
@@ -261,12 +264,15 @@ def stream_prime(params, cfg: CleanUMambaConfig, frame, dtype=torch.float32):
 
 
 def stream_step(params, cfg: CleanUMambaConfig, state, new_samples,
-                dtype=torch.float32, packs=None):
+                dtype=torch.float32, packs=None, live=None):
     """Consume total_stride new samples (B, total_stride), emit as many.
 
     packs: ``pack_stream_params`` output; packed encoder levels run window
     GEMM + ReLU + mix + GLU as the fused encoder kernel (K3 on CUDA), packed
-    decoder levels the fused decoder kernel (K4).
+    decoder levels the fused decoder kernel (K4).  live: (B,) bool, the rows
+    whose mha rings the step writes and whose positions it advances (None:
+    all); the rest of the state is new tensors for every row, and an mha
+    state's rings are written in place.
     """
     K, S = cfg.kernel_size, cfg.stride
     strides = _level_strides(cfg)
@@ -295,7 +301,7 @@ def stream_step(params, cfg: CleanUMambaConfig, state, new_samples,
         x_prev_full = x_full
 
     bott_cache, dec_caches, out = _decode_frame(
-        params, cfg, skips, state["bottleneck"], state["dec"], dtype, packs=packs)
+        params, cfg, skips, state["bottleneck"], state["dec"], dtype, packs=packs, live=live)
     out = out[:, : cfg.total_stride, 0]
     if cfg.normalize_input:
         out = out * input_std.to(out.dtype)
@@ -369,7 +375,7 @@ def _ema_stds(std_now, std0, frames0):
 
 
 def stream_step_block(params, cfg: CleanUMambaConfig, state, new_samples,
-                      dtype=torch.float32):
+                      dtype=torch.float32, live=None):
     """Block streaming: consume N*total_stride new samples, emit as many.
 
     Math-identical to N successive ``stream_step`` calls, normalisation
@@ -377,6 +383,7 @@ def stream_step_block(params, cfg: CleanUMambaConfig, state, new_samples,
     scaled by its own EMA value, and so is its output).  The encoder and
     decoder work of all N frames runs at once; only the bottleneck's SSM
     state is sequential, carried through one selective scan (K1 on CUDA).
+    ``live``: as in :func:`stream_step`.
     """
     K, S, D = cfg.kernel_size, cfg.stride, cfg.encoder_n_layers
     ts, fl = cfg.total_stride, cfg.frame_length
@@ -423,7 +430,7 @@ def stream_step_block(params, cfg: CleanUMambaConfig, state, new_samples,
 
     # the deepest level's cache is empty: skips[-1] holds the N new tokens
     z = pointwise(params["tsfm_conv1"], skips[-1])
-    bott_cache, y = _bottleneck_tokens(params, cfg, state["bottleneck"], z)
+    bott_cache, y = _bottleneck_tokens(params, cfg, state["bottleneck"], z, live)
     x = pointwise(params["tsfm_conv2"], y)
 
     new_dec = []

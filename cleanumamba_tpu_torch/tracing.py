@@ -27,6 +27,9 @@ The spans, at each boundary where the port's host work changes hands:
                               graph call, the splice of its rows into the
                               pool (``index_copy_``), the primed output's
                               ``.cpu()``
+``mux.admit_kv`` (key: sid,   an mha model's admission: the session's KV
+in ``mux.admit``)             rings and position spliced into the pool's
+                              row (``index_copy_``)
 ``mux.tick``                  one tick: the ready rows' mask and samples,
                               the step's graph call, the output's copy to
                               the host, the rows handed to their sessions
@@ -47,6 +50,20 @@ tick)                         here for the card to finish the tick
                               compared with the last call's and their
                               values copied into the graphs' static copy
 ============================  =============================================
+
+The port's counters, beside the spans (plain integers on the owner,
+counted on the host, always on):
+
+==================================  =========================================
+``SessionMultiplexer.ticks``        ticks run (each one step at batch = slots)
+``SessionMultiplexer.kv_positions`` an mha model's attended window lengths:
+                                    for every token a live row steps, the
+                                    ring slots it attends to (min(its tokens
+                                    so far, the window)), summed over ticks;
+                                    the bytes K6 must read follow from it
+launch counts (``graphs.            each kernel wrapper's launches, a graph's
+launch_counters``)                  counted at every replay
+==================================  =========================================
 
 The ``graphs.*`` spans serve every owner of graphs: the multiplexer's
 prime (tag ``prime``) and tick (``step``), ``Streamer`` (``frame``,

@@ -56,6 +56,18 @@ def _assert_states(got, want, **tol):
         np.testing.assert_allclose(g, w, **tol)
 
 
+def _as_jax(state):
+    """A port state in the JAX package's layout: an mha model's rings
+    (batch, layers, W, d) as (layers, batch, W, d) and its rows' positions,
+    equal here, as JAX's one position; other states as they are."""
+    bc = state["bottleneck"]
+    if not isinstance(bc, dict) or "pos" not in bc:
+        return state
+    assert bool((bc["pos"] == bc["pos"][0]).all())
+    return dict(state, bottleneck={"k": bc["k"].transpose(0, 1), "v": bc["v"].transpose(0, 1),
+                                   "pos": bc["pos"][0]})
+
+
 @pytest.fixture(scope="module")
 def models():
     cache = {}
@@ -139,8 +151,8 @@ def test_mega_step_matches_jax_and_plain(models, family, normalize_input):
         sj_plain, yj_plain = js.stream_step(pj, jcfg, sj_plain, jnp.asarray(new))
         for want in (yj_mega, yj_plain, y_plain):
             np.testing.assert_allclose(y_mega.numpy(), np.asarray(want), **TOL)
-    _assert_states(s_mega, sj_mega, **TOL)
-    _assert_states(s_mega, sj_plain, **TOL)
+    _assert_states(_as_jax(s_mega), sj_mega, **TOL)
+    _assert_states(_as_jax(s_mega), sj_plain, **TOL)
     _assert_states(s_mega, tparams.to_numpy(s_plain), **TOL)
 
 

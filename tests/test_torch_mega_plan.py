@@ -182,7 +182,12 @@ def test_frame_contract_matches_jax(family, normalize):
     for t in range(4):
         new = torch.from_numpy(x[:, fl + t * tsd: fl + (t + 1) * tsd])
         st, y = sm.mega_stream_frame(st, new, arrays, meta, normalize)
-        states.append(tparams.to_numpy(st))
+        if family == "mha":  # the port's rings are batch-leading, a position a row
+            bc = st["bottleneck"]
+            states.append(tparams.to_numpy(dict(st, bottleneck={
+                "k": bc["k"].transpose(0, 1), "v": bc["v"].transpose(0, 1), "pos": bc["pos"][0]})))
+        else:
+            states.append(tparams.to_numpy(st))
         outs.append(y.numpy())
     jmega = jax_pack_mega(pj, jcfg, jnp.float32)
     sj, _ = js.stream_prime(pj, jcfg, jnp.asarray(x[:, :fl]))

@@ -257,22 +257,19 @@ def test_matches_jax_multiplexer(model, weights):
         assert np.abs(ours[i] - want).max() <= 1e-4 * np.abs(want).max()
 
 
-def test_mha_refused_and_lstm_served(model):
-    """The mha ring position is one for the whole batch: refused.  An lstm
-    session beside another matches its solo stream."""
+@pytest.mark.parametrize("family", ["mha", "lstm"])
+def test_mha_and_lstm_served(model, family):
+    """An mha session (its own KV rings and position in the pool) and an
+    lstm one, each beside another session, match their solo streams."""
     cfg, params, _, _ = model
     from cleanumamba_tpu_torch.models.cleanumamba import init_params
 
-    mha = dataclasses.replace(cfg, bottleneck="mha")
-    with pytest.raises(ValueError, match="mha"):
-        SessionMultiplexer(init_params(mha, torch.Generator().manual_seed(0), "cpu"), mha,
-                           device="cpu")
-    lstm = dataclasses.replace(cfg, bottleneck="lstm")
-    pl = init_params(lstm, torch.Generator().manual_seed(0), "cpu")
-    fl, tsr = lstm.frame_length, lstm.total_stride
-    mux = SessionMultiplexer(pl, lstm, slots=2, device="cpu")
+    other = dataclasses.replace(cfg, bottleneck=family)
+    po = init_params(other, torch.Generator().manual_seed(0), "cpu")
+    fl, tsr = other.frame_length, other.total_stride
+    mux = SessionMultiplexer(po, other, slots=2, device="cpu")
     a, b = mux.open(), mux.open()
     xa, xb = _audio(50, fl + 4 * tsr), _audio(51, fl + 2 * tsr)
     mux.feed(b, xb)
     out = np.concatenate([mux.feed(a, xa), mux._drain(a)])
-    np.testing.assert_allclose(out, _solo(pl, lstm, xa), **TOL)
+    np.testing.assert_allclose(out, _solo(po, other, xa), **TOL)

@@ -4,11 +4,13 @@ unpacked step.
 At block 1 a ``SessionMultiplexer`` runs every encoder and decoder level
 through K3/K4 inside the tick's CUDA graph.  Here, at E8's geometry, bf16
 weights at slots = 16 (the tensor cores) and fp32 weights at slots = 8 (the
-most at which fp32 weights pack), each tick of the graphed multiplexer (the
-first eager, the second captured, the rest replayed) is held against eager, unpacked
-``stream_step`` on the same card from the same pool: the live rows' output
-and state at 1e-5 of max|ref| (fp32, TF32 off; another sum order), the
-paused rows' state bit for bit.  Needs a CUDA device and imports no JAX:
+most at which fp32 weights pack), and CleanUNet's (E8's U-Net, five mha
+layers whose rings K6 writes in place) with bf16 weights at 16 slots, each
+tick of the graphed multiplexer (the first eager, the second captured, the
+rest replayed) is held against eager, unpacked ``stream_step`` on the same
+card from the same pool: the live rows' output and state at 1e-5 of
+max|ref| (fp32, TF32 off; another sum order), the paused rows' state bit
+for bit.  Needs a CUDA device and imports no JAX:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_serve_card.py``.
 """
 
@@ -33,14 +35,17 @@ def _close(got, want, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("weights,slots", [("fp32", 8), ("bf16", 16)])
-def test_packed_ticks_match_the_unpacked_step_on_the_card(weights, slots):
+@pytest.mark.parametrize("weights,slots,bottleneck", [("fp32", 8, "mamba"),
+                                                      ("bf16", 16, "mamba"),
+                                                      ("bf16", 16, "mha")])
+def test_packed_ticks_match_the_unpacked_step_on_the_card(weights, slots, bottleneck):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K3/K4 and the graphs have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    cfg = CleanUMambaConfig()  # E8
+    cfg = (CleanUMambaConfig() if bottleneck == "mamba"  # E8
+           else CleanUMambaConfig(bottleneck="mha", tsfm_n_layers=5, norm_epsilon=1e-6))
     fl, tsr = cfg.frame_length, cfg.total_stride
     mux = SessionMultiplexer(init_params(cfg, torch.Generator().manual_seed(0), dev), cfg,
                              slots=slots, weights=weights, device=dev)
@@ -58,8 +63,9 @@ def test_packed_ticks_match_the_unpacked_step_on_the_card(weights, slots):
         for s in np.flatnonzero(live):
             mux._buf[s] = x[s]  # a hop for each live session; the others pause
         before = own(mux.pool)
-        with torch.no_grad():
-            ref_state, ref_out = stream_step(mux.params, cfg, before, torch.from_numpy(x).to(dev))
+        with torch.no_grad():  # (an mha step writes the live rows' ring slots of ``before``)
+            ref_state, ref_out = stream_step(mux.params, cfg, before, torch.from_numpy(x).to(dev),
+                                             live=torch.from_numpy(live).to(dev))
         mux._pump()
         assert mux.ticks == k + 1
         rows = torch.from_numpy(np.flatnonzero(live)).to(dev)

@@ -65,6 +65,11 @@ def test_prime_and_steps_match_jax(model, normalize_input):
         sj, oj = js.stream_step(pj, jcfg, sj, jnp.asarray(new))
         st, ot = ts.stream_step(pt, cfg, st, torch.from_numpy(new))
         np.testing.assert_allclose(ot.numpy(), np.asarray(oj), **_tol(family))
+    if family == "mha":  # the port's rings are batch-leading, a position a row
+        bc = st["bottleneck"]
+        assert bool((bc["pos"] == bc["pos"][0]).all())
+        st = dict(st, bottleneck={"k": bc["k"].transpose(0, 1), "v": bc["v"].transpose(0, 1),
+                                  "pos": bc["pos"][0]})
     lt, lj = _leaves(tparams.to_numpy(st)), _leaves(sj)
     assert len(lt) == len(lj)
     for a, b in zip(lt, lj):
