@@ -10,7 +10,8 @@
     python3 chip_smoke.py --export-only  # K1/K2 built, phase 21 alone (serving bundles)
     python3 chip_smoke.py --parallel-only  # K1/K2 built, phases 22-23 (tensor, sequence parallel)
     python3 chip_smoke.py --graphs-only  # every kernel built, phase 24 alone (CUDA graphs)
-    python3 chip_smoke.py --kv-only      # K6 and K3/K4 built, phase 25 alone (K6)
+    python3 chip_smoke.py --kv-only      # K3/K4, K6 and K7 built, phase 25 alone (K6)
+    python3 chip_smoke.py --widths-only  # K3/K4, K6 and K7 built, phases 15 (b)-(c), 26
 
 Phases, each printed as it passes; any failure raises (non-zero exit):
 
@@ -99,11 +100,16 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     per tick of its traffic, and the batched step's audio-s/s with every
     slot live (``cli/serve.py --bench`` in process); the block-1 tick with
     its levels packed (K3/K4) against the same tick per op, both graphed,
-    for bf16 and fp32 weights with fp32 state and bf16, int8 and fp32
-    weights with bf16 state, at 16 and 8 slots (the first: the benchmark's live
-    multiplexer, the tensor cores): outputs, K3/K4 launches counted over
-    each arm's ticks, device busy and wall a tick, and the constructor's
-    choice to pack or not, which must not lose; then ``cli/serve.py``
+    at every width the ticks run, for bf16 and fp32 weights with fp32
+    state and bf16, int8 and fp32 weights with bf16 state, at 16 and 8
+    slots (the first: the benchmark's live multiplexer, the tensor cores):
+    outputs, K3/K4 launches counted over each arm's ticks, device busy and
+    wall a tick per width, and the constructor's choice to pack or not at
+    each width, which must not lose; the graphed tick of the benchmark's
+    live multiplexers (E8 and CleanUNet, 16 slots, bf16 weights) at widths
+    1, 2, 4, 8 and 16: wall, device busy, K3/K4, K6 and K7 a tick from a
+    trace, K7's launches counted from zero (``chiprun_out/tick_widths.json``;
+    alone, with phase 26: ``--widths-only``); then ``cli/serve.py``
     (bench and demo), ``cli/denoise.py`` on a reference-format checkpoint
     and ``cli/stream_demo.py --synthetic`` as subprocesses;
 16. the offline forward of mamba2 (the SSD scan) and mamba_s4 (the S4
@@ -219,6 +225,13 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     with that plain step in its place: wall and device busy a tick, the top
     kernels, the outputs of the two within 1e-4, and K6's launches counted
     from zero over the ticks (one a layer and tick).
+26. K7 against its plain versions at the pools of the benchmark's live
+    multiplexers (E8: 25 leaves, CleanUNet: 22 with its rings; 16 slots,
+    random values): gathers and scatters of every width from 1 to 16 with
+    padding rows, bit for bit and again on a repeated call; device times
+    from a trace at width 1 of K7's gather and scatter, of the plain
+    versions (one ``index_select`` or ``index_copy_`` a leaf) and the bound
+    of the bytes the row reads and writes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernels' summary as JSON: each kernel's launches on its path, error, time,
@@ -2106,109 +2119,217 @@ TICK_CASES = [(w, d, n) for w, d in (("bf16", torch.float32), ("fp32", torch.flo
 CHOICE_MARGIN = 0.05  # the constructor's choice may lose by this share of a tick at most
 
 
-def _tick_times(mux, x, rounds):
-    """``mux``'s ticks over ``x`` (slots, frame + 3 * rounds ticks): every
-    slot's first frame, then rounds of one tick's samples to each slot in
-    turn (a tick a feed): ``rounds`` to warm up (eager, captured), ``rounds``
-    timed, ``rounds`` traced.  Returns (each slot's output, wall ms a tick,
-    device-busy ms a tick, ticks)."""
+def _ticks_of_width(mux, hops, w, n, k, outs=None, label=""):
+    """``n`` ticks of ``w`` live rows of ``mux`` (every slot admitted), the
+    live set turning from tick ``k`` on: each tick buffers one hop of
+    ``hops`` (one tick's samples each) for each of its sessions and pumps
+    once.  Every slot's output is drained, appended to ``outs[s]`` where
+    given, and must be finite.  Returns the next ``k``."""
+    for _ in range(n):
+        for j in range(w):
+            s = (k * w + j) % mux.slots
+            mux._buf[s] = hops[(k + j) % len(hops)]
+            mux._fed[s] += mux.tick_samples
+        k += 1
+        mux._pump()
+        for s in range(mux.slots):
+            y = mux._drain(s)
+            if not np.isfinite(y).all():
+                raise AssertionError(f"{label}: a tick of width {w} gave non-finite output")
+            if outs is not None:
+                outs[s].append(y)
+    return k
+
+
+def _admit_every_slot(mux, rng):
+    for s in range(mux.slots):
+        mux.open()
+        mux.feed(s, (rng.normal(size=mux.cfg.frame_length) * 0.1).astype(np.float32))
+
+
+def check_tick_packs(dev, cfg, params32, smi, timed=40, traced=40):
+    """Phase 15 (b): the multiplexer's block-1 tick with its levels packed
+    (K3/K4) against the same tick per op, each graphed, at every width its
+    ticks run (the powers of two below ``slots``, and ``slots``), for every
+    ``TICK_CASES`` entry.  Two live multiplexers on one traffic: one packs at
+    every width (``serve._SIMT_SLOTS`` raised to ``slots``), the other never
+    (no packs).  Checks the outputs (fp32 state 1e-4, bf16 4e-2 of
+    max|ref|) and K3/K4's launches (counted from zero over each arm's ticks:
+    a packed tick launches each level once, per op none), and prints device
+    busy and wall ms a tick per width.  At each width the constructor's own
+    choice (the packs up to ``pack_width`` rows) must not lose by more than
+    ``CHOICE_MARGIN`` of a tick.  Returns the K3/K4 launches of the first
+    case (the tensor cores' products) for the kernel table."""
     from torch.profiler import ProfilerActivity, profile
 
-    fl, tick, slots = mux.cfg.frame_length, mux.tick_samples, mux.slots
-    outs = []
-    for s in range(slots):
-        mux.open()
-        outs.append([mux.feed(s, x[s, :fl])])
-
-    def feed_rounds(r0):
-        for r in range(r0, r0 + rounds):
-            for s in range(slots):
-                outs[s].append(mux.feed(s, x[s, fl + r * tick: fl + (r + 1) * tick]))
-
-    feed_rounds(0)
-    torch.cuda.synchronize()
-    t0, n0 = time.perf_counter(), mux.ticks
-    feed_rounds(rounds)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / (mux.ticks - n0)
-    n1 = mux.ticks
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        feed_rounds(2 * rounds)
-        torch.cuda.synchronize()
-    busy, _ = _device_busy(prof)
-    return [np.concatenate(o) for o in outs], wall * 1e3, busy / (mux.ticks - n1), mux.ticks
-
-
-def check_tick_packs(dev, cfg, params32, smi):
-    """Phase 15 (b): the multiplexer's block-1 tick with its levels packed
-    (K3/K4) against the same tick per op, each graphed, on one traffic, for
-    every ``TICK_CASES`` entry: the outputs (fp32 state 1e-4, bf16 4e-2 of
-    max|ref|), K3/K4's launches (counted from zero over each arm's ticks: a
-    tick launches each packed level once; per op none), and device-busy and
-    wall ms a tick.  The constructor's own choice (``packed_levels``) is
-    one arm; the other runs through ``fns``.  Its choice must not lose by
-    more than ``CHOICE_MARGIN`` of a tick.  Returns the K3/K4 launches of the
-    first case (the tensor cores' products) for the kernel table."""
+    from cleanumamba_tpu_torch import serve
     from cleanumamba_tpu_torch.ops.cuda import stream_fused as sf
-    from cleanumamba_tpu_torch.params import prepare_weight_view
-    from cleanumamba_tpu_torch.serve import SessionMultiplexer
-    from cleanumamba_tpu_torch.streaming import stream_prime, stream_step, without_packed_levels
 
     kernels = (sf.fused_encoder_level, sf.fused_decoder_level)
-    rng = np.random.default_rng(151)
-    rounds, D = 4, cfg.encoder_n_layers
+    D = cfg.encoder_n_layers
     first, faults = None, []
     for weights, dtype, slots in TICK_CASES:
-        stored, view = prepare_weight_view(params32, weights, dtype)
-        packs = sf.pack_stream_params(stored, cfg, dtype)
-
-        def fns(pk, stored=stored, view=view, dtype=dtype):
-            return {"prime": lambda p, f: stream_prime(view(stored), cfg, f, dtype),
-                    "step": lambda p, s, n: stream_step(view(p), cfg, s, n, dtype, packs=pk)}
-
-        live = SessionMultiplexer(params32, cfg, slots=slots, dtype=dtype, weights=weights)
-        arms = {
-            "packed": live if live.packed_levels else SessionMultiplexer(
-                without_packed_levels(stored, packs[1]), cfg, slots=slots, dtype=dtype,
-                fns=fns(packs)),
-            "per-op": SessionMultiplexer(stored, cfg, slots=slots, dtype=dtype, fns=fns(None))
-            if live.packed_levels else live}
-        x = (rng.normal(size=(slots, cfg.frame_length + 3 * rounds * live.tick_samples)) * 0.1
-             ).astype(np.float32)
+        case = f"{weights} weights, {str(dtype)[6:]} state, {slots} slots"
+        chooser = serve.SessionMultiplexer(params32, cfg, slots=slots, dtype=dtype,
+                                           weights=weights)
+        widths = sorted({serve.tick_width(n, slots) for n in range(1, slots + 1)})
         got = {}
-        for arm, mux in arms.items():
-            for k in kernels:
-                k.launches = k.int8_launches = 0
-            outs, wall, busy, ticks = _tick_times(mux, x, rounds)
-            counts = [k.launches + k.int8_launches for k in kernels]
+        for arm in ("packed", "per-op"):
+            simt, pack = serve._SIMT_SLOTS, sf.pack_stream_params
+            if arm == "packed":
+                serve._SIMT_SLOTS = slots
+            else:
+                sf.pack_stream_params = lambda *a, **k: (None, None)
+            try:
+                mux = serve.SessionMultiplexer(params32, cfg, slots=slots, dtype=dtype,
+                                               weights=weights)
+            finally:
+                serve._SIMT_SLOTS, sf.pack_stream_params = simt, pack
+            if mux.pack_width != (slots if arm == "packed" else 0):
+                raise AssertionError(f"{case} {arm}: packs up to {mux.pack_width} rows")
+            rng = np.random.default_rng(151)
+            _admit_every_slot(mux, rng)
+            hops = (rng.normal(size=(64, mux.tick_samples)) * 0.1).astype(np.float32)
+            outs, per, k, n0 = [[] for _ in range(slots)], {}, 0, mux.ticks
+            for kern in kernels:
+                kern.launches = kern.int8_launches = 0
+            for w in widths:
+                k = _ticks_of_width(mux, hops, w, 3, k, outs, case)  # eager, captured, replayed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                k = _ticks_of_width(mux, hops, w, timed, k, outs, case)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / timed
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    k = _ticks_of_width(mux, hops, w, traced, k, outs, case)
+                    torch.cuda.synchronize()
+                per[w] = (wall, _device_busy(prof)[0] / traced)
+            ticks = mux.ticks - n0
+            counts = [kern.launches + kern.int8_launches for kern in kernels]
             want = [ticks * D if arm == "packed" else 0] * 2
             if counts != want:
-                faults.append(f"{weights}/{dtype}/{slots} {arm}: K3/K4 launches {counts}, "
-                              f"expected {want} over {ticks} ticks")
-            got[arm] = (outs, wall, busy)
+                faults.append(f"{case} {arm}: K3/K4 launches {counts}, expected {want} over "
+                              f"{ticks} ticks")
+            got[arm] = ([np.concatenate(o) for o in outs], per)
             if first is None:
                 first = {"fused_encoder_level_mma": counts[0],
                          "fused_decoder_level_mma": counts[1]}
+            del mux
+            torch.cuda.empty_cache()
         # each bf16 arm lies within BF16_TOL of the fp32 tick, so the two within twice it
         tol = FP32_TOL if dtype == torch.float32 else 2 * BF16_TOL
         rel = max(_rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
                   for a, b in zip(got["packed"][0], got["per-op"][0]))
-        (_, wall_p, busy_p), (_, wall_o, busy_o) = got["packed"], got["per-op"]
-        chosen, other = (busy_p, busy_o) if live.packed_levels else (busy_o, busy_p)
-        print(f"  tick of {weights} weights, {str(dtype)[6:]} state, {slots} slots on {smi}: "
-              f"the constructor packs {live.packed_levels} levels; packed (K3/K4) device busy "
-              f"{busy_p:.4f} ms a tick, wall {wall_p:.4f}; per op busy {busy_o:.4f}, wall "
-              f"{wall_o:.4f}; packed / per op {busy_p / busy_o:.3f}; outputs rel {rel:.3e} "
+        print(f"  ticks of {case} on {smi}: the constructor packs {chooser.packed_levels} levels "
+              f"up to {chooser.pack_width} rows; packed vs per-op outputs rel {rel:.3e} "
               f"(tol {tol:g})", flush=True)
         if not rel <= tol:
-            faults.append(f"{weights}/{dtype}/{slots}: packed vs per-op outputs rel {rel:.3e}")
-        if chosen > (1 + CHOICE_MARGIN) * other:
-            faults.append(f"{weights}/{dtype}/{slots}: the constructor's choice "
-                          f"({live.packed_levels} levels packed) takes {chosen:.4f} ms a tick, "
-                          f"the other {other:.4f}")
+            faults.append(f"{case}: packed vs per-op outputs rel {rel:.3e}")
+        for w in widths:
+            (wall_p, busy_p), (wall_o, busy_o) = got["packed"][1][w], got["per-op"][1][w]
+            packs = w <= chooser.pack_width
+            chosen, other = (busy_p, busy_o) if packs else (busy_o, busy_p)
+            print(f"    width {w:2d}: packed (K3/K4) device busy {busy_p:.4f} ms a tick, wall "
+                  f"{wall_p:.4f}; per op busy {busy_o:.4f}, wall {wall_o:.4f}; packed / per op "
+                  f"{busy_p / busy_o:.3f}; chosen: {'packed' if packs else 'per op'}",
+                  flush=True)
+            if chosen > (1 + CHOICE_MARGIN) * other:
+                faults.append(f"{case}, width {w}: the constructor's choice "
+                              f"({'packed' if packs else 'per op'}) takes {chosen:.4f} ms a "
+                              f"tick, the other {other:.4f}")
+        del chooser
     if faults:
         raise AssertionError("packed ticks: " + "; ".join(faults))
     return first
+
+
+TICK_WIDTHS = (1, 2, 4, 8, 16)  # the widths of the 16-slot multiplexer's ticks
+K34_KERNELS = ("conv_relu_kernel", "glu_kernel", "convt_kernel")  # K3/K4 in a trace
+ROW_COPY_KERNEL = "row_copy_kernel"  # K7's name in a trace
+
+
+def check_tick_widths(dev, smi, timed=200, traced=100, fill=640):
+    """Phase 15 (c): the graphed tick of the benchmark's live multiplexers (16
+    slots, bf16 weights, fp32 state) at each of ``TICK_WIDTHS``, on E8 and
+    CleanUNet (its windows filled first, ``fill`` ticks of every slot): ticks
+    of w live rows, the live set turning; after three to warm up (eager,
+    captured, replayed), ``timed`` ticks for the wall and ``traced`` under the
+    profiler for device busy a tick, K3/K4's, K6's and K7's (the rows'
+    gather and write-back) device time a tick and the top kernels.  Checks
+    that each tick steps w rows (``rows_stepped``), one graph a width, finite
+    outputs, and K7's launches, counted from zero: two a tick below 16 rows
+    (the gather and the write-back), none at 16.  Writes
+    ``chiprun_out/tick_widths.json``; returns K7's launches over the ticks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+    from cleanumamba_tpu_torch.ops.cuda.row_copy import gather_rows, scatter_rows
+    from cleanumamba_tpu_torch.serve import SessionMultiplexer
+
+    def k7_launches():
+        return gather_rows.launches + scatter_rows.launches
+
+    rows, slots = [], 16
+    gather_rows.launches = scatter_rows.launches = 0
+    for label, cfg in (("E8", CleanUMambaConfig()), ("CleanUNet", CleanUMambaConfig(**CLEANUNET))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        mux = SessionMultiplexer(params, cfg, slots=slots, weights="bf16", device=dev)
+        rng = np.random.default_rng(152)
+        _admit_every_slot(mux, rng)
+        hops = (rng.normal(size=(64, mux.tick_samples)) * 0.1).astype(np.float32)
+        k = 0
+        if mux.kv_window:
+            k = _ticks_of_width(mux, hops, slots, fill, k, label=label)
+        for w in TICK_WIDTHS:
+            graphs0, launched0, ticks0 = len(mux._graphs), k7_launches(), mux.ticks
+            k = _ticks_of_width(mux, hops, w, 3, k, label=label)
+            if len(mux._graphs) != graphs0 + (w != slots or not mux.kv_window):
+                raise AssertionError(f"{label}: width {w} captured {len(mux._graphs) - graphs0} "
+                                     "graphs")
+            torch.cuda.synchronize()
+            t0, n0, r0 = time.perf_counter(), mux.ticks, mux.rows_stepped
+            k = _ticks_of_width(mux, hops, w, timed, k, label=label)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / timed
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                k = _ticks_of_width(mux, hops, w, traced, k, label=label)
+                torch.cuda.synchronize()
+            if mux.rows_stepped - r0 != w * (mux.ticks - n0):
+                raise AssertionError(f"{label}: {mux.rows_stepped - r0} rows stepped in "
+                                     f"{mux.ticks - n0} ticks of width {w}")
+            launched = k7_launches() - launched0
+            if launched != (2 if w < slots else 0) * (mux.ticks - ticks0):
+                raise AssertionError(f"{label}: K7 launched {launched} times in "
+                                     f"{mux.ticks - ticks0} ticks of width {w}")
+            busy, n_kernels = _device_busy(prof)
+            per = {}
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    per[e.key] = per.get(e.key, 0.0) + e.device_time_total / traced / 1e3
+            k34 = sum(v for n, v in per.items() if any(x in n for x in K34_KERNELS))
+            k6 = sum(v for n, v in per.items() if KV_KERNEL in n)
+            k7 = sum(v for n, v in per.items() if ROW_COPY_KERNEL in n)
+            top = sorted(((v, n) for n, v in per.items()), reverse=True)[:8]
+            row = {"model": label, "width": w, "wall_ms": wall, "busy_ms": busy / traced,
+                   "k34_ms": k34, "k6_ms": k6, "k7_ms": k7, "kernels": n_kernels / traced,
+                   "top": [[n[:90], v] for v, n in top]}
+            rows.append(row)
+            print(f"  {label} tick at width {w} on {smi}: wall {wall:.4f} ms, device busy "
+                  f"{busy / traced:.4f} ms a tick (K3/K4 {k34:.4f}, K6 {k6:.4f}, K7 {k7:.4f}; "
+                  f"{n_kernels / traced:.1f} kernels a tick)", flush=True)
+            for v, n in top:
+                print(f"      {v * 1e3:9.2f} us a tick  {n[:100]}", flush=True)
+        print(f"  {label}: memory peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB, "
+              f"{len(mux._graphs)} graphs", flush=True)
+        del mux, params
+        torch.cuda.empty_cache()
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "tick_widths.json"), "w") as f:
+        json.dump({"device": smi, "rows": rows}, f, indent=1)
+    print(f"  K7 launches over the graphed ticks of both models: {k7_launches()}", flush=True)
+    return k7_launches()
 
 
 def run_multiplexer(dev, cfg, params32, smi, scan):
@@ -2218,9 +2339,10 @@ def run_multiplexer(dev, cfg, params32, smi, scan):
     int8: traffic through the multiplexer (one tick a feed), its wall and
     device-busy per tick, and the batched step's throughput with every slot
     live (``cli/serve.py``'s bench, in process); then the serving CLIs as
-    subprocesses.  Between them, ``check_tick_packs``.  Returns K1's launches
-    on the multiplexer's block-16 runs, and the tensor cores' K3/K4 launches
-    (``check_tick_packs``)."""
+    subprocesses.  Between them, ``check_tick_packs`` and
+    ``check_tick_widths``.  Returns K1's launches on the multiplexer's
+    block-16 runs, the tensor cores' K3/K4 launches (``check_tick_packs``)
+    and K7's over the graphed ticks (``check_tick_widths``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from cleanumamba_tpu_torch.cli import serve as serve_cli
@@ -2304,6 +2426,7 @@ def run_multiplexer(dev, cfg, params32, smi, scan):
                   f"{bench['tick_ms']} ms, {bench['value']} audio-s/s together")
 
     mma = check_tick_packs(dev, cfg, params32, smi)
+    k7 = check_tick_widths(dev, smi)
 
     # the serving CLIs as their users start them
     with tempfile.TemporaryDirectory() as tmp:
@@ -2351,7 +2474,7 @@ def run_multiplexer(dev, cfg, params32, smi, scan):
               f"serve demo: {done['serve demo'].stdout.strip().splitlines()[-1]}; denoise (a "
               f"reference-format checkpoint): {done['denoise'].stdout.strip().splitlines()[-1]}; "
               f"stream_demo: {done['stream_demo'].stdout.strip().splitlines()[-1]}")
-    return k1, mma
+    return k1, mma, k7
 
 
 # --------------------------------------------------------------------------
@@ -5143,6 +5266,130 @@ def _kv_entry(rep: Report, launches):
             "library_ms": rep.library["kv_attention_kernel"]}
 
 
+# --------------------------------------------------------------------------
+# Phase 26: K7, rows of a multiplexer's pool gathered and scattered back
+# --------------------------------------------------------------------------
+
+def _random_like(x, g):
+    if x.dtype.is_floating_point:
+        return torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+    return torch.randint(-2 ** 20, 2 ** 20, x.shape, generator=g, device=x.device,
+                         dtype=x.dtype)
+
+
+def _pool_rows(w, slots, rng):
+    """``w`` distinct rows of a pool of ``slots``, about a third of them (never
+    all, where w > 1) given as padding rows, ``~row``."""
+    rows = rng.permutation(slots)[:w]
+    pad = rng.random(w) < 1 / 3
+    pad[0] = False
+    return [int(~r) if p else int(r) for r, p in zip(rows, pad)]
+
+
+def check_row_copy(dev, rep: Report, smi, slots=16):
+    """Phase 26: K7 against its plain versions at the pools of the
+    benchmark's live multiplexers (E8 and CleanUNet, 16 slots, bf16
+    weights, fp32 state), every batch-leading leaf filled with random
+    values.  At each width from 1 to 16: a gather of that many rows, some
+    as padding rows (``~row``), and a scatter of as many rows back under
+    the same indices (the padding rows skipped), each bit for bit against
+    the plain version, and a repeated call bit for bit.  Then, at width 1
+    (the cells' tick), device times from a trace: K7's gather and scatter a
+    launch, the plain versions as a tick would run them (one
+    ``index_select`` or ``index_copy_`` a leaf) a call, and the bound of the
+    bytes the row reads and writes.  E8's figures go to the kernels'
+    summary."""
+    from cleanumamba_tpu_torch.config import CleanUMambaConfig
+    from cleanumamba_tpu_torch.models.cleanumamba import init_params
+    from cleanumamba_tpu_torch.ops.cuda.row_copy import (
+        gather_rows,
+        gather_rows_ref,
+        scatter_rows,
+        scatter_rows_ref,
+    )
+    from cleanumamba_tpu_torch.params import tree_leaves
+    from cleanumamba_tpu_torch.serve import SessionMultiplexer
+
+    rng = np.random.default_rng(26)
+    g = torch.Generator(device=dev).manual_seed(26)
+    for label, cfg in (("E8", CleanUMambaConfig()), ("CleanUNet", CleanUMambaConfig(**CLEANUNET))):
+        mux = SessionMultiplexer(init_params(cfg, torch.Generator().manual_seed(0), dev), cfg,
+                                 slots=slots, weights="bf16", device=dev)
+        _admit_every_slot(mux, rng)
+        pool = [_random_like(x, g) for x in tree_leaves(mux.pool)
+                if x.ndim and x.shape[0] == slots]
+        del mux
+        torch.cuda.empty_cache()
+        row_bytes = sum(x[:1].numel() * x.element_size() for x in pool)
+        for w in range(1, slots + 1):
+            idx = torch.tensor(_pool_rows(w, slots, rng), device=dev)
+            got = [x.new_empty((w, *x.shape[1:])) for x in pool]
+            want = [t.clone() for t in got]
+            gather_rows(got, pool, idx)
+            first = [t.clone() for t in got]
+            gather_rows(got, pool, idx)
+            gather_rows_ref(want, pool, idx)
+            vals = [_random_like(t, g) for t in got]
+            mine, ref = [x.clone() for x in pool], [x.clone() for x in pool]
+            scatter_rows(mine, vals, idx)
+            once = [t.clone() for t in mine]
+            scatter_rows(mine, vals, idx)
+            scatter_rows_ref(ref, vals, idx)
+            torch.cuda.synchronize()
+            case = f"{label} pool ({len(pool)} leaves, {row_bytes / 1e6:.2f} MB a row), width {w}"
+            _same_bits(f"gather_rows {case}", first, got)
+            _same_bits(f"scatter_rows {case}", once, mine)
+            for name, a, b in (("gather_rows", got, want), ("scatter_rows", mine, ref)):
+                bad = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+                if bad:
+                    raise AssertionError(f"{name} {case}: leaves {bad} differ from the plain "
+                                         "version's")
+            del mine, ref, once
+        print(f"  K7 {label} pool ({len(pool)} leaves, {row_bytes / 1e6:.3f} MB a row): gathers "
+              f"and scatters of widths 1-{slots} with padding rows equal the plain versions bit "
+              f"for bit, and a repeated call", flush=True)
+        idx = torch.tensor([5], device=dev)
+        got = [x.new_empty((1, *x.shape[1:])) for x in pool]
+        _, gather_ms = _trace_per_call(lambda: gather_rows(got, pool, idx),
+                                       kernel=ROW_COPY_KERNEL)
+        _, scatter_ms = _trace_per_call(lambda: scatter_rows(pool, got, idx),
+                                        kernel=ROW_COPY_KERNEL)
+        plain_gather, _ = _trace_per_call(
+            lambda: [torch.index_select(x, 0, idx, out=t) for t, x in zip(got, pool)])
+        plain_scatter, _ = _trace_per_call(
+            lambda: [x.index_copy_(0, idx, t) for t, x in zip(got, pool)])
+        nbytes = 4 * row_bytes  # each way a row of every leaf read and written
+        bound_ms, by = _bound(nbytes, 0)
+        ms, plain_ms = gather_ms + scatter_ms, plain_gather + plain_scatter
+        print(f"  K7 times on {smi}, {label} pool at width 1: gather {gather_ms * 1e3:.2f} us, "
+              f"scatter {scatter_ms * 1e3:.2f} us a launch; plain ({len(pool)} index_select, "
+              f"{len(pool)} index_copy_) {plain_gather * 1e3:.2f} + {plain_scatter * 1e3:.2f} us "
+              f"busy; bound of both {bound_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.3f} MB), K7 "
+              f"at {100 * bound_ms / ms:.1f} % of it", flush=True)
+        if label == "E8":  # the e8-mux-live cell's tick
+            rep.err["row_copy_kernel"] = 0.0  # bit for bit, checked above
+            rep.ms["row_copy_kernel"] = (ms, plain_ms)
+            rep.bound["row_copy_kernel"] = (bound_ms, by)
+        del pool, got
+        torch.cuda.empty_cache()
+
+
+def _k7_entry(rep: Report, launches):
+    """K7's entry of the kernels' summary: its launches over the graphed ticks
+    of phase 15 (c), and the gather and scatter of E8's tick at width 1
+    (phase 26) as one: time, plain version and bound.  No single library
+    call copies rows of many tensors (``library_ms`` None)."""
+    ms, plain_ms = rep.ms["row_copy_kernel"]
+    bound_ms, bound_by = rep.bound["row_copy_kernel"]
+    return {"name": "row_copy_kernel", "route": "cuda",
+            "source": "cleanumamba_tpu_torch/csrc/row_copy.cu",
+            "replaces": "cleanumamba_tpu/serve.py:207 (no TPU kernel: the JAX tick steps every "
+                        "slot under the pause mask)",
+            "launches": launches, "max_abs_err": rep.err["row_copy_kernel"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def _base_k5(checkout):
     """The K5 wrapper module of another checkout, launching that checkout's kernel."""
     import importlib.util
@@ -5183,8 +5430,12 @@ def main() -> int:
                         help="build every kernel and run phase 24 (the CUDA graphs against "
                              "the eager steps) and print no result lines")
     parser.add_argument("--kv-only", action="store_true",
-                        help="build K6 and K3/K4 only and run phase 25 (K6) and print K6's "
+                        help="build K3/K4, K6 and K7 only and run phase 25 (K6) and print K6's "
                              "entry of the kernels' summary")
+    parser.add_argument("--widths-only", action="store_true",
+                        help="build K3/K4, K6 and K7 only and run phase 15's ticks at each width "
+                             "(packed against per op; E8 and CleanUNet) and phase 26 (K7) and "
+                             "print K7's entry of the kernels' summary")
     parser.add_argument("--dp-worker", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--parallel-worker", metavar="DIR", help=argparse.SUPPRESS)
     parser.add_argument("--export-worker", metavar="DIR", help=argparse.SUPPRESS)
@@ -5228,8 +5479,8 @@ def main() -> int:
     sources = ("stream_fused",) if args.fused_only else \
         ("selective_scan",) if (args.scan_only or args.prune_only or args.dist_only
                                 or args.export_only or args.parallel_only) else \
-        ("stream_fused", "kv_attention") if args.kv_only else \
-        ("selective_scan", "stream_fused", "stream_mega", "kv_attention")
+        ("stream_fused", "kv_attention", "row_copy") if args.kv_only or args.widths_only else \
+        ("selective_scan", "stream_fused", "stream_mega", "kv_attention", "row_copy")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
         jobs = [pool.submit(build.load_library, name) for name in sources]  # one nvcc each
         if args.base_k5:
@@ -5284,6 +5535,17 @@ def main() -> int:
         print(json.dumps({"kernels": [_kv_entry(rep, launches)]}))
         print("kv-only run: phase 25 passed (K6's entry above; no result lines)")
         return 0
+    if args.widths_only:
+        print("phase 15 (b) the packed tick against the per-op tick at each width:", flush=True)
+        check_tick_packs(dev, cfg, params32, smi)
+        print("phase 15 (c) the multiplexer's tick at each width:", flush=True)
+        k7 = check_tick_widths(dev, smi)
+        print("phase 26 K7 vs its plain versions at the multiplexers' pools:", flush=True)
+        check_row_copy(dev, rep, smi)
+        print(json.dumps({"kernels": [_k7_entry(rep, k7)]}))
+        print("widths-only run: phases 15 (b), 15 (c) and 26 passed (K7's entry above; no "
+              "result lines)")
+        return 0
     if args.parallel_only:
         print("phase 22 tensor parallelism (gloo ranks on one card, torchrun on the CPU):",
               flush=True)
@@ -5337,7 +5599,7 @@ def main() -> int:
     print("phase 14 the int8 serving path (E8 Streamer, int8 K3/K4):", flush=True)
     launches.update(run_int8_streamer(dev, cfg, params32))
     print("phase 15 SessionMultiplexer on E8, and the serving CLIs:", flush=True)
-    k1, mma = run_multiplexer(dev, cfg, params32, smi, selective_scan)
+    k1, mma, k7 = run_multiplexer(dev, cfg, params32, smi, selective_scan)
     launches["selective_scan"] += k1
     launches.update(mma)
     print("phase 16 the offline forward of mamba2 and mamba_s4:", flush=True)
@@ -5372,6 +5634,8 @@ def main() -> int:
         shutil.rmtree(kept, ignore_errors=True)
     print("phase 25 K6 vs its plain version, its times, the CleanUNet tick:", flush=True)
     kv_launches = check_kv_attention(dev, rep, smi)
+    print("phase 26 K7 vs its plain versions at the multiplexers' pools:", flush=True)
+    check_row_copy(dev, rep, smi)
 
     # launches: each path's own run (serving, phase 4; training, phase 7; the
     # int8 serving path, phase 14; the multiplexer's block-16 ticks, phase 15;
@@ -5423,6 +5687,7 @@ def main() -> int:
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
     kernels.append(_kv_entry(rep, kv_launches))
+    kernels.append(_k7_entry(rep, k7))
     print(f"E8 streaming RTF on {smi}: block 16 (bf16) {rtf16:.1f}x, "
           f"block 1 (Streamer, bf16 packs) {rtf1:.1f}x realtime")
     print(f"nvidia-smi: {smi}")

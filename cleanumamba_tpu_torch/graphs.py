@@ -19,10 +19,11 @@ JAX).  Two owners:
 
   - **the static state**: the tree of tensors the owner's steps read and
     write.  The captured body writes the new state into it with ``copy_``
-    as its last ops, the counterpart of ``donate_argnums``: after a call
-    the state a caller passed in holds the new values, and any other
-    reference it kept to the old ones is not valid, as with a donated JAX
-    buffer;
+    as its last ops (the rows alone of a :class:`Rows` leaf: a
+    multiplexer's tick steps a few rows of its pool), the counterpart of
+    ``donate_argnums``: after a call the state a caller passed in holds the
+    new values, and any other reference it kept to the old ones is not
+    valid, as with a donated JAX buffer;
   - **static inputs**, one set a graph, that each call copies its
     arguments into before the replay;
   - **the graphs**, keyed by (tag, the inputs' shapes and dtypes) as jit's
@@ -72,6 +73,7 @@ import torch
 
 from cleanumamba_tpu_torch import tracing
 from cleanumamba_tpu_torch.ops.cuda.kv_attention import kv_attention
+from cleanumamba_tpu_torch.ops.cuda.row_copy import gather_rows, scatter_rows
 from cleanumamba_tpu_torch.ops.cuda.selective_scan import selective_scan, selective_scan_bwd
 from cleanumamba_tpu_torch.ops.cuda.stream_fused import fused_decoder_level, fused_encoder_level
 from cleanumamba_tpu_torch.ops.cuda.stream_mega import mega_stream_step
@@ -85,7 +87,8 @@ def launch_counters():
     return ((selective_scan, "launches"), (selective_scan_bwd, "launches"),
             (fused_encoder_level, "launches"), (fused_encoder_level, "int8_launches"),
             (fused_decoder_level, "launches"), (fused_decoder_level, "int8_launches"),
-            (mega_stream_step, "launches"), (kv_attention, "launches"))
+            (mega_stream_step, "launches"), (kv_attention, "launches"),
+            (gather_rows, "launches"), (scatter_rows, "launches"))
 
 
 def _counts():
@@ -96,6 +99,20 @@ def _shape_key(inputs):
     return tuple((tuple(x.shape), x.dtype) for x in inputs)
 
 
+class Rows:
+    """A new value for some rows of a state leaf: row i of ``values``
+    (len(index), ...) for row ``index[i]`` along the leading dimension, for
+    every ``index[i] >= 0`` (a 1-d int64 tensor; its rows distinct); a
+    negative ``index[i]`` writes nothing, and the other rows keep theirs.
+    :func:`write_back` copies only those rows, so a step that advances a
+    few rows of a large batched state returns no whole-width leaf."""
+
+    __slots__ = ("index", "values")
+
+    def __init__(self, index: torch.Tensor, values: torch.Tensor):
+        self.index, self.values = index, values
+
+
 def write_back(static, new) -> None:
     """Copy every tensor leaf of ``new`` into the same leaf of ``static`` (a
     tree of the same structure, shapes and dtypes; raises otherwise).  A
@@ -103,24 +120,32 @@ def write_back(static, new) -> None:
     with any leaf of ``static`` is cloned first, so no copy reads a leaf an
     earlier copy wrote.  Contiguous pairs of one dtype are copied by one
     ``torch._foreach_copy_`` (a few launches for the lot), the others one
-    by one."""
+    by one.  :class:`Rows` leaves write their rows alone, after the
+    whole-leaf copies: those of one index in one ``row_copy.scatter_rows``
+    (one launch on CUDA)."""
     dst, src = tree_leaves(static), tree_leaves(new)
     if len(dst) != len(src):
         raise ValueError(f"write_back: {len(src)} new leaves for {len(dst)} state leaves")
     owned = {t.untyped_storage().data_ptr() for t in dst if isinstance(t, torch.Tensor)}
-    pairs = []
+    pairs, rows = [], []
     for i, (d, s) in enumerate(zip(dst, src)):
         if not isinstance(d, torch.Tensor):
             continue
-        if not isinstance(s, torch.Tensor) or s.shape != d.shape or s.dtype != d.dtype:
-            got = (tuple(s.shape), s.dtype) if isinstance(s, torch.Tensor) else type(s)
-            raise ValueError(f"write_back: leaf {i} is {got}, the state's "
-                             f"{(tuple(d.shape), d.dtype)}")
-        if s is d:
+        part = isinstance(s, Rows)
+        t = s.values if part else s
+        if not isinstance(t, torch.Tensor) or t.dtype != d.dtype or (
+                t.shape[1:] != d.shape[1:] if part else t.shape != d.shape):
+            got = (tuple(t.shape), t.dtype) if isinstance(t, torch.Tensor) else type(t)
+            raise ValueError(f"write_back: leaf {i} is {got}{' rows' if part else ''}, the "
+                             f"state's {(tuple(d.shape), d.dtype)}")
+        if t is d:
             continue
-        if s.untyped_storage().data_ptr() in owned:
-            s = s.clone()
-        pairs.append((d, s))
+        if t.untyped_storage().data_ptr() in owned:
+            t = t.clone()
+        if part:
+            rows.append((d, s, t))
+        else:
+            pairs.append((d, t))
     groups: Dict[torch.dtype, tuple] = {}
     for d, s in pairs:
         if d.is_contiguous() and s.is_contiguous() and d.device == s.device:
@@ -131,6 +156,13 @@ def write_back(static, new) -> None:
             d.copy_(s)
     for dsts, srcs in groups.values():
         torch._foreach_copy_(dsts, srcs)
+    sets: Dict[int, tuple] = {}
+    for d, part, values in rows:
+        dsts, srcs, _ = sets.setdefault(id(part.index), ([], [], part.index))
+        dsts.append(d)
+        srcs.append(values)
+    for dsts, srcs, index in sets.values():
+        scatter_rows(dsts, srcs, index)
 
 
 def step_in_place(fn, state, *inputs):

@@ -223,7 +223,13 @@ def _level_plan(kind, B, T, dims, esizes, f32=(False, False)):
              for p, e, f in zip(_products(kind, B, T, dims), esizes, f32)]
     if None in plans:
         return None
-    return (ctypes.c_int * 10)(*plans[0], *plans[1]), B * T * dims[1]
+    return (ctypes.c_int * 10)(*plans[0], *plans[1]), _scratch_need(B, T, dims)
+
+
+def _scratch_need(B, T, dims):
+    """Elements of scratch a level call of ``B`` streams needs: its first
+    product's result."""
+    return B * T * dims[1]
 
 
 def _level_dims(meta):
@@ -255,6 +261,20 @@ def _finish_pack(arrays, meta, device):
     arrays["scratch"] = torch.empty(max(p[1] for p in plans), dtype=meta["cdt"], device=device)
     check_pack(arrays, meta)
     return arrays, meta
+
+
+def reserve_scratch(packs, streams: int) -> None:
+    """Grow the scratch of every level pack of ``packs`` (``pack_stream_params``)
+    to hold ``streams`` streams, so that no call of up to that many streams
+    reallocates it: a CUDA graph captured before such a call would keep
+    writing the scratch it was captured with, freed memory."""
+    for arrays, meta in zip(packs[0]["enc"] + packs[0]["dec"], packs[1]["enc"] + packs[1]["dec"]):
+        if meta is None:
+            continue
+        need = _scratch_need(streams, meta["T"], _level_dims(meta)[1])
+        if need > arrays["scratch"].numel():
+            arrays["scratch"] = torch.empty(need, dtype=meta["cdt"],
+                                            device=arrays["scratch"].device)
 
 
 def check_pack(arrays, meta):

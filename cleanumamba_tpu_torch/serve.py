@@ -15,34 +15,49 @@ sessions riding it.
   for the whole batch.)
 - **Sessions are mutually exact.**  Every op of prime and step is batch
   parallel: a session beside any other traffic gives the audio it gives
-  alone.
-- **Ticks never wait for a starved session.**  A tick consumes
-  ``block * total_stride`` samples from every session that has them (the
-  live rows); the other rows (paused sessions, closed and buffering slots)
-  ride the step on zeros, their output rows are dropped and their state
-  rows are kept: the step takes a ``(slots, 1)`` live mask and returns
-  ``torch.where(live, new, old)`` over the batch-leading leaves, so such a
-  row is bitwise what it was (JAX keeps the old pool and writes its rows
-  back; the same values).  The mha rings are left to the step, which writes
-  only the live rows' slots in place (K6), so no ``where`` runs over them.
-  One step serves every pattern of starved sessions.
-- **One graph a tick on a card.**  On a CUDA device prime and the masked
-  step run at batch = slots as CUDA graphs (``graphs.StepGraphs``, one
-  memory pool a multiplexer; each eager at its first call, captured at its
-  second), for the live functions and for a bundle's callables alike; the pool is the graphs' static state,
-  written in place by each tick, and admitting a session is one
-  ``index_copy_`` of its row into it, outside the graphs.  On the CPU both
-  run eagerly and each tick makes a new pool tree.
+  alone, within the tests' 1e-5 (a row's sums may follow the width of the
+  tick it rode in: a matrix product at 1 row and at 4 need not round
+  alike).
+- **A tick steps only the rows it serves.**  A tick consumes ``block *
+  total_stride`` samples from every session that has them (its ``n`` live
+  rows) and runs the step at width ``w``: the smallest power of two >= n,
+  or ``slots`` where that is larger (at most ceil(log2 slots) + 1 widths).
+  Below ``slots`` the tick gathers its rows of every batch-leading leaf of
+  the pool: the live rows and ``w - n`` rows outside the tick (paused
+  sessions, free slots), which ride the step on zeros.  It writes back the
+  live rows alone (``graphs.Rows``: a padding row is named ``~row``, which
+  the write-back skips), so every other row, padding rows included, is
+  bitwise what it was; the gather and the write-back are one launch each
+  on a card (K7, ``ops/cuda/row_copy.py``), and no leaf is copied whole,
+  the 12.8 MB a row of a CleanUNet session's rings included.  At
+  ``slots`` the step runs on the pool itself under a ``(slots, 1)`` live
+  mask that keeps the other rows (``torch.where``) and their mha rings
+  (the step writes the live rows' ring slots alone); so does every tick of
+  a bundle's callables (``fns``), traced at batch = slots.
+  ``rows_stepped`` sums the widths run.
+- **One graph a width on a card.**  On a CUDA device prime (at batch =
+  slots) and each width's tick run as CUDA graphs (``graphs.StepGraphs``,
+  one memory pool a multiplexer; each eager at its first call, captured at
+  its second: the tick's row indices are an input below ``slots``, the
+  live mask at ``slots``, so each width is its own key); the pool is the
+  graphs' static state, written in place by each tick, and admitting a
+  session is one ``index_copy_`` of its row into it, outside the graphs.
+  On the CPU both run eagerly, and a tick writes into a copy of the pool:
+  a new pool tree, the one it read left alone.
 - Block 1 runs ``stream_step`` with every encoder and decoder level that
   ``pack_stream_params`` packs as the fused level kernels (K3/K4 on CUDA,
-  their plain versions on the CPU) at batch = slots, inside the tick's
-  graph.  The packs compute in ``dtype`` and keep each weight as stored
-  (bf16 weights stay bf16 in an fp32 pack); int8 weights pack only where
+  their plain versions on the CPU) at the tick's width, inside the tick's
+  graph; each pack's scratch is sized for the widest tick that packs when
+  the levels are packed, so no later width regrows one under a captured
+  graph.
+  The packs compute in ``dtype`` and keep each weight as stored (bf16
+  weights stay bf16 in an fp32 pack); int8 weights pack only where
   ``dtype`` is bf16, as an int8 pack computes in bf16.  Weights stored in
-  ``dtype`` pack only up to ``_SIMT_SLOTS`` slots.  A larger block runs
+  ``dtype`` pack in ticks of up to ``_SIMT_SLOTS`` rows; a wider tick runs
+  them per op (``pack_width``).  A larger block runs
   ``stream_step_block``, whose mamba bottleneck is one selective scan (K1 on
-  CUDA) at batch = slots, with no packs; so do a bundle's callables.  No
-  whole-frame kernel.  The output comes to the host once per tick.
+  CUDA) at the tick's width, with no packs.  No whole-frame kernel.  The
+  output comes to the host once per tick, ``w`` rows.
 - **Artifact-driven.**  ``SessionMultiplexer.from_bundle`` serves the prime
   and step of an exported bundle (``export.py``): the serving process
   imports no model code; the live-function constructor is the development
@@ -60,7 +75,8 @@ import torch
 
 from cleanumamba_tpu_torch import tracing
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
-from cleanumamba_tpu_torch.graphs import StepGraphs, own
+from cleanumamba_tpu_torch.graphs import Rows, StepGraphs, own, step_in_place
+from cleanumamba_tpu_torch.ops.cuda.row_copy import gather_rows
 from cleanumamba_tpu_torch.params import (
     prepare_weight_view,
     resolve_device,
@@ -70,11 +86,12 @@ from cleanumamba_tpu_torch.params import (
 )
 
 
-# Most slots at which a tick packs levels whose weights are stored in its
-# dtype: beyond, cuBLAS's GEMMs outrun the fused kernels' SIMT loop (E8 on an
-# H100, device time a tick at 16 slots: fp32 1.04x, bf16 1.08x the per-op
-# tick; at 8: 0.84x, 0.89x).  bf16 weights in fp32 state (the tensor cores)
-# and int8 weights pack at any slots: the per-op tick converts every weight.
+# Most rows of a tick that packs levels whose weights are stored in its
+# dtype: beyond, cuBLAS's GEMMs outrun the fused kernels' SIMT loop (E8 at
+# 16 slots on an H100, device time of the packed tick over the per-op one:
+# fp32 0.57x, 0.63x, 0.70x, 0.83x at 1, 2, 4, 8 rows and 1.05x at 16; bf16
+# 0.63x-0.88x and 1.08x).  bf16 weights in fp32 state (the tensor cores) and
+# int8 weights pack at every width: the per-op tick converts every weight.
 _SIMT_SLOTS = 8
 
 
@@ -87,8 +104,14 @@ def _map_rows(fn, slots, a, b):
 
 def _keep_paused(live, new, old):
     """``new`` where the row is live, ``old`` where it is paused: ``live``
-    (slots, 1) bool against a batch-leading leaf of any rank."""
+    (B, 1) bool against a batch-leading leaf of any rank."""
     return torch.where(live.reshape(live.shape[0], *[1] * (new.ndim - 1)), new, old)
+
+
+def tick_width(n: int, slots: int) -> int:
+    """The width a tick of ``n`` live rows runs at: the smallest power of two
+    >= n, or ``slots`` where that is larger."""
+    return min(1 << (n - 1).bit_length(), slots)
 
 
 class SessionMultiplexer:
@@ -109,12 +132,14 @@ class SessionMultiplexer:
              they take ``(params, frame)`` and ``(params, state, samples)``.
              Not for an mha model, whose step takes the live mask.
 
-    ``packed_levels``: the encoder and decoder levels a tick runs through the
-    fused level kernels (0 on the per-op path).  ``kv_window``: the tokens an
+    ``packed_levels``: the encoder and decoder levels a tick of up to
+    ``pack_width`` rows runs through the fused level kernels (both 0 on the
+    per-op path); a wider tick runs per op.  ``kv_window``: the tokens an
     mha session attends to (``bottleneck_mha.mha_max_len``; 0 for the other
-    bottlenecks).  Counters, on the host: ``ticks``; for an mha model
-    ``kv_positions``, the window lengths the live rows attended to, summed
-    over the tokens of every tick.
+    bottlenecks).  Counters, on the host: ``ticks``; ``rows_stepped``, the
+    widths the ticks ran at, summed (``ticks`` x ``slots`` for a bundle's
+    callables); for an mha model ``kv_positions``, the window lengths the
+    live rows attended to, summed over the tokens of every tick.
     """
 
     def __init__(self, params, cfg: CleanUMambaConfig, slots: int = 8, block: int = 1,
@@ -128,7 +153,7 @@ class SessionMultiplexer:
         self.dtype = dtype
         self.tick_samples = block * cfg.total_stride
         self.device = resolve_device(device)
-        self.packed_levels = 0
+        self.packed_levels = self.pack_width = 0
         self.kv_window = 0
         if cfg.bottleneck == "mha":
             from cleanumamba_tpu_torch.models.bottleneck_mha import mha_max_len
@@ -144,8 +169,12 @@ class SessionMultiplexer:
                                  "functions")
             self.params = self._step_params = to_device(params, self.device)
             self._prime, self._step = fns["prime"], fns["step"]
+            self._packs = None
         else:
-            from cleanumamba_tpu_torch.ops.cuda.stream_fused import pack_stream_params
+            from cleanumamba_tpu_torch.ops.cuda.stream_fused import (
+                pack_stream_params,
+                reserve_scratch,
+            )
             from cleanumamba_tpu_torch.streaming import (
                 stream_prime,
                 stream_step,
@@ -156,30 +185,41 @@ class SessionMultiplexer:
             self.params, view = prepare_weight_view(to_device(params, self.device), weights,
                                                     dtype)
             # the levels pack where the per-op tick converts every weight at
-            # every tick (int8, or a storage type other than ``dtype``), and
-            # otherwise up to _SIMT_SLOTS; an int8 pack computes in bf16
+            # every tick (int8, or a storage type other than ``dtype``), for
+            # ticks of every width; over weights stored in ``dtype``, ticks
+            # of up to _SIMT_SLOTS rows pack and wider ones run per op.  An
+            # int8 pack computes in bf16
             converts = weights != ("fp32" if dtype == torch.float32 else "bf16")
             packs = None
             if (block == 1 and dtype in (torch.float32, torch.bfloat16)
-                    and (weights != "int8" or dtype == torch.bfloat16)
-                    and (converts or slots <= _SIMT_SLOTS)):
-                # the first tick, eager, grows each scratch to ``slots`` streams
+                    and (weights != "int8" or dtype == torch.bfloat16)):
                 packs = pack_stream_params(self.params, cfg, dtype)
                 packs = None if packs[1] is None else packs
-            # what the tick reads: a packed level's weights are in its pack
+            if packs is not None:
+                self.pack_width = slots if converts else min(slots, _SIMT_SLOTS)
+                self.packed_levels = sum(m is not None for m in packs[1]["enc"] + packs[1]["dec"])
+                # before any capture: no width regrows a scratch
+                reserve_scratch(packs, self.pack_width)
+            self._packs = packs
+            # what a packed tick reads: a packed level's weights are in its pack
             self._step_params = (self.params if packs is None
                                  else without_packed_levels(self.params, packs[1]))
-            if packs is not None:
-                self.packed_levels = sum(m is not None for m in packs[1]["enc"] + packs[1]["dec"])
             self._prime = lambda p, f: stream_prime(view(p), cfg, f, dtype)
             if block == 1:
-                self._step = lambda p, s, n, live=None: stream_step(view(p), cfg, s, n, dtype,
-                                                                    packs=packs, live=live)
+                every, widest = self.params, self.pack_width
+
+                def step(p, s, n, live=None):
+                    if n.shape[0] > widest:  # per op, over every level's weights
+                        return stream_step(view(every), cfg, s, n, dtype, live=live)
+                    return stream_step(view(p), cfg, s, n, dtype, packs=packs, live=live)
+
+                self._step = step
             else:
                 self._step = lambda p, s, n, live=None: stream_step_block(view(p), cfg, s, n,
                                                                           dtype, live=live)
         self.pool = None  # batched state tree, made at the first admission
         self._graphs = StepGraphs(self.device) if self.device.type == "cuda" else None
+        self._full_width = fns is not None  # a bundle's step was traced at batch = slots
         # host-side per-slot bookkeeping
         self._open = [False] * slots
         self._primed = [False] * slots
@@ -189,6 +229,7 @@ class SessionMultiplexer:
         self._emitted = [0] * slots
         self._tokens = [0] * slots  # bottleneck tokens each session has attended with
         self.ticks = 0
+        self.rows_stepped = 0
         self.kv_positions = 0
 
     # -- session lifecycle --------------------------------------------------
@@ -328,13 +369,37 @@ class SessionMultiplexer:
         return self._prime(self.params, frames)
 
     def _step_body(self, pool, live, samples):
-        """The tick: the step at batch = slots, the rows that are not live
-        kept; a leaf the step wrote in place (the mha rings) is its own.  An
-        mha step takes the live mask: it writes the live rows' rings alone."""
-        kv_live = (live.reshape(-1),) if self.kv_window else ()
+        """The step at the batch of ``samples`` over a state of that batch.
+        With ``live`` (B, 1), the rows that are not live are kept and an mha
+        step writes the live rows' rings alone; a leaf the step wrote in
+        place (the mha rings) is its own.  ``live`` None: every row steps."""
+        kv_live = (live.reshape(-1),) if self.kv_window and live is not None else ()
         new, out = self._step(self._step_params, pool, samples, *kv_live)
-        return _map_rows(lambda n, o: n if n is o else _keep_paused(live, n, o), self.slots,
-                         new, pool), out
+        if live is None:
+            return new, out
+        return _map_rows(lambda n, o: n if n is o else _keep_paused(live, n, o),
+                         live.shape[0], new, pool), out
+
+    def _tick_body(self, pool, rows, samples):
+        """The tick at the width of ``rows`` (w,), each a row of the pool, or
+        ``~row`` for a padding row: those rows of every batch-leading leaf
+        gathered (``gather_rows``: one launch on CUDA), all stepped
+        (:meth:`_step_body`) and returned as :class:`graphs.Rows` of the
+        pool, whose ``write_back`` copies the rows of the tick alone, one
+        launch for the lot, so that a padding row is never written.  The
+        gathered rings are a copy: the step writes its rows' slots there,
+        and a second run on the same pool gathers and writes the same, as
+        the graphs' warm-up runs need."""
+        leaves = tree_leaves(pool)
+        batch = [x.ndim > 0 and x.shape[0] == self.slots for x in leaves]
+        rows_of = [x for x, b in zip(leaves, batch) if b]
+        got = [x.new_empty((rows.shape[0], *x.shape[1:])) for x in rows_of]
+        gather_rows(got, rows_of, rows)
+        it = iter(got)
+        sub = tree_unflatten(pool, [next(it) if b else x for x, b in zip(leaves, batch)])
+        new, out = self._step_body(sub, None, samples)
+        return tree_unflatten(pool, [Rows(rows, n) if b else n
+                                     for n, b in zip(tree_leaves(new), batch)]), out
 
     def _count_kv(self, ready) -> None:
         """The counters of a tick's attention: each live row's ``block``
@@ -353,28 +418,41 @@ class SessionMultiplexer:
                      if self._primed[s] and self._buf[s].shape[0] >= tick]
             if not ready:
                 return
-            with tracing.span("mux.tick"):
+            w = self.slots if self._full_width else tick_width(len(ready), self.slots)
+            with tracing.span("mux.tick", w):
                 with tracing.span("mux.pack"):
-                    # rows without a hop (starved sessions, free slots) must not
-                    # advance: they ride the step on zeros and the mask keeps them
-                    live = np.zeros((self.slots, 1), bool)
-                    live[ready] = True
-                    new = np.zeros((self.slots, tick), np.float32)
-                    for s in ready:
-                        new[s] = self._buf[s][:tick]
-                        self._buf[s] = self._buf[s][tick:]
-                    live, new = torch.from_numpy(live), torch.from_numpy(new)
-                if self._graphs is None:
-                    self.pool, out = self._step_body(self.pool, live.to(self.device),
-                                                     new.to(self.device))
-                else:
-                    self.pool, out = self._graphs("step", self._step_body, self.pool, live,
-                                                  new)
+                    # the tick's rows: the live ones, then rows outside the
+                    # tick (starved sessions, free slots) up to its width, which
+                    # ride the step on zeros and must not advance (``live``)
+                    rows = sorted(ready + [s for s in range(self.slots)
+                                           if s not in ready][:w - len(ready)])
+                    live = np.zeros((w, 1), bool)
+                    new = np.zeros((w, tick), np.float32)
+                    for i, s in enumerate(rows):
+                        if s in ready:
+                            live[i] = True
+                            new[i] = self._buf[s][:tick]
+                            self._buf[s] = self._buf[s][tick:]
+                    new = torch.from_numpy(new)
+                if w == self.slots:  # every row: the step on the pool itself, masked (a
+                    # gather would copy the whole pool, an mha model's rings included)
+                    body, inputs = self._step_body, (torch.from_numpy(live), new)
+                else:  # the tick's rows, a padding row as ~row (gathered, not written)
+                    body, inputs = self._tick_body, (torch.tensor(
+                        [s if live[i, 0] else ~s for i, s in enumerate(rows)]), new)
+                if self._graphs is not None:
+                    self.pool, out = self._graphs("step", body, self.pool, *inputs)
+                else:  # eager: the tick writes a copy, the pool it read is left alone
+                    pool = own(self.pool)
+                    out = step_in_place(body, pool, *[x.to(self.device) for x in inputs])
+                    self.pool = pool
                 with tracing.span("mux.copy_out"):
                     out = out.float().cpu().numpy()  # the tick's one copy to the host
-                for s in ready:
-                    self._out[s].append(out[s])
+                for i, s in enumerate(rows):
+                    if live[i, 0]:
+                        self._out[s].append(out[i])
                 self.ticks += 1
+                self.rows_stepped += w
                 if self.kv_window:
                     self._count_kv(ready)
             self._admit_ready()

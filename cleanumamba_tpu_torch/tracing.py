@@ -30,11 +30,11 @@ The spans, at each boundary where the port's host work changes hands:
 ``mux.admit_kv`` (key: sid,   an mha model's admission: the session's KV
 in ``mux.admit``)             rings and position spliced into the pool's
                               row (``index_copy_``)
-``mux.tick``                  one tick: the ready rows' mask and samples,
-                              the step's graph call, the output's copy to
-                              the host, the rows handed to their sessions
-``mux.pack`` (in the tick)    ``live`` and ``new`` built and the sessions'
-                              buffers sliced, on the host
+``mux.tick`` (key: width)     one tick: its rows, mask and samples, the
+                              graph call of its width, the output's copy
+                              to the host, the rows handed to their sessions
+``mux.pack`` (in the tick)    the tick's rows, ``live`` and ``new`` built
+                              and the sessions' buffers sliced, on the host
 ``mux.copy_out`` (in the      ``out.float().cpu().numpy()``: the host waits
 tick)                         here for the card to finish the tick
 ``mux.drain`` (key: sid)      a session's outputs joined for its caller
@@ -55,7 +55,9 @@ The port's counters, beside the spans (plain integers on the owner,
 counted on the host, always on):
 
 ==================================  =========================================
-``SessionMultiplexer.ticks``        ticks run (each one step at batch = slots)
+``SessionMultiplexer.ticks``        ticks run
+``SessionMultiplexer.rows_stepped`` the widths the ticks ran at, summed: the
+                                    rows stepped, live and padding
 ``SessionMultiplexer.kv_positions`` an mha model's attended window lengths:
                                     for every token a live row steps, the
                                     ring slots it attends to (min(its tokens

@@ -161,6 +161,26 @@ def test_write_back_reads_no_leaf_it_has_written():
         graphs.write_back({"a": a}, {"a": torch.zeros(3)})
 
 
+@pytest.mark.parametrize("rows", [[2], [0, 3], [3, ~1, 0], [0, 1, 2, 3]])
+def test_write_back_copies_the_rows_of_a_rows_leaf(rows):
+    """A ``Rows`` leaf writes its rows of the state leaf in place and no
+    other row (a negative index writes nothing), beside whole leaves; one
+    whose rows are not the leaf's shape is refused."""
+    a, b = torch.arange(12.0).reshape(4, 3), torch.arange(4.0)
+    state = {"a": a, "b": b}
+    ptrs = (a.data_ptr(), b.data_ptr())
+    index = torch.tensor(rows)
+    values = -1.0 - torch.arange(3.0 * len(rows)).reshape(len(rows), 3)
+    graphs.write_back(state, {"a": graphs.Rows(index, values), "b": b + 1})
+    want = torch.arange(12.0).reshape(4, 3)
+    want[index[index >= 0]] = values[index >= 0]
+    assert torch.equal(a, want) and torch.equal(b, torch.arange(4.0) + 1)
+    assert (a.data_ptr(), b.data_ptr()) == ptrs
+    with pytest.raises(ValueError, match="leaf 0"):
+        graphs.write_back(state, {"a": graphs.Rows(index, torch.zeros(len(rows), 2)),
+                                  "b": b})
+
+
 # --- against the JAX package ---
 
 def _feed(streamer, x, sizes):

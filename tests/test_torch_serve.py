@@ -15,6 +15,7 @@ slow as the JAX package's are; a fast case of each runs in the tier.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -214,21 +215,23 @@ WIDER = dict(channels_H=16, max_H=64, tsfm_n_head=2, tsfm_d_model=32, tsfm_d_inn
              normalize_input=True)
 
 
-@pytest.mark.parametrize("weights,dtype,slots,block,packed", [
-    ("fp32", torch.float32, 8, 1, True), ("fp32", torch.float32, 16, 1, False),
-    ("bf16", torch.bfloat16, 16, 1, False), ("bf16", torch.float32, 16, 1, True),
-    ("fp32", torch.bfloat16, 16, 1, True), ("int8", torch.bfloat16, 16, 1, True),
-    ("int8", torch.float32, 4, 1, False), ("fp32", torch.float32, 4, 4, False)])
-def test_levels_pack_where_the_constructor_chooses(model, weights, dtype, slots, block, packed):
-    """Every level packs where the per-op tick would convert each weight at
-    every tick (weights stored in another type than the state's, int8 in
-    bf16 state) and, over weights stored in the state's type, up to 8 slots;
-    never for int8 weights in fp32 state (an int8 pack computes in bf16) or
-    at a block above 1."""
+@pytest.mark.parametrize("weights,dtype,slots,block,pack_width", [
+    ("fp32", torch.float32, 8, 1, 8), ("fp32", torch.float32, 16, 1, 8),
+    ("bf16", torch.bfloat16, 16, 1, 8), ("bf16", torch.float32, 16, 1, 16),
+    ("fp32", torch.bfloat16, 16, 1, 16), ("int8", torch.bfloat16, 16, 1, 16),
+    ("int8", torch.float32, 4, 1, 0), ("fp32", torch.float32, 4, 4, 0)])
+def test_levels_pack_where_the_constructor_chooses(model, weights, dtype, slots, block,
+                                                   pack_width):
+    """Every level packs, for ticks of every width, where the per-op tick
+    would convert each weight at every tick (weights stored in another type
+    than the state's, int8 in bf16 state) and, over weights stored in the
+    state's type, for ticks of up to 8 rows; never for int8 weights in fp32
+    state (an int8 pack computes in bf16) or at a block above 1."""
     cfg, params, _, _ = model
     mux = SessionMultiplexer(params, cfg, slots=slots, block=block, dtype=dtype,
                              weights=weights, device="cpu")
-    assert mux.packed_levels == (2 * cfg.encoder_n_layers if packed else 0)
+    assert mux.pack_width == pack_width
+    assert mux.packed_levels == (2 * cfg.encoder_n_layers if pack_width else 0)
 
 
 @pytest.mark.parametrize("weights", ["fp32", "bf16", "int8"])
@@ -273,3 +276,153 @@ def test_mha_and_lstm_served(model, family):
     mux.feed(b, xb)
     out = np.concatenate([mux.feed(a, xa), mux._drain(a)])
     np.testing.assert_allclose(out, _solo(po, other, xa), **TOL)
+
+
+# --- the tick at the width of its live rows ---------------------------------
+
+WIDTH_SLOTS = 6  # widths 1, 2, 4 and 6: above 4 live rows the tick runs every slot
+# live rows a tick -> the width it runs at
+WIDTHS = {1: 1, 2: 2, 3: 4, WIDTH_SLOTS: WIDTH_SLOTS}
+
+
+@pytest.mark.parametrize("slots", [1, 2, 6, 8, 12, 16])
+def test_tick_width_is_the_next_power_of_two_within_slots(slots):
+    from cleanumamba_tpu_torch.serve import tick_width
+
+    widths = [tick_width(n, slots) for n in range(1, slots + 1)]
+    assert all(n <= w <= slots for n, w in zip(range(1, slots + 1), widths))
+    assert all(w == slots or w & (w - 1) == 0 for w in widths)
+    assert all(w == slots or w < 2 * n for n, w in zip(range(1, slots + 1), widths))
+    assert len(set(widths)) <= math.ceil(math.log2(slots)) + 1
+    assert widths[-1] == slots
+
+
+def _hops(mux, hops):
+    """Buffer each ``(sid, samples)`` hop, then pump once: one tick of those
+    sessions."""
+    for sid, x in hops:
+        mux._buf[sid] = np.concatenate([mux._buf[sid], x])
+        mux._fed[sid] += x.shape[0]
+    mux._pump()
+
+
+def _width_run(mux, cfg, n_live, rounds=4, check=None):
+    """Every slot admitted, then ``rounds`` ticks of ``n_live`` live rows, the
+    live set turning so that each session pauses.  ``check(live, before,
+    pool_in)`` runs after each tick with the pool's leaves as they were
+    before it.  Returns ({sid: audio}, {sid: output})."""
+    fl, tsr = cfg.frame_length, cfg.total_stride
+    audio, outs = {}, {}
+    for sid in range(mux.slots):
+        assert mux.open() == sid
+        audio[sid] = _audio(60 + sid, fl)
+        outs[sid] = [mux.feed(sid, audio[sid])]
+    assert mux.ticks == 0
+    for r in range(rounds):
+        live = sorted((r * n_live + k) % mux.slots for k in range(n_live))
+        hops = [(s, _audio(100 * r + s, tsr)) for s in live]
+        before, pool_in = [t.clone() for t in tree_leaves(mux.pool)], mux.pool
+        _hops(mux, hops)
+        for s, x in hops:
+            audio[s] = np.concatenate([audio[s], x])
+        if check is not None:
+            check(live, before, pool_in)
+    return audio, {s: np.concatenate(o + [mux._drain(s)]) for s, o in outs.items()}
+
+
+@pytest.mark.parametrize("n_live", sorted(WIDTHS))
+def test_width_ticks_match_each_session_alone(model, n_live):
+    """A session beside others, in ticks of 1, 2, 3 (width 4) and every live
+    row, matches itself streamed alone; the ticks run at their width."""
+    cfg, params, _, _ = model
+    mux = SessionMultiplexer(params, cfg, slots=WIDTH_SLOTS, device="cpu")
+    audio, outs = _width_run(mux, cfg, n_live)
+    assert mux.rows_stepped == mux.ticks * WIDTHS[n_live] and mux.ticks == 4
+    for s in range(WIDTH_SLOTS):
+        want = _solo(params, cfg, audio[s])
+        assert outs[s].shape == want.shape
+        np.testing.assert_allclose(outs[s], want, **TOL)
+
+
+@pytest.mark.parametrize("n_live", sorted(WIDTHS))
+def test_width_ticks_keep_rows_outside_them(model, n_live):
+    """Every row without a hop (paused sessions, and the padding rows a tick
+    of 3 live rows runs at width 4) is bitwise what it was; the tick writes
+    nothing into the pool it read."""
+    cfg, params, _, _ = model
+    mux = SessionMultiplexer(params, cfg, slots=WIDTH_SLOTS, device="cpu")
+
+    def check(live, before, pool_in):
+        rest = [s for s in range(WIDTH_SLOTS) if s not in live]
+        for got, old in zip(tree_leaves(mux.pool), before):
+            assert torch.equal(got[rest], old[rest])
+            assert not torch.equal(got[live], old[live]) or not got.numel()
+        assert all(torch.equal(t, old) for t, old in zip(tree_leaves(pool_in), before))
+
+    _width_run(mux, cfg, n_live, check=check)
+    assert mux.ticks == 4
+
+
+@pytest.mark.parametrize("n_live", sorted(WIDTHS))
+def test_bundle_functions_tick_every_slot(model, n_live):
+    """A bundle's callables were traced at batch = slots: their multiplexer
+    steps every row a tick, the rows without a hop kept, and matches the
+    sessions alone."""
+    cfg, params, _, _ = model
+    fns = {"prime": lambda p, f: ts.stream_prime(p, cfg, f),
+           "step": lambda p, s, n: ts.stream_step(p, cfg, s, n)}
+    mux = SessionMultiplexer(params, cfg, slots=WIDTH_SLOTS, device="cpu", fns=fns)
+
+    def check(live, before, pool_in):
+        rest = [s for s in range(WIDTH_SLOTS) if s not in live]
+        assert all(torch.equal(t[rest], old[rest]) for t, old in zip(tree_leaves(mux.pool),
+                                                                      before))
+
+    audio, outs = _width_run(mux, cfg, n_live, check=check)
+    assert mux.rows_stepped == mux.ticks * WIDTH_SLOTS and mux.ticks == 4
+    for s in range(WIDTH_SLOTS):
+        np.testing.assert_allclose(outs[s], _solo(params, cfg, audio[s]), **TOL)
+
+
+@pytest.mark.parametrize("slots", [4, 16])
+def test_level_packs_hold_every_width_without_regrowing(model, slots):
+    """Each pack's scratch is sized at construction for the widest tick that
+    packs (here ``slots``): a level call of any width up to it leaves the
+    scratch where it was (a graph captured at one width keeps writing the
+    scratch it was captured with)."""
+    from cleanumamba_tpu_torch.ops.cuda import stream_fused as sf
+
+    cfg, params, _, _ = model
+    mux = SessionMultiplexer(params, cfg, slots=slots, weights="bf16", device="cpu")
+    assert mux.packed_levels == 2 * cfg.encoder_n_layers
+    arrays, meta = mux._packs
+    for a, m in zip(arrays["enc"] + arrays["dec"], meta["enc"] + meta["dec"]):
+        ptr = a["scratch"].data_ptr()
+        for B in range(1, slots + 1):
+            sf._plan_for("level", a, m, B, m["T"], torch.zeros(1))
+        assert a["scratch"].data_ptr() == ptr
+
+
+@pytest.mark.parametrize("n_live", [1, 8, 9])
+def test_ticks_wider_than_the_pack_width_run_per_op(model, n_live, monkeypatch):
+    """Over weights stored in the state's dtype, a tick of up to 8 rows runs
+    the level packs and a wider one (9 live rows: width 12 of 12 slots) runs
+    per op; either matches the sessions alone."""
+    from cleanumamba_tpu_torch.serve import tick_width
+
+    cfg, params, _, _ = model
+    seen, real = [], ts.stream_step
+
+    def spy(p, cfg_, state, samples, *args, packs=None, **kw):
+        seen.append((samples.shape[0], packs is not None))
+        return real(p, cfg_, state, samples, *args, packs=packs, **kw)
+
+    monkeypatch.setattr(ts, "stream_step", spy)
+    mux = SessionMultiplexer(params, cfg, slots=12, device="cpu")
+    assert mux.pack_width == 8 and mux.packed_levels == 2 * cfg.encoder_n_layers
+    audio, outs = _width_run(mux, cfg, n_live)
+    w = tick_width(n_live, mux.slots)
+    assert seen == [(w, w <= 8)] * mux.ticks and mux.ticks == 4
+    monkeypatch.setattr(ts, "stream_step", real)
+    for s in range(mux.slots):
+        np.testing.assert_allclose(outs[s], _solo(params, cfg, audio[s]), **TOL)

@@ -10,7 +10,11 @@ tick of the graphed multiplexer (the first eager, the second captured, the
 rest replayed) is held against eager, unpacked ``stream_step`` on the same
 card from the same pool: the live rows' output and state at 1e-5 of
 max|ref| (fp32, TF32 off; another sum order), the paused rows' state bit
-for bit.  Needs a CUDA device and imports no JAX:
+for bit.  The same holds for ticks at widths 1, 16, 1 and 2 on both
+bottlenecks (and with fp32 weights, whose 16-row tick runs per op), each
+width's graph eager, captured and replayed, with width 1
+captured before the first wider tick: no K3/K4 pack's scratch moves after
+that capture.  Needs a CUDA device and imports no JAX:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_serve_card.py``.
 """
 
@@ -79,3 +83,73 @@ def test_packed_ticks_match_the_unpacked_step_on_the_card(weights, slots, bottle
             paused = torch.from_numpy(np.flatnonzero(~live)).to(dev)
             assert torch.equal(got[paused], old[paused]), (k, i)
             _close(got[rows], want[rows], f"tick {k} state leaf {i}")
+
+
+WIDTH_SEQUENCE = (1, 16, 1, 2)  # live rows of the ticks, each its own width
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bottleneck,weights", [("mamba", "bf16"), ("mha", "bf16"),
+                                               ("mamba", "fp32")])
+def test_width_ticks_replayed_match_the_unpacked_step_on_the_card(bottleneck, weights):
+    """A tick at width 1, then ticks at widths 1, 16, 1, 2, the sequence three
+    times (each width eager, then captured, then replayed; width 1 captured
+    before the first wider tick), at 16 slots with bf16 weights (every width
+    packed) and fp32 weights (width 16 per op, the others packed): each
+    tick's live rows against eager, unpacked ``stream_step`` at batch 16 from
+    the same pool (1e-5 of max|ref|), every other row bit for bit; one graph
+    a width; no K3/K4 pack's scratch moves after the first capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K3/K4 and the graphs have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, slots = torch.device("cuda:0"), 16
+    cfg = (CleanUMambaConfig() if bottleneck == "mamba"
+           else CleanUMambaConfig(bottleneck="mha", tsfm_n_layers=5, norm_epsilon=1e-6))
+    fl, tsr = cfg.frame_length, cfg.total_stride
+    mux = SessionMultiplexer(init_params(cfg, torch.Generator().manual_seed(1), dev), cfg,
+                             slots=slots, weights=weights, device=dev)
+    assert mux.packed_levels == 2 * cfg.encoder_n_layers
+    assert mux.pack_width == (slots if weights == "bf16" else 8)
+    scratch = [a["scratch"] for a in mux._packs[0]["enc"] + mux._packs[0]["dec"]]
+    rng = np.random.default_rng(1)
+    for s in range(slots):
+        assert mux.open() == s
+        mux.feed(s, (rng.normal(size=fl) * 0.1).astype(np.float32))
+    ptrs, k = None, 0
+    for n in (1,) + WIDTH_SEQUENCE * 3:  # width 1 captured before the first wider tick
+        for s in range(slots):
+            mux._drain(s)
+        live = np.zeros(slots, bool)
+        live[[(k * 5 + i) % slots for i in range(n)]] = True
+        x = (rng.normal(size=(slots, tsr)) * 0.1).astype(np.float32) * live[:, None]
+        for s in np.flatnonzero(live):
+            mux._buf[s] = x[s]
+        before = own(mux.pool)
+        with torch.no_grad():
+            ref_state, ref_out = stream_step(mux.params, cfg, before,
+                                             torch.from_numpy(x).to(dev),
+                                             live=torch.from_numpy(live).to(dev))
+        stepped = mux.rows_stepped
+        mux._pump()
+        k += 1
+        assert mux.ticks == k and mux.rows_stepped - stepped == n
+        if ptrs is None and len(mux._graphs) > 1:  # the prime's and the first tick's
+            ptrs = [a["scratch"].data_ptr() for a in mux._packs[0]["enc"]
+                    + mux._packs[0]["dec"]]
+        rows = torch.from_numpy(np.flatnonzero(live)).to(dev)
+        paused = torch.from_numpy(np.flatnonzero(~live)).to(dev)
+        got_out = torch.from_numpy(np.stack([mux._out[s][0] for s in np.flatnonzero(live)]))
+        _close(got_out, ref_out[rows].cpu(), f"tick {k} (width {n}) output")
+        for i, (got, want, old) in enumerate(zip(tree_leaves(mux.pool),
+                                                 tree_leaves(ref_state),
+                                                 tree_leaves(before))):
+            if got.ndim == 0 or got.shape[0] != slots or not got.numel():
+                continue
+            assert torch.equal(got[paused], old[paused]), (k, n, i)
+            _close(got[rows], want[rows], f"tick {k} (width {n}) state leaf {i}")
+    assert len(mux._graphs) == 1 + len(set(WIDTH_SEQUENCE))  # the prime and one a width
+    assert ptrs == [a["scratch"].data_ptr() for a in mux._packs[0]["enc"]
+                    + mux._packs[0]["dec"]]
+    assert all(a is b for a, b in zip(scratch, [a["scratch"] for a in mux._packs[0]["enc"]
+                                                + mux._packs[0]["dec"]]))

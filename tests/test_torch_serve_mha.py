@@ -198,3 +198,47 @@ def test_benchmark_layout_is_the_programs_tree():
     assert [p for p, _ in leaf_paths(small)] == \
         [p for p, _ in leaf_paths(init_params(CleanUMambaConfig(**SMALL),
                                               torch.Generator().manual_seed(0), "cpu"))]
+
+
+# --- the tick at the width of its live rows ---------------------------------
+
+WIDTH_SLOTS = 6
+WIDTHS = {1: 1, 2: 2, 3: 4, WIDTH_SLOTS: WIDTH_SLOTS}  # live rows a tick -> its width
+
+
+@pytest.mark.parametrize("n_live", sorted(WIDTHS))
+def test_width_ticks_keep_other_rings_and_match_the_reference(model, n_live):
+    """Ticks of 1, 2, 3 (width 4) and every live row, the live set turning:
+    the rings and positions of every row without a hop (paused sessions,
+    padding rows) stay bitwise as they were, the pool a tick read is left
+    alone, and every session, its ring wrapped, matches the reference."""
+    cfg, P = model
+    fl, ts = cfg.frame_length, cfg.total_stride
+    mux = SessionMultiplexer(P, cfg, slots=WIDTH_SLOTS, device="cpu")
+    audio = {s: _audio(70 + s, fl) for s in range(WIDTH_SLOTS)}
+    outs = {}
+    for s in range(WIDTH_SLOTS):
+        assert mux.open() == s
+        outs[s] = [mux.feed(s, audio[s])]
+    rounds = 2 * W * WIDTH_SLOTS // n_live  # every session steps past its window
+    for r in range(rounds):
+        live = sorted((r * n_live + k) % WIDTH_SLOTS for k in range(n_live))
+        rest = [s for s in range(WIDTH_SLOTS) if s not in live]
+        before = [t.clone() for t in tree_leaves(mux.pool["bottleneck"])]
+        pool_in = mux.pool
+        for s in live:
+            x = _audio(1000 * r + s, ts)
+            audio[s] = np.concatenate([audio[s], x])
+            mux._buf[s], mux._fed[s] = x, mux._fed[s] + ts
+        mux._pump()
+        for got, old in zip(tree_leaves(mux.pool["bottleneck"]), before):
+            assert torch.equal(got[rest], old[rest])
+        assert all(torch.equal(t, old) for t, old in
+                   zip(tree_leaves(pool_in["bottleneck"]), before))
+    assert mux.ticks == rounds and mux.rows_stepped == rounds * WIDTHS[n_live]
+    assert int(mux.pool["bottleneck"]["pos"].min()) > W  # every ring has wrapped
+    for s in range(WIDTH_SLOTS):
+        got = np.concatenate(outs[s] + [mux._drain(s)])
+        want = ref.stream(P, SMALL, torch.from_numpy(audio[s])[None], W)[0].numpy()
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= REL * np.abs(want).max(), s

@@ -5,8 +5,8 @@ On the CPU: off, a span is the shared do-nothing object and nothing is
 kept; on, each span carries its name, its parent (the span open when it was
 entered) and its key, and closes when raised through; the store's cap
 counts what it drops; with the recorder on, every tick of a
-``SessionMultiplexer`` is one ``mux.tick`` holding one ``mux.pack`` and one
-``mux.copy_out``, each admission one ``mux.admit`` keyed by its session,
+``SessionMultiplexer`` is one ``mux.tick`` keyed by its width, holding one
+``mux.pack`` and one ``mux.copy_out``, each admission one ``mux.admit`` keyed by its session,
 and the outputs are bit for bit those with the recorder off.
 
 The cases marked ``cuda`` hold the ``graphs.*`` spans on the card: a key's
@@ -121,18 +121,18 @@ def _serve(cfg, params):
     outs += [mux.feed(b, audio[1][fl - 3:fl + 3 * tsr]), mux.feed(c, audio[2][:fl + tsr]),
              mux.feed(a, audio[0][fl + 2 * tsr:fl + 5 * tsr]), mux.flush(b),
              mux.feed(c, audio[2][fl + tsr:fl + 4 * tsr])]
-    return outs, mux.ticks, (a, b, c)
+    return outs, (mux.ticks, mux.rows_stepped), (a, b, c)
 
 
 def test_multiplexer_spans_each_tick_and_admission(model):
     cfg, params = model
-    want, ticks_off, _ = _serve(cfg, params)
+    want, counts_off, _ = _serve(cfg, params)
     tracing.start()
     try:
-        got, ticks, sids = _serve(cfg, params)
+        got, (ticks, rows_stepped), sids = _serve(cfg, params)
     finally:
         spans = tracing.stop()
-    assert ticks == ticks_off > 0
+    assert (ticks, rows_stepped) == counts_off and ticks > 0
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
@@ -142,7 +142,8 @@ def test_multiplexer_spans_each_tick_and_admission(model):
     for t in ticks_seen:
         children = [s[NAME] for s in spans if s[PARENT] == t[ID]]
         assert sorted(children) == ["mux.copy_out", "mux.pack"]
-        assert t[PARENT] == -1 and t[KEY] == -1
+        assert t[PARENT] == -1 and t[KEY] in (1, 2, 4)  # the tick's width
+    assert sum(t[KEY] for t in ticks_seen) == rows_stepped
     admits = [s for s in spans if s[NAME] == "mux.admit"]
     assert sorted(s[KEY] for s in admits) == sorted(sids)
     drains = [s for s in spans if s[NAME] == "mux.drain"]
