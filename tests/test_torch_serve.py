@@ -281,8 +281,8 @@ def test_mha_and_lstm_served(model, family):
 # --- the tick at the width of its live rows ---------------------------------
 
 WIDTH_SLOTS = 6  # widths 1, 2, 4 and 6: above 4 live rows the tick runs every slot
-# live rows a tick -> the width it runs at
-WIDTHS = {1: 1, 2: 2, 3: 4, WIDTH_SLOTS: WIDTH_SLOTS}
+# live rows a tick -> the width it runs at (5: every slot, one of them paused)
+WIDTHS = {1: 1, 2: 2, 3: 4, 5: WIDTH_SLOTS, WIDTH_SLOTS: WIDTH_SLOTS}
 
 
 @pytest.mark.parametrize("slots", [1, 2, 6, 8, 12, 16])
@@ -332,8 +332,9 @@ def _width_run(mux, cfg, n_live, rounds=4, check=None):
 
 @pytest.mark.parametrize("n_live", sorted(WIDTHS))
 def test_width_ticks_match_each_session_alone(model, n_live):
-    """A session beside others, in ticks of 1, 2, 3 (width 4) and every live
-    row, matches itself streamed alone; the ticks run at their width."""
+    """A session beside others, in ticks of 1, 2, 3 (width 4), 5 (every slot,
+    one paused) and every live row, matches itself streamed alone; the ticks
+    run at their width."""
     cfg, params, _, _ = model
     mux = SessionMultiplexer(params, cfg, slots=WIDTH_SLOTS, device="cpu")
     audio, outs = _width_run(mux, cfg, n_live)
@@ -347,8 +348,8 @@ def test_width_ticks_match_each_session_alone(model, n_live):
 @pytest.mark.parametrize("n_live", sorted(WIDTHS))
 def test_width_ticks_keep_rows_outside_them(model, n_live):
     """Every row without a hop (paused sessions, and the padding rows a tick
-    of 3 live rows runs at width 4) is bitwise what it was; the tick writes
-    nothing into the pool it read."""
+    of 3 live rows runs at width 4 or one of 5 at width 6) is bitwise what
+    it was; the tick writes nothing into the pool it read."""
     cfg, params, _, _ = model
     mux = SessionMultiplexer(params, cfg, slots=WIDTH_SLOTS, device="cpu")
 

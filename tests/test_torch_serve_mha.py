@@ -203,15 +203,17 @@ def test_benchmark_layout_is_the_programs_tree():
 # --- the tick at the width of its live rows ---------------------------------
 
 WIDTH_SLOTS = 6
-WIDTHS = {1: 1, 2: 2, 3: 4, WIDTH_SLOTS: WIDTH_SLOTS}  # live rows a tick -> its width
+# live rows a tick -> its width (5: every slot, one of them paused)
+WIDTHS = {1: 1, 2: 2, 3: 4, 5: WIDTH_SLOTS, WIDTH_SLOTS: WIDTH_SLOTS}
 
 
 @pytest.mark.parametrize("n_live", sorted(WIDTHS))
 def test_width_ticks_keep_other_rings_and_match_the_reference(model, n_live):
-    """Ticks of 1, 2, 3 (width 4) and every live row, the live set turning:
-    the rings and positions of every row without a hop (paused sessions,
-    padding rows) stay bitwise as they were, the pool a tick read is left
-    alone, and every session, its ring wrapped, matches the reference."""
+    """Ticks of 1, 2, 3 (width 4), 5 (every slot, one paused) and every live
+    row, the live set turning: the rings and positions of every row without
+    a hop (paused sessions, padding rows) stay bitwise as they were, the
+    pool a tick read is left alone, and every session, its ring wrapped,
+    matches the reference."""
     cfg, P = model
     fl, ts = cfg.frame_length, cfg.total_stride
     mux = SessionMultiplexer(P, cfg, slots=WIDTH_SLOTS, device="cpu")
