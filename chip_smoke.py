@@ -103,9 +103,8 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     at every width the ticks run, for bf16 and fp32 weights with fp32
     state and bf16, int8 and fp32 weights with bf16 state, at 16 and 8
     slots (the first: the benchmark's live multiplexer, the tensor cores):
-    outputs, K3/K4 launches counted over each arm's ticks, device busy and
-    wall a tick per width, and the constructor's choice to pack or not at
-    each width, which must not lose; the graphed tick of the benchmark's
+    outputs, K3/K4 launches counted over each arm's ticks, and device busy
+    and wall a tick per width; the graphed tick of the benchmark's
     live multiplexers (E8 and CleanUNet, 16 slots, bf16 weights) at widths
     1, 2, 4, 8 and 16: wall, device busy, K3/K4, K6 and K7 a tick from a
     trace, K7's launches counted from zero (``chiprun_out/tick_widths.json``;
@@ -212,11 +211,11 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     KV rings) against its plain version at 16 rows and a ring of 625, rows
     at positions from empty to wrapped many times: every head width it is
     built for (CleanUNet's 8 heads of 64, 8 of 8, 2 of 16), fp32 and bf16,
-    one live row, every row live and paused rows: outputs, the rings bit for
-    bit, a paused row's zero output, a repeated call bit for bit.  Then, at
-    CleanUNet's shape in fp32 with full windows, one live row and all 16:
-    device times from a trace of K6 a launch, its plain version, the
-    simplest in-place step in plain torch (a ``where`` on each row's slot,
+    over one row, all 16 and a subset, each gathered as a tick gathers its
+    rows: outputs, the rings bit for bit, a repeated call bit for bit.
+    Then, at CleanUNet's shape in fp32 with full windows, one row and all
+    16: device times from a trace of K6 a launch, its plain version, the
+    simplest in-place step in plain torch (a ``scatter_`` on each row's slot,
     then one masked ``scaled_dot_product_attention`` over the rings) and
     that masked attention alone (``library_ms``), beside the bound of the
     bytes and operations ``portbench/counts/k6.py`` counts.  Then the
@@ -2116,7 +2115,6 @@ TICK_CASES = [(w, d, n) for w, d in (("bf16", torch.float32), ("fp32", torch.flo
                                      ("bf16", torch.bfloat16), ("int8", torch.bfloat16),
                                      ("fp32", torch.bfloat16))
               for n in (MMA_B, 8)]
-CHOICE_MARGIN = 0.05  # the constructor's choice may lose by this share of a tick at most
 
 
 def _ticks_of_width(mux, hops, w, n, k, outs=None, label=""):
@@ -2151,15 +2149,14 @@ def check_tick_packs(dev, cfg, params32, smi, timed=40, traced=40):
     """Phase 15 (b): the multiplexer's block-1 tick with its levels packed
     (K3/K4) against the same tick per op, each graphed, at every width its
     ticks run (the powers of two below ``slots``, and ``slots``), for every
-    ``TICK_CASES`` entry.  Two live multiplexers on one traffic: one packs at
-    every width (``serve._SIMT_SLOTS`` raised to ``slots``), the other never
-    (no packs).  Checks the outputs (fp32 state 1e-4, bf16 4e-2 of
-    max|ref|) and K3/K4's launches (counted from zero over each arm's ticks:
-    a packed tick launches each level once, per op none), and prints device
-    busy and wall ms a tick per width.  At each width the constructor's own
-    choice (the packs up to ``pack_width`` rows) must not lose by more than
-    ``CHOICE_MARGIN`` of a tick.  Returns the K3/K4 launches of the first
-    case (the tensor cores' products) for the kernel table."""
+    ``TICK_CASES`` entry.  Two live multiplexers on one traffic: the
+    constructor's own, which packs at every width, and one whose
+    ``pack_stream_params`` packs nothing.  Checks the outputs (fp32 state
+    1e-4, bf16 4e-2 of max|ref|) and K3/K4's launches (counted from zero
+    over each arm's ticks: a packed tick launches each level once, per op
+    none), and prints device busy and wall ms a tick per width.  Returns the
+    K3/K4 launches of the first case (the tensor cores' products) for the
+    kernel table."""
     from torch.profiler import ProfilerActivity, profile
 
     from cleanumamba_tpu_torch import serve
@@ -2170,23 +2167,19 @@ def check_tick_packs(dev, cfg, params32, smi, timed=40, traced=40):
     first, faults = None, []
     for weights, dtype, slots in TICK_CASES:
         case = f"{weights} weights, {str(dtype)[6:]} state, {slots} slots"
-        chooser = serve.SessionMultiplexer(params32, cfg, slots=slots, dtype=dtype,
-                                           weights=weights)
         widths = sorted({serve.tick_width(n, slots) for n in range(1, slots + 1)})
         got = {}
         for arm in ("packed", "per-op"):
-            simt, pack = serve._SIMT_SLOTS, sf.pack_stream_params
-            if arm == "packed":
-                serve._SIMT_SLOTS = slots
-            else:
+            pack = sf.pack_stream_params
+            if arm == "per-op":
                 sf.pack_stream_params = lambda *a, **k: (None, None)
             try:
                 mux = serve.SessionMultiplexer(params32, cfg, slots=slots, dtype=dtype,
                                                weights=weights)
             finally:
-                serve._SIMT_SLOTS, sf.pack_stream_params = simt, pack
-            if mux.pack_width != (slots if arm == "packed" else 0):
-                raise AssertionError(f"{case} {arm}: packs up to {mux.pack_width} rows")
+                sf.pack_stream_params = pack
+            if mux.packed_levels != (2 * D if arm == "packed" else 0):
+                raise AssertionError(f"{case} {arm}: {mux.packed_levels} levels packed")
             rng = np.random.default_rng(151)
             _admit_every_slot(mux, rng)
             hops = (rng.normal(size=(64, mux.tick_samples)) * 0.1).astype(np.float32)
@@ -2220,24 +2213,15 @@ def check_tick_packs(dev, cfg, params32, smi, timed=40, traced=40):
         tol = FP32_TOL if dtype == torch.float32 else 2 * BF16_TOL
         rel = max(_rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
                   for a, b in zip(got["packed"][0], got["per-op"][0]))
-        print(f"  ticks of {case} on {smi}: the constructor packs {chooser.packed_levels} levels "
-              f"up to {chooser.pack_width} rows; packed vs per-op outputs rel {rel:.3e} "
+        print(f"  ticks of {case} on {smi}: packed vs per-op outputs rel {rel:.3e} "
               f"(tol {tol:g})", flush=True)
         if not rel <= tol:
             faults.append(f"{case}: packed vs per-op outputs rel {rel:.3e}")
         for w in widths:
             (wall_p, busy_p), (wall_o, busy_o) = got["packed"][1][w], got["per-op"][1][w]
-            packs = w <= chooser.pack_width
-            chosen, other = (busy_p, busy_o) if packs else (busy_o, busy_p)
             print(f"    width {w:2d}: packed (K3/K4) device busy {busy_p:.4f} ms a tick, wall "
                   f"{wall_p:.4f}; per op busy {busy_o:.4f}, wall {wall_o:.4f}; packed / per op "
-                  f"{busy_p / busy_o:.3f}; chosen: {'packed' if packs else 'per op'}",
-                  flush=True)
-            if chosen > (1 + CHOICE_MARGIN) * other:
-                faults.append(f"{case}, width {w}: the constructor's choice "
-                              f"({'packed' if packs else 'per op'}) takes {chosen:.4f} ms a "
-                              f"tick, the other {other:.4f}")
-        del chooser
+                  f"{busy_p / busy_o:.3f}", flush=True)
     if faults:
         raise AssertionError("packed ticks: " + "; ".join(faults))
     return first
@@ -2257,8 +2241,8 @@ def check_tick_widths(dev, smi, timed=200, traced=100, fill=640):
     profiler for device busy a tick, K3/K4's, K6's and K7's (the rows'
     gather and write-back) device time a tick and the top kernels.  Checks
     that each tick steps w rows (``rows_stepped``), one graph a width, finite
-    outputs, and K7's launches, counted from zero: two a tick below 16 rows
-    (the gather and the write-back), none at 16.  Writes
+    outputs, and K7's launches, counted from zero: two a tick at every
+    width (the gather and the write-back).  Writes
     ``chiprun_out/tick_widths.json``; returns K7's launches over the ticks."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2300,7 +2284,7 @@ def check_tick_widths(dev, smi, timed=200, traced=100, fill=640):
                 raise AssertionError(f"{label}: {mux.rows_stepped - r0} rows stepped in "
                                      f"{mux.ticks - n0} ticks of width {w}")
             launched = k7_launches() - launched0
-            if launched != (2 if w < slots else 0) * (mux.ticks - ticks0):
+            if launched != 2 * (mux.ticks - ticks0):
                 raise AssertionError(f"{label}: K7 launched {launched} times in "
                                      f"{mux.ticks - ticks0} ticks of width {w}")
             busy, n_kernels = _device_busy(prof)
@@ -5040,10 +5024,11 @@ KV_LAYERS, KV_WINDOW = 5, 625  # CleanUNet's layers; 10 s of tokens
 CLEANUNET = dict(bottleneck="mha", tsfm_n_layers=5, norm_epsilon=1e-6)  # E8's U-Net and widths
 
 
-def _kv_live(pattern, dev, B=16):
-    rows = {"one live row": [b == KV_FULL_ROW for b in range(B)],
-            "all rows live": [True] * B,
-            "paused rows": [b % 5 != 3 for b in range(B)]}[pattern]
+def _kv_rows(pattern, dev, B=16):
+    """The rows of the 16 that a call steps, gathered as a tick gathers its
+    own: one (the cells' tick), all, or a subset."""
+    rows = {"one row": [KV_FULL_ROW], "all rows": list(range(B)),
+            "a subset of rows": [b for b in range(B) if b % 5 != 3]}[pattern]
     return torch.tensor(rows, device=dev)
 
 
@@ -5057,18 +5042,16 @@ def _kv_inputs(g, dev, d, dtype, B=16):
     return (*tok, *rings)
 
 
-def _kv_in_place_plain(q, k, v, k_ring, v_ring, live, pos, n_head):
+def _kv_in_place_plain(q, k, v, k_ring, v_ring, pos, n_head):
     """The simplest in-place step in plain torch, for the times only: each
-    live row's slot written by one ``where`` over that slot (no host read,
-    so a tick's graph captures it), then one masked
-    ``scaled_dot_product_attention`` over the whole rings."""
+    row's slot written by one ``scatter_`` (no host read, so a tick's graph
+    captures it), then one masked ``scaled_dot_product_attention`` over the
+    whole rings."""
     B, W, d = k_ring.shape
     idx = (pos % W).long()[:, None, None].expand(B, 1, d)
-    keep = ~live[:, None, None]
     for ring, new in ((k_ring, k), (v_ring, v)):
-        ring.scatter_(1, idx, torch.where(keep, ring.gather(1, idx), new[:, None, :]))
-    out = _kv_library(q, k_ring, v_ring, pos, n_head).reshape(B, d)
-    return torch.where(live[:, None], out, torch.zeros_like(q))
+        ring.scatter_(1, idx, new[:, None, :])
+    return _kv_library(q, k_ring, v_ring, pos, n_head).reshape(B, d)
 
 
 def _kv_library(q, k_ring, v_ring, pos, n_head):
@@ -5102,13 +5085,14 @@ def _trace_per_call(fn, iters=50, warmup=5, kernel=None):
     return busy / iters, (_median(own) / 1e3 if own else None)
 
 
-def _kv_cost(live, pos, d, H, esize):
-    """(bytes, operations, exps) of one launch, counted as the benchmark's
-    ``portbench/counts/k6.py`` counts them: per attended position its key and
-    value read, 4 d operations and an exp a head; per live row q read, the
-    output written, the new key and value written."""
-    n = torch.clamp(pos.long() + 1, max=KV_WINDOW)[live]
-    positions, rows = int(n.sum()), int(live.sum())
+def _kv_cost(pos, d, H, esize):
+    """(bytes, operations, exps) of one launch over the rows at ``pos``,
+    counted as the benchmark's ``portbench/counts/k6.py`` counts them: per
+    attended position its key and value read, 4 d operations and an exp a
+    head; per row q read, the output written, the new key and value
+    written."""
+    n = torch.clamp(pos.long() + 1, max=KV_WINDOW)
+    positions, rows = int(n.sum()), n.shape[0]
     return (2 * d * positions + 4 * d * rows) * esize, 4 * d * positions, H * positions
 
 
@@ -5173,53 +5157,52 @@ def check_kv_attention(dev, rep: Report, smi):
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         for d, H in KV_GEOMETRIES:
             q, k, v, kc, vc = _kv_inputs(g, dev, d, dtype)
-            for pattern in ("one live row", "all rows live", "paused rows"):
-                live = _kv_live(pattern, dev)
-                kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-                got = kv_attention(q, k, v, kk[:, li], vk[:, li], live, pos, H)
-                again = kv_attention(q, k, v, kk[:, li], vk[:, li], live, pos, H)
-                want = kv_attention_ref(q, k, v, kp[:, li], vp[:, li], live, pos, H)
+            for pattern in ("one row", "all rows", "a subset of rows"):
+                r = _kv_rows(pattern, dev)
+                qr, kr, vr, pr = q[r], k[r], v[r], pos[r]
+                kk, vk, kp, vp = kc[r], vc[r], kc[r], vc[r]  # gathered: copies
+                got = kv_attention(qr, kr, vr, kk[:, li], vk[:, li], pr, H)
+                again = kv_attention(qr, kr, vr, kk[:, li], vk[:, li], pr, H)
+                want = kv_attention_ref(qr, kr, vr, kp[:, li], vp[:, li], pr, H)
                 torch.cuda.synchronize()
                 label = f"{str(dtype)[6:]} {H} heads of {d // H}, W {KV_WINDOW}, {pattern}"
                 _same_bits(f"kv_attention {label}", [got], [again])
                 if not (torch.equal(kk, kp) and torch.equal(vk, vp)):
                     raise AssertionError(f"kv_attention {label}: the rings differ from the "
                                          "plain version's")
-                if not torch.equal(got[~live], torch.zeros_like(got[~live])):
-                    raise AssertionError(f"kv_attention {label}: a paused row's output is "
-                                         "not zero")
                 rep.check("kv_attention_kernel", label, got, want, tol)
 
-    # times at the cell's shape (fp32), every live row's window full
+    # times at the cell's shape (fp32), every row's window full
     d, H = KV_GEOMETRIES[0]
-    q, k, v, kc, vc = _kv_inputs(g, dev, d, torch.float32)
-    full = torch.full((16,), 1000, dtype=torch.int32, device=dev) + torch.arange(
+    q16, k16, v16, kc, vc = _kv_inputs(g, dev, d, torch.float32)
+    full16 = torch.full((16,), 1000, dtype=torch.int32, device=dev) + torch.arange(
         16, dtype=torch.int32, device=dev)
-    kr, vr = kc[:, li], vc[:, li]
-    for pattern in ("one live row", "all rows live"):
-        live = _kv_live(pattern, dev)
-        plain_inplace = _kv_in_place_plain(q, k, v, kr.clone(), vr.clone(), live, full, H)
-        want = kv_attention_ref(q, k, v, kr.clone(), vr.clone(), live, full, H)
+    for pattern in ("one row", "all rows"):
+        r = _kv_rows(pattern, dev)
+        q, k, v, full = q16[r], k16[r], v16[r], full16[r]
+        kr, vr = kc[r][:, li], vc[r][:, li]
+        plain_inplace = _kv_in_place_plain(q, k, v, kr.clone(), vr.clone(), full, H)
+        want = kv_attention_ref(q, k, v, kr.clone(), vr.clone(), full, H)
         err = _rel_err(plain_inplace, want)[1]
         if not err <= FP32_TOL:
             raise AssertionError(f"the plain in-place step ({pattern}): rel {err:.3e}")
         _, k6_ms = _trace_per_call(
-            lambda: kv_attention(q, k, v, kr, vr, live, full, H), kernel=KV_KERNEL)
+            lambda: kv_attention(q, k, v, kr, vr, full, H), kernel=KV_KERNEL)
         plain_ms, _ = _trace_per_call(
-            lambda: kv_attention_ref(q, k, v, kr, vr, live, full, H), iters=20)
+            lambda: kv_attention_ref(q, k, v, kr, vr, full, H), iters=20)
         inplace_ms, _ = _trace_per_call(
-            lambda: _kv_in_place_plain(q, k, v, kr, vr, live, full, H))
+            lambda: _kv_in_place_plain(q, k, v, kr, vr, full, H))
         lib_ms, _ = _trace_per_call(lambda: _kv_library(q, kr, vr, full, H))
-        nbytes, flops, exps = _kv_cost(live, full, d, H, 4)
+        nbytes, flops, exps = _kv_cost(full, d, H, 4)
         bound_ms, by = _bound(nbytes, flops, torch.float32, sfu=exps)
-        print(f"  K6 times on {smi}, fp32, 16 rows, {H} heads of {d // H}, W {KV_WINDOW}, "
+        print(f"  K6 times on {smi}, fp32, {H} heads of {d // H}, W {KV_WINDOW}, "
               f"{pattern} (windows full): K6 {k6_ms * 1e3:.2f} us a launch; plain version "
-              f"{plain_ms * 1e3:.2f} us busy; plain in-place step (one-slot where + masked "
+              f"{plain_ms * 1e3:.2f} us busy; plain in-place step (one-slot scatter + masked "
               f"SDPA) {inplace_ms * 1e3:.2f} us busy; masked SDPA alone {lib_ms * 1e3:.2f} us "
               f"busy; bound {bound_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.3f} MB, "
               f"{flops / 1e6:.3f} MFLOP, {exps} exps), K6 at {100 * bound_ms / k6_ms:.1f} % "
               f"of it", flush=True)
-        if pattern == "one live row":  # the cell's tick: about one live row
+        if pattern == "one row":  # the cell's tick: one row
             rep.ms["kv_attention_kernel"] = (k6_ms, plain_ms)
             rep.bound["kv_attention_kernel"] = (bound_ms, by)
             rep.library["kv_attention_kernel"] = lib_ms
@@ -5251,10 +5234,9 @@ def check_kv_attention(dev, rep: Report, smi):
 
 def _kv_entry(rep: Report, launches):
     """K6's entry of the kernels' summary: its launches over the CleanUNet
-    tick (phase 25), its time and bound at one live row with a full window,
-    and the masked ``scaled_dot_product_attention`` over the rings as the
-    library's nearest call (which neither writes the rings nor skips a
-    paused row)."""
+    tick (phase 25), its time and bound at one row with a full window, and
+    the masked ``scaled_dot_product_attention`` over the rings as the
+    library's nearest call (which does not write the rings)."""
     ms, plain_ms = rep.ms["kv_attention_kernel"]
     bound_ms, bound_by = rep.bound["kv_attention_kernel"]
     return {"name": "kv_attention_kernel", "route": "cuda",

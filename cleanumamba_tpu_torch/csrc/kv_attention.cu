@@ -6,17 +6,17 @@
 //
 // Row b of the batch is a session.  Its ring holds the keys and values of
 // its last W tokens: slot m of the ring lies at ring + b * ldb + m * d, and
-// pos[b] counts the tokens the row has written so far.  For each live row
-// the kernel writes this token's k and v at slot pos mod W and attends over
-// the row's valid slots, min(pos + 1, W) of them, in fp32: scores q.k /
+// pos[b] counts the tokens the row has written so far.  For each row the
+// kernel writes this token's k and v at slot pos mod W and attends over the
+// row's valid slots, min(pos + 1, W) of them, in fp32: scores q.k /
 // sqrt(d_k), a softmax with its max subtracted, and the weighted sum of the
-// values.  A paused row (live[b] == 0) is read for its mask alone: its ring
-// is left as it was and its output is zero.  pos is not advanced here (the
-// caller adds the live mask to it once every layer has run).
+// values.  pos is not advanced here (the caller adds one to it once every
+// layer has run).  A multiplexer's tick steps the rows it gathered, a copy
+// of its pool's (serve.py), so a padding row's write is never kept.
 //
-// What bounds it: the bytes of the live rows' windows (a full window of one
+// What bounds it: the bytes of the rows' windows (a full window of one
 // head is 625 x 64 x 4 B of keys and as much of values), read once; at one
-// live row a tick that is too little work to fill the card, so the design
+// row a tick that is too little work to fill the card, so the design
 // is for latency.  Grid (kSplit, heads, rows), one thread block cluster of
 // kSplit blocks a (row, head): block r takes slots [r * chunk, (r + 1) *
 // chunk) of the valid window, one slot to each group of dk / 16 threads, so
@@ -52,18 +52,13 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p, float (&out)[N
 template <typename T, int DK>
 __global__ void __launch_bounds__(kMaxThreads) kv_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
-    T* __restrict__ k_ring, T* __restrict__ v_ring, long long ldb, const bool* __restrict__ live,
-    const int* __restrict__ pos, T* __restrict__ out, int W, int d) {
+    T* __restrict__ k_ring, T* __restrict__ v_ring, long long ldb, const int* __restrict__ pos,
+    T* __restrict__ out, int W, int d) {
   constexpr int VEC = DK < 16 ? DK : 16;  // a thread's columns of a slot
   constexpr int TPP = DK / VEC;  // threads a slot
   const int rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, nt = blockDim.x, warp = tid / 32, lane = tid % 32;
   const size_t col = (size_t)b * d + (size_t)h * DK;
-  if (!live[b]) {  // the whole cluster leaves: no barrier is entered
-    if (rank == 0)
-      for (int c = tid; c < DK; c += nt) out[col + c] = from_f32<T>(0.f);
-    return;
-  }
   const int p = pos[b];
   const int n_valid = min(p + 1, W), cur = p % W;
   const int chunk = (W + kSplit - 1) / kSplit;
@@ -159,8 +154,8 @@ __global__ void __launch_bounds__(kMaxThreads) kv_attention_kernel(
 
 template <typename T, int DK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* k_ring, void* v_ring,
-                   long long ldb, const bool* live, const int* pos, void* out, int B, int H, int W,
-                   int d, cudaStream_t st) {
+                   long long ldb, const int* pos, void* out, int B, int H, int W, int d,
+                   cudaStream_t st) {
   constexpr int TPP = DK / (DK < 16 ? DK : 16);
   const int chunk = (W + kSplit - 1) / kSplit;
   const int threads = (chunk * TPP + 31) / 32 * 32;
@@ -179,7 +174,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* k_ring, vo
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kv_attention_kernel<T, DK>, static_cast<const T*>(q),
                             static_cast<const T*>(k), static_cast<const T*>(v),
-                            static_cast<T*>(k_ring), static_cast<T*>(v_ring), ldb, live, pos,
+                            static_cast<T*>(k_ring), static_cast<T*>(v_ring), ldb, pos,
                             static_cast<T*>(out), W, d);
 }
 
@@ -187,25 +182,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* k_ring, vo
 
 // K6.  dt: dtype code of q, k, v, the rings and out.  q, k, v, out: (B, d)
 // contiguous; the rings: B rows of W slots of d values, row stride ldb;
-// live: (B,) bool; pos: (B,) int32.  d = H * dk, dk in {8, 16, 64} (the
+// pos: (B,) int32.  d = H * dk, dk in {8, 16, 64} (the
 // head widths of the models that stream mha: CleanUNet and E8's widths 64,
 // the released small geometry 8, the test configurations 8 and 16);
 // every row and slot 16-byte aligned; ceil(W / 8) * dk / min(dk, 16) <= 1024.
 extern "C" int kv_attention(int dt, const void* q, const void* k, const void* v, void* k_ring,
-                            void* v_ring, long long ldb, const void* live, const void* pos,
-                            void* out, int B, int H, int W, int d, void* stream) {
+                            void* v_ring, long long ldb, const void* pos, void* out, int B,
+                            int H, int W, int d, void* stream) {
   if (B == 0) return 0;
   const int dk = d / H;
   if (H * dk != d || W < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool* lv = static_cast<const bool*>(live);
   const int* ps = static_cast<const int*>(pos);
   cudaError_t e = cudaErrorInvalidValue;
   DISPATCH_DTYPE(dt, T, {
     switch (dk) {
-      case 8: e = launch<T, 8>(q, k, v, k_ring, v_ring, ldb, lv, ps, out, B, H, W, d, st); break;
-      case 16: e = launch<T, 16>(q, k, v, k_ring, v_ring, ldb, lv, ps, out, B, H, W, d, st); break;
-      case 64: e = launch<T, 64>(q, k, v, k_ring, v_ring, ldb, lv, ps, out, B, H, W, d, st); break;
+      case 8: e = launch<T, 8>(q, k, v, k_ring, v_ring, ldb, ps, out, B, H, W, d, st); break;
+      case 16: e = launch<T, 16>(q, k, v, k_ring, v_ring, ldb, ps, out, B, H, W, d, st); break;
+      case 64: e = launch<T, 64>(q, k, v, k_ring, v_ring, ldb, ps, out, B, H, W, d, st); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   })

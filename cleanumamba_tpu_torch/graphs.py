@@ -11,10 +11,10 @@ JAX).  Two owners:
   they were, or writes a state leaf in place only idempotently: running
   the step twice on the same state and inputs must leave that leaf as
   running it once does, and give the same ``out``.  (The mha bottleneck's
-  step writes the key and value of the rows that step into slot ``pos mod
-  W`` of their rings and returns the rings themselves; it reads that slot
-  from the new key and value, and ``pos`` is advanced only in the returned
-  state, so a warm-up run writes what the replay writes.)  It keeps, for
+  step writes the key and value of every row into slot ``pos mod W`` of
+  its ring and returns the rings themselves; it reads that slot from the
+  new key and value, and ``pos`` is advanced only in the returned state,
+  so a warm-up run writes what the replay writes.)  It keeps, for
   one owner (a ``Streamer``, a ``SessionMultiplexer``, a trainer):
 
   - **the static state**: the tree of tensors the owner's steps read and

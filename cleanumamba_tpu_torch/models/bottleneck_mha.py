@@ -12,8 +12,8 @@ Streaming keeps, for each row of the batch (a session), a ring of the keys
 and values of its last ``W`` tokens in every layer and its own count of the
 tokens written: a row attends to ``min(pos + 1, W)`` slots, whatever the
 other rows' ages.  A step writes this token's key and value into the ring in
-place (K6, ``ops/cuda/kv_attention.py``), at ``pos mod W`` of the rows that
-step; the rest of its state is new tensors.
+place (K6, ``ops/cuda/kv_attention.py``), at ``pos mod W`` of every row;
+the rest of its state is new tensors.
 """
 
 from __future__ import annotations
@@ -106,29 +106,25 @@ def ring_mask(pos, max_len: int):
     return idx == pos % max_len, idx <= torch.clamp(pos, max=max_len - 1)
 
 
-def step(params, cfg, cache, x, live=None):
+def step(params, cfg, cache, x):
     """Single-token streaming step.  x: (B, d_model) -> (cache', (B, d_model)).
 
     A row attends to at most W past tokens (its ring); beyond that the window
-    slides.  ``live``: (B,) bool, the rows that step (None: every row); a
-    paused row's ring and position stay as they were, and its output row is
-    not meaningful.  The rings of ``cache`` are written in place and returned
-    as they are; ``pos`` comes back advanced for the live rows, in a new
-    tensor.  The write is idempotent: a second call on the same ``cache``
-    and ``x`` writes the same slots with the same values and returns the
-    same output (K6 reads the token's own slot from its new key and value),
-    which ``graphs.StepGraphs``' warm-up runs rely on.  Not traceable by
+    slides.  The rings of ``cache`` are written in place and returned as
+    they are; ``pos`` comes back advanced by one, in a new tensor.  The
+    write is idempotent: a second call on the same ``cache`` and ``x``
+    writes the same slots with the same values and returns the same output
+    (K6 reads the token's own slot from its new key and value), which
+    ``graphs.StepGraphs``' warm-up runs rely on.  Not traceable by
     ``torch.export`` on a card (K6 is not a custom op): ``export.
     export_stream`` refuses an mha model."""
     eps, n_head = cfg.norm_epsilon, cfg.tsfm_n_head
     pos = cache["pos"]
-    if live is None:
-        live = torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
     x = _ln(params["enc_norm"], x, eps)
     for li, p in enumerate(params["layers"]):
         q = x @ p["w_qs"].to(x.dtype)
         k = x @ p["w_ks"].to(x.dtype)
         v = x @ p["w_vs"].to(x.dtype)
-        a = kv_attention(q, k, v, cache["k"][:, li], cache["v"][:, li], live, pos, n_head)
+        a = kv_attention(q, k, v, cache["k"][:, li], cache["v"][:, li], pos, n_head)
         x = _ffn(p, _ln(p["attn_norm"], a @ p["fc"].to(x.dtype) + x, eps), eps)
-    return {"k": cache["k"], "v": cache["v"], "pos": pos + live.to(pos.dtype)}, x
+    return {"k": cache["k"], "v": cache["v"], "pos": pos + 1}, x

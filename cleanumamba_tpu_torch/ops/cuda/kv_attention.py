@@ -43,11 +43,11 @@ def _kernel():
     fn = load_library("kv_attention").kv_attention
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return fn
 
 
-def _check(q, k, v, k_ring, v_ring, live, pos, n_head):
+def _check(q, k, v, k_ring, v_ring, pos, n_head):
     B, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"kv_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -58,9 +58,6 @@ def _check(q, k, v, k_ring, v_ring, live, pos, n_head):
     if k_ring.stride() != v_ring.stride() or k_ring.stride()[1:] != (d, 1):
         raise ValueError("kv_attention: each ring row must be W contiguous slots of d values, "
                          "the two rings alike")
-    if live.shape != (B,) or live.dtype != torch.bool:
-        raise ValueError(f"kv_attention: live is {tuple(live.shape)} {live.dtype}, "
-                         f"expected ({B},) bool")
     if pos.shape != (B,) or pos.dtype != torch.int32:
         raise ValueError(f"kv_attention: pos is {tuple(pos.shape)} {pos.dtype}, "
                          f"expected ({B},) int32")
@@ -68,21 +65,20 @@ def _check(q, k, v, k_ring, v_ring, live, pos, n_head):
         raise ValueError(f"kv_attention: d_model {d} is not a multiple of {n_head} heads")
 
 
-def kv_attention(q, k, v, k_ring, v_ring, live, pos, n_head: int):
+def kv_attention(q, k, v, k_ring, v_ring, pos, n_head: int):
     """One attention step of every row, the rings written in place.
 
     q, k, v: (B, d) this token's query, key and value; k_ring, v_ring: (B, W,
     d) the rows' rings (a view of a larger cache will do: each row W
-    contiguous slots); live: (B,) bool; pos: (B,) int32, the tokens each row
-    has written.  For a live row: k and v written at slot ``pos mod W``, and
-    the output is the softmax attention of q over the row's
-    ``min(pos + 1, W)`` valid slots, computed in fp32.  A paused row's ring
-    is left as it was and its output is zero.  Returns (B, d) in q's dtype;
-    ``pos`` is left to the caller to advance.
+    contiguous slots); pos: (B,) int32, the tokens each row has written.  For
+    every row: k and v written at slot ``pos mod W``, and the output is the
+    softmax attention of q over the row's ``min(pos + 1, W)`` valid slots,
+    computed in fp32.  Returns (B, d) in q's dtype; ``pos`` is left to the
+    caller to advance.
     """
-    _check(q, k, v, k_ring, v_ring, live, pos, n_head)
+    _check(q, k, v, k_ring, v_ring, pos, n_head)
     if q.device.type == "cpu":
-        return kv_attention_ref(q, k, v, k_ring, v_ring, live, pos, n_head)
+        return kv_attention_ref(q, k, v, k_ring, v_ring, pos, n_head)
     if q.device.type != "cuda":
         raise ValueError(f"kv_attention: no kernel for device {q.device}")
     B, W, d = k_ring.shape
@@ -99,33 +95,33 @@ def kv_attention(q, k, v, k_ring, v_ring, live, pos, n_head: int):
             raise ValueError(f"kv_attention: every row of {name} and each head in it must start "
                              "on 16 bytes")
     dev = q.device
-    require_cuda("kv_attention", dev, q=q, k=k, v=v, live=live, pos=pos)
+    require_cuda("kv_attention", dev, q=q, k=k, v=v, pos=pos)
     if k_ring.device != dev or v_ring.device != dev:
         raise ValueError(f"kv_attention: the rings must lie on {dev}")
     out = torch.empty_like(q)
     status = _kernel()(dt, q.data_ptr(), k.data_ptr(), v.data_ptr(), k_ring.data_ptr(),
-                       v_ring.data_ptr(), k_ring.stride(0), live.data_ptr(), pos.data_ptr(),
-                       out.data_ptr(), B, n_head, W, d, stream_ptr(dev))
+                       v_ring.data_ptr(), k_ring.stride(0), pos.data_ptr(), out.data_ptr(), B,
+                       n_head, W, d, stream_ptr(dev))
     check(status, "kv_attention")
     kv_attention.launches += 1
     return out
 
 
-def kv_attention_ref(q, k, v, k_ring, v_ring, live, pos, n_head: int):
+def kv_attention_ref(q, k, v, k_ring, v_ring, pos, n_head: int):
     """The plain version of :func:`kv_attention`, for any device."""
     B, W, d = k_ring.shape
     dk = d // n_head
     slot = (pos % W).long()
     rows = torch.arange(B, device=q.device)
-    k_ring[rows[live], slot[live]] = k[live]
-    v_ring[rows[live], slot[live]] = v[live]
+    k_ring[rows, slot] = k
+    v_ring[rows, slot] = v
     valid = torch.arange(W, device=q.device)[None, :] < torch.clamp(pos + 1, max=W)[:, None]
     logits = torch.einsum("bhc,bshc->bhs", q.reshape(B, n_head, dk).float(),
                           k_ring.reshape(B, W, n_head, dk).float()) / math.sqrt(dk)
     logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
     out = torch.einsum("bhs,bshc->bhc", torch.softmax(logits, dim=-1),
                        v_ring.reshape(B, W, n_head, dk).float()).reshape(B, d)
-    return torch.where(live[:, None], out, torch.zeros_like(out)).to(q.dtype)
+    return out.to(q.dtype)
 
 
 # launches of the kernel; a launch recorded into a CUDA graph counts at each

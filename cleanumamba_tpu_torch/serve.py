@@ -21,40 +21,34 @@ sessions riding it.
 - **A tick steps only the rows it serves.**  A tick consumes ``block *
   total_stride`` samples from every session that has them (its ``n`` live
   rows) and runs the step at width ``w``: the smallest power of two >= n,
-  or ``slots`` where that is larger (at most ceil(log2 slots) + 1 widths).
-  Below ``slots`` the tick gathers its rows of every batch-leading leaf of
+  or ``slots`` where that is larger (at most ceil(log2 slots) + 1 widths);
+  a bundle's callables (``fns``), traced at batch = slots, tick at
+  ``slots``.  Every tick gathers its rows of every batch-leading leaf of
   the pool: the live rows and ``w - n`` rows outside the tick (paused
   sessions, free slots), which ride the step on zeros.  It writes back the
   live rows alone (``graphs.Rows``: a padding row is named ``~row``, which
   the write-back skips), so every other row, padding rows included, is
-  bitwise what it was; the gather and the write-back are one launch each
-  on a card (K7, ``ops/cuda/row_copy.py``), and no leaf is copied whole,
-  the 12.8 MB a row of a CleanUNet session's rings included.  At
-  ``slots`` the step runs on the pool itself under a ``(slots, 1)`` live
-  mask that keeps the other rows (``torch.where``) and their mha rings
-  (the step writes the live rows' ring slots alone); so does every tick of
-  a bundle's callables (``fns``), traced at batch = slots.
-  ``rows_stepped`` sums the widths run.
+  bitwise what it was, an mha row's rings too (the step writes the
+  gathered copy); the gather and the write-back are one launch each on a
+  card (K7, ``ops/cuda/row_copy.py``).  ``rows_stepped`` sums the widths
+  run.
 - **One graph a width on a card.**  On a CUDA device prime (at batch =
   slots) and each width's tick run as CUDA graphs (``graphs.StepGraphs``,
   one memory pool a multiplexer; each eager at its first call, captured at
-  its second: the tick's row indices are an input below ``slots``, the
-  live mask at ``slots``, so each width is its own key); the pool is the
-  graphs' static state, written in place by each tick, and admitting a
-  session is one ``index_copy_`` of its row into it, outside the graphs.
+  its second: the tick's row indices are an input, so each width is its
+  own key); the pool is the graphs' static state, written in place by each
+  tick, and admitting a session is one ``index_copy_`` of its row into it,
+  outside the graphs.
   On the CPU both run eagerly, and a tick writes into a copy of the pool:
   a new pool tree, the one it read left alone.
 - Block 1 runs ``stream_step`` with every encoder and decoder level that
   ``pack_stream_params`` packs as the fused level kernels (K3/K4 on CUDA,
   their plain versions on the CPU) at the tick's width, inside the tick's
-  graph; each pack's scratch is sized for the widest tick that packs when
-  the levels are packed, so no later width regrows one under a captured
-  graph.
+  graph; each pack's scratch is sized for ``slots`` rows when the levels
+  are packed, so no later width regrows one under a captured graph.
   The packs compute in ``dtype`` and keep each weight as stored (bf16
   weights stay bf16 in an fp32 pack); int8 weights pack only where
-  ``dtype`` is bf16, as an int8 pack computes in bf16.  Weights stored in
-  ``dtype`` pack in ticks of up to ``_SIMT_SLOTS`` rows; a wider tick runs
-  them per op (``pack_width``).  A larger block runs
+  ``dtype`` is bf16, as an int8 pack computes in bf16.  A larger block runs
   ``stream_step_block``, whose mamba bottleneck is one selective scan (K1 on
   CUDA) at the tick's width, with no packs.  No whole-frame kernel.  The
   output comes to the host once per tick, ``w`` rows.
@@ -86,26 +80,11 @@ from cleanumamba_tpu_torch.params import (
 )
 
 
-# Most rows of a tick that packs levels whose weights are stored in its
-# dtype: beyond, cuBLAS's GEMMs outrun the fused kernels' SIMT loop (E8 at
-# 16 slots on an H100, device time of the packed tick over the per-op one:
-# fp32 0.57x, 0.63x, 0.70x, 0.83x at 1, 2, 4, 8 rows and 1.05x at 16; bf16
-# 0.63x-0.88x and 1.08x).  bf16 weights in fp32 state (the tensor cores) and
-# int8 weights pack at every width: the per-op tick converts every weight.
-_SIMT_SLOTS = 8
-
-
 def _map_rows(fn, slots, a, b):
     """``fn`` over the paired leaves of two state trees of one structure that
     lead with the batch of ``slots``; any other leaf of ``a`` is kept."""
     return tree_unflatten(a, [fn(x, y) if x.ndim and x.shape[0] == slots else x
                               for x, y in zip(tree_leaves(a), tree_leaves(b))])
-
-
-def _keep_paused(live, new, old):
-    """``new`` where the row is live, ``old`` where it is paused: ``live``
-    (B, 1) bool against a batch-leading leaf of any rank."""
-    return torch.where(live.reshape(live.shape[0], *[1] * (new.ndim - 1)), new, old)
 
 
 def tick_width(n: int, slots: int) -> int:
@@ -130,16 +109,16 @@ class SessionMultiplexer:
              functions, e.g. the callables of an exported bundle whose traced
              batch and block are ``slots`` and ``block`` (:meth:`from_bundle`);
              they take ``(params, frame)`` and ``(params, state, samples)``.
-             Not for an mha model, whose step takes the live mask.
+             Not for an mha model, which has no bundle.
 
-    ``packed_levels``: the encoder and decoder levels a tick of up to
-    ``pack_width`` rows runs through the fused level kernels (both 0 on the
-    per-op path); a wider tick runs per op.  ``kv_window``: the tokens an
-    mha session attends to (``bottleneck_mha.mha_max_len``; 0 for the other
-    bottlenecks).  Counters, on the host: ``ticks``; ``rows_stepped``, the
-    widths the ticks ran at, summed (``ticks`` x ``slots`` for a bundle's
-    callables); for an mha model ``kv_positions``, the window lengths the
-    live rows attended to, summed over the tokens of every tick.
+    ``packed_levels``: the encoder and decoder levels every tick runs
+    through the fused level kernels (0 on the per-op path).  ``kv_window``:
+    the tokens an mha session attends to (``bottleneck_mha.mha_max_len``; 0
+    for the other bottlenecks).  Counters, on the host: ``ticks``;
+    ``rows_stepped``, the widths the ticks ran at, summed (``ticks`` x
+    ``slots`` for a bundle's callables); for an mha model ``kv_positions``,
+    the window lengths the live rows attended to, summed over the tokens of
+    every tick.
     """
 
     def __init__(self, params, cfg: CleanUMambaConfig, slots: int = 8, block: int = 1,
@@ -153,7 +132,7 @@ class SessionMultiplexer:
         self.dtype = dtype
         self.tick_samples = block * cfg.total_stride
         self.device = resolve_device(device)
-        self.packed_levels = self.pack_width = 0
+        self.packed_levels = 0
         self.kv_window = 0
         if cfg.bottleneck == "mha":
             from cleanumamba_tpu_torch.models.bottleneck_mha import mha_max_len
@@ -164,8 +143,8 @@ class SessionMultiplexer:
                 raise ValueError(f"SessionMultiplexer: weights={weights!r} with fns: the "
                                  "functions take the params as given")
             if cfg.bottleneck == "mha":
-                raise ValueError("SessionMultiplexer: an mha model's step takes the live mask, "
-                                 "which a bundle's step does not: serve it from the live "
+                raise ValueError("SessionMultiplexer: an mha model has no bundle "
+                                 "(export_stream refuses it): serve it from the live "
                                  "functions")
             self.params = self._step_params = to_device(params, self.device)
             self._prime, self._step = fns["prime"], fns["step"]
@@ -184,39 +163,25 @@ class SessionMultiplexer:
 
             self.params, view = prepare_weight_view(to_device(params, self.device), weights,
                                                     dtype)
-            # the levels pack where the per-op tick converts every weight at
-            # every tick (int8, or a storage type other than ``dtype``), for
-            # ticks of every width; over weights stored in ``dtype``, ticks
-            # of up to _SIMT_SLOTS rows pack and wider ones run per op.  An
-            # int8 pack computes in bf16
-            converts = weights != ("fp32" if dtype == torch.float32 else "bf16")
+            # an int8 pack computes in bf16
             packs = None
             if (block == 1 and dtype in (torch.float32, torch.bfloat16)
                     and (weights != "int8" or dtype == torch.bfloat16)):
                 packs = pack_stream_params(self.params, cfg, dtype)
                 packs = None if packs[1] is None else packs
             if packs is not None:
-                self.pack_width = slots if converts else min(slots, _SIMT_SLOTS)
                 self.packed_levels = sum(m is not None for m in packs[1]["enc"] + packs[1]["dec"])
                 # before any capture: no width regrows a scratch
-                reserve_scratch(packs, self.pack_width)
+                reserve_scratch(packs, slots)
             self._packs = packs
             # what a packed tick reads: a packed level's weights are in its pack
             self._step_params = (self.params if packs is None
                                  else without_packed_levels(self.params, packs[1]))
             self._prime = lambda p, f: stream_prime(view(p), cfg, f, dtype)
             if block == 1:
-                every, widest = self.params, self.pack_width
-
-                def step(p, s, n, live=None):
-                    if n.shape[0] > widest:  # per op, over every level's weights
-                        return stream_step(view(every), cfg, s, n, dtype, live=live)
-                    return stream_step(view(p), cfg, s, n, dtype, packs=packs, live=live)
-
-                self._step = step
+                self._step = lambda p, s, n: stream_step(view(p), cfg, s, n, dtype, packs=packs)
             else:
-                self._step = lambda p, s, n, live=None: stream_step_block(view(p), cfg, s, n,
-                                                                          dtype, live=live)
+                self._step = lambda p, s, n: stream_step_block(view(p), cfg, s, n, dtype)
         self.pool = None  # batched state tree, made at the first admission
         self._graphs = StepGraphs(self.device) if self.device.type == "cuda" else None
         self._full_width = fns is not None  # a bundle's step was traced at batch = slots
@@ -368,28 +333,15 @@ class SessionMultiplexer:
     def _prime_body(self, frames):
         return self._prime(self.params, frames)
 
-    def _step_body(self, pool, live, samples):
-        """The step at the batch of ``samples`` over a state of that batch.
-        With ``live`` (B, 1), the rows that are not live are kept and an mha
-        step writes the live rows' rings alone; a leaf the step wrote in
-        place (the mha rings) is its own.  ``live`` None: every row steps."""
-        kv_live = (live.reshape(-1),) if self.kv_window and live is not None else ()
-        new, out = self._step(self._step_params, pool, samples, *kv_live)
-        if live is None:
-            return new, out
-        return _map_rows(lambda n, o: n if n is o else _keep_paused(live, n, o),
-                         live.shape[0], new, pool), out
-
-    def _tick_body(self, pool, rows, samples):
+    def _step_body(self, pool, rows, samples):
         """The tick at the width of ``rows`` (w,), each a row of the pool, or
         ``~row`` for a padding row: those rows of every batch-leading leaf
-        gathered (``gather_rows``: one launch on CUDA), all stepped
-        (:meth:`_step_body`) and returned as :class:`graphs.Rows` of the
-        pool, whose ``write_back`` copies the rows of the tick alone, one
-        launch for the lot, so that a padding row is never written.  The
-        gathered rings are a copy: the step writes its rows' slots there,
-        and a second run on the same pool gathers and writes the same, as
-        the graphs' warm-up runs need."""
+        gathered (``gather_rows``: one launch on CUDA), all stepped and
+        returned as :class:`graphs.Rows` of the pool, whose ``write_back``
+        copies the rows of the tick alone, one launch for the lot, so that a
+        padding row is never written.  The gathered rings are a copy: the
+        step writes its rows' slots there, and a second run on the same pool
+        gathers and writes the same, as the graphs' warm-up runs need."""
         leaves = tree_leaves(pool)
         batch = [x.ndim > 0 and x.shape[0] == self.slots for x in leaves]
         rows_of = [x for x, b in zip(leaves, batch) if b]
@@ -397,7 +349,7 @@ class SessionMultiplexer:
         gather_rows(got, rows_of, rows)
         it = iter(got)
         sub = tree_unflatten(pool, [next(it) if b else x for x, b in zip(leaves, batch)])
-        new, out = self._step_body(sub, None, samples)
+        new, out = self._step(self._step_params, sub, samples)
         return tree_unflatten(pool, [Rows(rows, n) if b else n
                                      for n, b in zip(tree_leaves(new), batch)]), out
 
@@ -423,33 +375,27 @@ class SessionMultiplexer:
                 with tracing.span("mux.pack"):
                     # the tick's rows: the live ones, then rows outside the
                     # tick (starved sessions, free slots) up to its width, which
-                    # ride the step on zeros and must not advance (``live``)
+                    # ride the step on zeros and are not written back (~row)
                     rows = sorted(ready + [s for s in range(self.slots)
                                            if s not in ready][:w - len(ready)])
-                    live = np.zeros((w, 1), bool)
+                    rows = [s if s in ready else ~s for s in rows]
                     new = np.zeros((w, tick), np.float32)
                     for i, s in enumerate(rows):
-                        if s in ready:
-                            live[i] = True
+                        if s >= 0:
                             new[i] = self._buf[s][:tick]
                             self._buf[s] = self._buf[s][tick:]
-                    new = torch.from_numpy(new)
-                if w == self.slots:  # every row: the step on the pool itself, masked (a
-                    # gather would copy the whole pool, an mha model's rings included)
-                    body, inputs = self._step_body, (torch.from_numpy(live), new)
-                else:  # the tick's rows, a padding row as ~row (gathered, not written)
-                    body, inputs = self._tick_body, (torch.tensor(
-                        [s if live[i, 0] else ~s for i, s in enumerate(rows)]), new)
+                    inputs = (torch.tensor(rows), torch.from_numpy(new))
                 if self._graphs is not None:
-                    self.pool, out = self._graphs("step", body, self.pool, *inputs)
+                    self.pool, out = self._graphs("step", self._step_body, self.pool, *inputs)
                 else:  # eager: the tick writes a copy, the pool it read is left alone
                     pool = own(self.pool)
-                    out = step_in_place(body, pool, *[x.to(self.device) for x in inputs])
+                    out = step_in_place(self._step_body, pool,
+                                        *[x.to(self.device) for x in inputs])
                     self.pool = pool
                 with tracing.span("mux.copy_out"):
                     out = out.float().cpu().numpy()  # the tick's one copy to the host
                 for i, s in enumerate(rows):
-                    if live[i, 0]:
+                    if s >= 0:
                         self._out[s].append(out[i])
                 self.ticks += 1
                 self.rows_stepped += w

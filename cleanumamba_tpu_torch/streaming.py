@@ -85,15 +85,13 @@ def _bottleneck_init_cache(params, cfg: CleanUMambaConfig, batch: int, dtype, de
     return [mixer.mixer_init_cache(lp["mixer"], batch, dtype, device) for lp in bp["layers"]]
 
 
-def _bottleneck_step(params, cfg: CleanUMambaConfig, cache, x, live=None):
-    """x: (B, d_model) single bottleneck token -> (cache', y).  ``live``
-    (B,) bool: the rows whose mha rings the step writes (None: all); the
-    other families step every row."""
+def _bottleneck_step(params, cfg: CleanUMambaConfig, cache, x):
+    """x: (B, d_model) single bottleneck token -> (cache', y)."""
     bp = params["bottleneck"]
     if cfg.bottleneck == "lstm":
         return bottleneck_lstm.step(bp["layers"], cache, x)
     if cfg.bottleneck == "mha":
-        return bottleneck_mha.step(bp, cfg, cache, x, live)
+        return bottleneck_mha.step(bp, cfg, cache, x)
     mixer_step = STEP_MIXERS[cfg.bottleneck].mixer_step
     new_cache = []
 
@@ -144,11 +142,11 @@ def _mamba2_mixer_tokens(p, lc, hidden):
     return {"conv_state": new_conv_state, "ssm_state": h_last}, hidden
 
 
-def _bottleneck_tokens(params, cfg: CleanUMambaConfig, cache, x, live=None):
+def _bottleneck_tokens(params, cfg: CleanUMambaConfig, cache, x):
     """N bottleneck tokens (B, N, d_model) with carried state.  mamba and
     mamba2 with N > 1: one selective scan per layer with h0 = the carried
     state (K1 on CUDA).  Otherwise (lstm, mha, mamba_s4, or one token) a loop
-    of single-token steps (``live`` as in :func:`_bottleneck_step`)."""
+    of single-token steps."""
     N = x.shape[1]
     if cfg.bottleneck in ("mamba", "mamba2") and N > 1:
         mixer_tokens = (_mamba_mixer_tokens if cfg.bottleneck == "mamba"
@@ -163,7 +161,7 @@ def _bottleneck_tokens(params, cfg: CleanUMambaConfig, cache, x, live=None):
         return new_cache, residual_stack(params["bottleneck"], x, cfg, mixer)
     ys = []
     for t in range(N):
-        cache, y = _bottleneck_step(params, cfg, cache, x[:, t], live)
+        cache, y = _bottleneck_step(params, cfg, cache, x[:, t])
         ys.append(y)
     return cache, torch.stack(ys, dim=1)
 
@@ -185,18 +183,17 @@ def _overlap_decoder_level(dp, cfg, j, x, skip, prev):
     return (torch.relu(x) if j != D - 1 else x), tail
 
 
-def _decode_frame(params, cfg, skips, bott_cache, dec_caches, dtype, packs=None, live=None):
+def _decode_frame(params, cfg, skips, bott_cache, dec_caches, dtype, packs=None):
     """From one frame's level-wise skips to total_stride samples.
 
     skips[i]: (B, len_i, C_i) frame output of encoder level i.  Returns
     (bott_cache', dec_caches', out (B, total_stride, 1)).  Levels packed in
     ``packs`` (see ``pack_stream_params``) run as the fused decoder kernel
     (K4 on CUDA); the dec cache layout (B, S, Cout) is shared by both paths.
-    ``live``: as in :func:`_bottleneck_step`.
     """
     D, S = cfg.encoder_n_layers, cfg.stride
     x = pointwise(params["tsfm_conv1"], skips[-1])
-    bott_cache, y = _bottleneck_step(params, cfg, bott_cache, x[:, 0, :], live)
+    bott_cache, y = _bottleneck_step(params, cfg, bott_cache, x[:, 0, :])
     x = pointwise(params["tsfm_conv2"], y[:, None, :])
 
     new_dec = []
@@ -264,15 +261,13 @@ def stream_prime(params, cfg: CleanUMambaConfig, frame, dtype=torch.float32):
 
 
 def stream_step(params, cfg: CleanUMambaConfig, state, new_samples,
-                dtype=torch.float32, packs=None, live=None):
+                dtype=torch.float32, packs=None):
     """Consume total_stride new samples (B, total_stride), emit as many.
 
     packs: ``pack_stream_params`` output; packed encoder levels run window
     GEMM + ReLU + mix + GLU as the fused encoder kernel (K3 on CUDA), packed
-    decoder levels the fused decoder kernel (K4).  live: (B,) bool, the rows
-    whose mha rings the step writes and whose positions it advances (None:
-    all); the rest of the state is new tensors for every row, and an mha
-    state's rings are written in place.
+    decoder levels the fused decoder kernel (K4).  The new state is new
+    tensors, but for an mha state's rings, which are written in place.
     """
     K, S = cfg.kernel_size, cfg.stride
     strides = _level_strides(cfg)
@@ -301,7 +296,7 @@ def stream_step(params, cfg: CleanUMambaConfig, state, new_samples,
         x_prev_full = x_full
 
     bott_cache, dec_caches, out = _decode_frame(
-        params, cfg, skips, state["bottleneck"], state["dec"], dtype, packs=packs, live=live)
+        params, cfg, skips, state["bottleneck"], state["dec"], dtype, packs=packs)
     out = out[:, : cfg.total_stride, 0]
     if cfg.normalize_input:
         out = out * input_std.to(out.dtype)
@@ -375,7 +370,7 @@ def _ema_stds(std_now, std0, frames0):
 
 
 def stream_step_block(params, cfg: CleanUMambaConfig, state, new_samples,
-                      dtype=torch.float32, live=None):
+                      dtype=torch.float32):
     """Block streaming: consume N*total_stride new samples, emit as many.
 
     Math-identical to N successive ``stream_step`` calls, normalisation
@@ -383,7 +378,6 @@ def stream_step_block(params, cfg: CleanUMambaConfig, state, new_samples,
     scaled by its own EMA value, and so is its output).  The encoder and
     decoder work of all N frames runs at once; only the bottleneck's SSM
     state is sequential, carried through one selective scan (K1 on CUDA).
-    ``live``: as in :func:`stream_step`.
     """
     K, S, D = cfg.kernel_size, cfg.stride, cfg.encoder_n_layers
     ts, fl = cfg.total_stride, cfg.frame_length
@@ -430,7 +424,7 @@ def stream_step_block(params, cfg: CleanUMambaConfig, state, new_samples,
 
     # the deepest level's cache is empty: skips[-1] holds the N new tokens
     z = pointwise(params["tsfm_conv1"], skips[-1])
-    bott_cache, y = _bottleneck_tokens(params, cfg, state["bottleneck"], z, live)
+    bott_cache, y = _bottleneck_tokens(params, cfg, state["bottleneck"], z)
     x = pointwise(params["tsfm_conv2"], y)
 
     new_dec = []

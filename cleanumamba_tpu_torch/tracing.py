@@ -30,10 +30,10 @@ The spans, at each boundary where the port's host work changes hands:
 ``mux.admit_kv`` (key: sid,   an mha model's admission: the session's KV
 in ``mux.admit``)             rings and position spliced into the pool's
                               row (``index_copy_``)
-``mux.tick`` (key: width)     one tick: its rows, mask and samples, the
+``mux.tick`` (key: width)     one tick: its rows and samples, the
                               graph call of its width, the output's copy
                               to the host, the rows handed to their sessions
-``mux.pack`` (in the tick)    the tick's rows, ``live`` and ``new`` built
+``mux.pack`` (in the tick)    the tick's rows and ``new`` built
                               and the sessions' buffers sliced, on the host
 ``mux.copy_out`` (in the      ``out.float().cpu().numpy()``: the host waits
 tick)                         here for the card to finish the tick

@@ -4,17 +4,20 @@ rings.
 On the CPU the plain version is held against the plain reference's banded
 causal attention (``portbench/reference/cleanunet.py::attention``): rows of
 different lengths stepped a token at a time, each row paused while the
-others step, windows shorter and longer than the ring (1e-5 of max|ref|,
-fp32 on both sides, sums in another order).  On a card the kernel is held
-against the plain version at every head width it is built for: CleanUNet's
-widths (8 heads of 64) in fp32 and bf16, the released small geometry's (8
-heads of 8) and a test configuration's (2 heads of 16); 16 rows, a ring of
-625, positions from empty to wrapped many times, paused rows.  Outputs at
-1e-5 of max|ref| in fp32 (TF32 off; another sum order) and 1e-2 in bf16
-(both sides sum in fp32 and round their result to bf16 once: a bf16 step
-is 2^-8 of the value), the rings bit for bit (the kernel copies the new
-key and value).  The card cases import no JAX: ``python -m pytest
---noconftest -q -m cuda tests/test_torch_kv_attention.py``.
+others step (left out of that round's call, as a multiplexer's tick leaves
+it out of the rows it gathers), windows shorter and longer than the ring
+(1e-5 of max|ref|, fp32 on both sides, sums in another order).  On a card
+the kernel is held against the plain version at every head width it is
+built for: CleanUNet's widths (8 heads of 64) in fp32 and bf16, the
+released small geometry's (8 heads of 8) and a test configuration's (2
+heads of 16); 16 rows, a ring of 625, positions from empty to wrapped many
+times; and the kernel over a gathered subset of the rows gives those rows'
+results bit for bit.  Outputs at 1e-5 of max|ref| in fp32 (TF32 off;
+another sum order) and 1e-2 in bf16 (both sides sum in fp32 and round
+their result to bf16 once: a bf16 step is 2^-8 of the value), the rings
+bit for bit (the kernel copies the new key and value).  The card cases
+import no JAX: ``python -m pytest --noconftest -q -m cuda
+tests/test_torch_kv_attention.py``.
 """
 
 import math
@@ -44,8 +47,10 @@ def _one_torch_thread():
 @pytest.mark.parametrize("W,n_head,d", [(4, 2, 16), (7, 4, 32), (16, 1, 8)])
 def test_plain_version_matches_banded_attention(W, n_head, d):
     """Row b steps tokens 0..lengths[b]-1, one a round; a row that has run
-    out, and row 1 in rounds 3-5, are paused.  Each live row's output is the
-    banded attention of its token over its last W tokens."""
+    out, and row 1 in rounds 3-5, are paused: the rows still running step as
+    their own batch, their rings gathered and copied back.  Each live row's
+    output is the banded attention of its token over its last W tokens; a
+    paused row's rings stay as they were."""
     lengths = [3 * W + 2, W + 1, 2, W]
     B = len(lengths)
     rng = np.random.default_rng(W + d)
@@ -59,18 +64,18 @@ def test_plain_version_matches_banded_attention(W, n_head, d):
     for r in range(rounds):
         live = torch.tensor([int(pos[b]) < lengths[b] and not (b == 1 and 3 <= r < 6)
                              for b in range(B)])
-        t = pos.clamp(max=max(lengths) - 1).long()
-        rows = torch.arange(B)
-        q, k, v = (seq[n][rows, t] for n in ("q", "k", "v"))
+        rows = live.nonzero()[:, 0]
         before = (k_ring.clone(), v_ring.clone())
-        out = kv_attention(q, k, v, k_ring, v_ring, live, pos, n_head)
-        for b in range(B):
-            if live[b]:
+        if rows.numel():
+            q, k, v = (seq[n][rows, pos[rows].long()] for n in ("q", "k", "v"))
+            kr, vr = k_ring[rows], v_ring[rows]  # gathered: a copy
+            out = kv_attention(q, k, v, kr, vr, pos[rows], n_head)
+            k_ring[rows], v_ring[rows] = kr, vr
+            for i, b in enumerate(rows.tolist()):
                 ref = want[b, int(pos[b])]
-                assert float((out[b] - ref).abs().max()) <= REL * float(ref.abs().max())
-            else:
-                assert torch.equal(out[b], torch.zeros(d))
-                assert torch.equal(k_ring[b], before[0][b]) and torch.equal(v_ring[b], before[1][b])
+                assert float((out[i] - ref).abs().max()) <= REL * float(ref.abs().max())
+        for b in (~live).nonzero()[:, 0].tolist():
+            assert torch.equal(k_ring[b], before[0][b]) and torch.equal(v_ring[b], before[1][b])
         pos = pos + live.to(torch.int32)
     assert pos.tolist() == lengths
 
@@ -78,13 +83,11 @@ def test_plain_version_matches_banded_attention(W, n_head, d):
 def test_plain_version_refuses_what_the_kernel_refuses():
     q = torch.zeros(2, 16)
     ring = torch.zeros(2, 4, 16)
-    live, pos = torch.ones(2, dtype=torch.bool), torch.zeros(2, dtype=torch.int32)
+    pos = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="pos"):
-        kv_attention(q, q, q, ring, ring.clone(), live, pos.long(), 2)
-    with pytest.raises(ValueError, match="live"):
-        kv_attention(q, q, q, ring, ring.clone(), live.int(), pos, 2)
+        kv_attention(q, q, q, ring, ring.clone(), pos.long(), 2)
     with pytest.raises(ValueError, match="contiguous"):
-        kv_attention(q, q, q, torch.zeros(2, 16, 4).transpose(1, 2), ring, live, pos, 2)
+        kv_attention(q, q, q, torch.zeros(2, 16, 4).transpose(1, 2), ring, pos, 2)
 
 
 @pytest.mark.cuda
@@ -103,19 +106,22 @@ def test_kernel_matches_plain_on_the_card(dtype, d, H):
     v_cache = torch.randn((B, L, W, d), generator=g, device=dev).to(dtype)
     pos = torch.tensor([0, 1, 2, 7, 78, 79, 80, 300, 623, 624, 625, 626, 1249, 1250, 5000, 40],
                        dtype=torch.int32, device=dev)
-    live = torch.tensor([b % 5 != 3 for b in range(B)], device=dev)
+    sub = torch.tensor([b for b in range(B) if b % 5 != 3], device=dev)  # a gathered subset
     scale = 1.0 / math.sqrt(d)
     for li in (0, L - 1):
         q, k, v = ((torch.randn((B, d), generator=g, device=dev) * scale * 8).to(dtype)
                    for _ in range(3))
         kk, vk = k_cache.clone(), v_cache.clone()
         kp, vp = k_cache.clone(), v_cache.clone()
-        got = kv_attention(q, k, v, kk[:, li], vk[:, li], live, pos, H)
-        again = kv_attention(q, k, v, kk.clone()[:, li], vk.clone()[:, li], live, pos, H)
-        want = kv_attention_ref(q, k, v, kp[:, li], vp[:, li], live, pos, H)
+        ks, vs = k_cache[sub], v_cache[sub]  # the subset's rows gathered: a copy
+        got = kv_attention(q, k, v, kk[:, li], vk[:, li], pos, H)
+        again = kv_attention(q, k, v, kk.clone()[:, li], vk.clone()[:, li], pos, H)
+        want = kv_attention_ref(q, k, v, kp[:, li], vp[:, li], pos, H)
+        part = kv_attention(q[sub], k[sub], v[sub], ks[:, li], vs[:, li], pos[sub], H)
         torch.cuda.synchronize()
         assert torch.equal(got, again)
         assert torch.equal(kk, kp) and torch.equal(vk, vp)
         err = float((got.float() - want.float()).abs().max())
         assert err <= rel * float(want.float().abs().max()), err
-        assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+        assert torch.equal(part, got[sub])
+        assert torch.equal(ks, kk[sub]) and torch.equal(vs, vk[sub])

@@ -9,9 +9,10 @@ within the ring and copied only once the space it takes has been read, the
 shared memory within the card's limit, and the kernel's weight buffer
 holding the pack's matrices.  Then the plain version of the new contract,
 ``mega_stream_frame`` (the input normalisation inside the step), against
-JAX's ``stream_step_mega`` over 4 frames, fp32, atol 2e-5 (the tolerance of
-tests/test_stream_mega.py): the tail, the running std, the frame count, the
-state and the output.  The port runs before JAX in each test.  The kernel
+JAX's ``stream_step`` over 4 frames, fp32, atol 2e-5 (the tolerance of
+tests/test_stream_mega.py, which holds JAX's own whole-frame kernel to that
+step): the tail, the running std, the frame count, the state and the
+output.  The port runs before JAX in each test.  The kernel
 itself is held against the plain version on a GPU (the case marked ``cuda``).
 """
 
@@ -171,7 +172,7 @@ def _jax_model(family, normalize):
 @pytest.mark.parametrize("family", ["mamba", "mha"])
 def test_frame_contract_matches_jax(family, normalize):
     """mega_stream_frame (tail, new samples, std, count in; all new state out)
-    on the CPU == JAX stream_step_mega (Pallas interpret), 4 frames."""
+    on the CPU == JAX stream_step, 4 frames."""
     jcfg, pj, pt = _jax_model(family, normalize)
     cfg = CleanUMambaConfig(**dataclasses.asdict(jcfg))
     fl, tsd = cfg.frame_length, cfg.total_stride
@@ -189,11 +190,10 @@ def test_frame_contract_matches_jax(family, normalize):
         else:
             states.append(tparams.to_numpy(st))
         outs.append(y.numpy())
-    jmega = jax_pack_mega(pj, jcfg, jnp.float32)
     sj, _ = js.stream_prime(pj, jcfg, jnp.asarray(x[:, :fl]))
     for t in range(4):
         new = jnp.asarray(x[:, fl + t * tsd: fl + (t + 1) * tsd])
-        sj, yj = js.stream_step_mega(jcfg, sj, new, jmega, interpret=True)
+        sj, yj = js.stream_step(pj, jcfg, sj, new)
         np.testing.assert_allclose(outs[t], np.asarray(yj), **TOL)
         for key in ("input_tail", "input_std", "frames"):
             np.testing.assert_allclose(states[t][key], np.asarray(sj[key]), **TOL, err_msg=key)

@@ -215,23 +215,19 @@ WIDER = dict(channels_H=16, max_H=64, tsfm_n_head=2, tsfm_d_model=32, tsfm_d_inn
              normalize_input=True)
 
 
-@pytest.mark.parametrize("weights,dtype,slots,block,pack_width", [
-    ("fp32", torch.float32, 8, 1, 8), ("fp32", torch.float32, 16, 1, 8),
-    ("bf16", torch.bfloat16, 16, 1, 8), ("bf16", torch.float32, 16, 1, 16),
-    ("fp32", torch.bfloat16, 16, 1, 16), ("int8", torch.bfloat16, 16, 1, 16),
-    ("int8", torch.float32, 4, 1, 0), ("fp32", torch.float32, 4, 4, 0)])
-def test_levels_pack_where_the_constructor_chooses(model, weights, dtype, slots, block,
-                                                   pack_width):
-    """Every level packs, for ticks of every width, where the per-op tick
-    would convert each weight at every tick (weights stored in another type
-    than the state's, int8 in bf16 state) and, over weights stored in the
-    state's type, for ticks of up to 8 rows; never for int8 weights in fp32
-    state (an int8 pack computes in bf16) or at a block above 1."""
+@pytest.mark.parametrize("weights,dtype,slots,block,packs", [
+    ("fp32", torch.float32, 8, 1, True), ("fp32", torch.float32, 16, 1, True),
+    ("bf16", torch.bfloat16, 16, 1, True), ("bf16", torch.float32, 16, 1, True),
+    ("fp32", torch.bfloat16, 16, 1, True), ("int8", torch.bfloat16, 16, 1, True),
+    ("int8", torch.float32, 4, 1, False), ("fp32", torch.float32, 4, 4, False)])
+def test_levels_pack_where_the_constructor_chooses(model, weights, dtype, slots, block, packs):
+    """Every level packs at block 1, whatever the weights' storage type and
+    the state's; never for int8 weights in fp32 state (an int8 pack computes
+    in bf16) or at a block above 1."""
     cfg, params, _, _ = model
     mux = SessionMultiplexer(params, cfg, slots=slots, block=block, dtype=dtype,
                              weights=weights, device="cpu")
-    assert mux.pack_width == pack_width
-    assert mux.packed_levels == (2 * cfg.encoder_n_layers if pack_width else 0)
+    assert mux.packed_levels == (2 * cfg.encoder_n_layers if packs else 0)
 
 
 @pytest.mark.parametrize("weights", ["fp32", "bf16", "int8"])
@@ -387,10 +383,10 @@ def test_bundle_functions_tick_every_slot(model, n_live):
 
 @pytest.mark.parametrize("slots", [4, 16])
 def test_level_packs_hold_every_width_without_regrowing(model, slots):
-    """Each pack's scratch is sized at construction for the widest tick that
-    packs (here ``slots``): a level call of any width up to it leaves the
-    scratch where it was (a graph captured at one width keeps writing the
-    scratch it was captured with)."""
+    """Each pack's scratch is sized at construction for ``slots`` rows, the
+    widest tick: a level call of any width up to it leaves the scratch
+    where it was (a graph captured at one width keeps writing the scratch it
+    was captured with)."""
     from cleanumamba_tpu_torch.ops.cuda import stream_fused as sf
 
     cfg, params, _, _ = model
@@ -405,10 +401,10 @@ def test_level_packs_hold_every_width_without_regrowing(model, slots):
 
 
 @pytest.mark.parametrize("n_live", [1, 8, 9])
-def test_ticks_wider_than_the_pack_width_run_per_op(model, n_live, monkeypatch):
-    """Over weights stored in the state's dtype, a tick of up to 8 rows runs
-    the level packs and a wider one (9 live rows: width 12 of 12 slots) runs
-    per op; either matches the sessions alone."""
+def test_block_one_ticks_run_the_packs_at_their_width(model, n_live, monkeypatch):
+    """Over weights stored in the state's dtype, every tick runs the level
+    packs at its width, the widest too (9 live rows: width 12 of 12 slots),
+    and matches the sessions alone."""
     from cleanumamba_tpu_torch.serve import tick_width
 
     cfg, params, _, _ = model
@@ -420,10 +416,9 @@ def test_ticks_wider_than_the_pack_width_run_per_op(model, n_live, monkeypatch):
 
     monkeypatch.setattr(ts, "stream_step", spy)
     mux = SessionMultiplexer(params, cfg, slots=12, device="cpu")
-    assert mux.pack_width == 8 and mux.packed_levels == 2 * cfg.encoder_n_layers
+    assert mux.packed_levels == 2 * cfg.encoder_n_layers
     audio, outs = _width_run(mux, cfg, n_live)
-    w = tick_width(n_live, mux.slots)
-    assert seen == [(w, w <= 8)] * mux.ticks and mux.ticks == 4
+    assert seen == [(tick_width(n_live, mux.slots), True)] * mux.ticks and mux.ticks == 4
     monkeypatch.setattr(ts, "stream_step", real)
     for s in range(mux.slots):
         np.testing.assert_allclose(outs[s], _solo(params, cfg, audio[s]), **TOL)

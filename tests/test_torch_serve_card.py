@@ -2,19 +2,18 @@
 unpacked step.
 
 At block 1 a ``SessionMultiplexer`` runs every encoder and decoder level
-through K3/K4 inside the tick's CUDA graph.  Here, at E8's geometry, bf16
-weights at slots = 16 (the tensor cores) and fp32 weights at slots = 8 (the
-most at which fp32 weights pack), and CleanUNet's (E8's U-Net, five mha
-layers whose rings K6 writes in place) with bf16 weights at 16 slots, each
-tick of the graphed multiplexer (the first eager, the second captured, the
-rest replayed) is held against eager, unpacked ``stream_step`` on the same
-card from the same pool: the live rows' output and state at 1e-5 of
-max|ref| (fp32, TF32 off; another sum order), the paused rows' state bit
-for bit.  The same holds for ticks at widths 1, 16, 1 and 2 on both
-bottlenecks (and with fp32 weights, whose 16-row tick runs per op), each
-width's graph eager, captured and replayed, with width 1
-captured before the first wider tick: no K3/K4 pack's scratch moves after
-that capture.  Needs a CUDA device and imports no JAX:
+through K3/K4 inside the tick's CUDA graph, at every width.  Here, at E8's
+geometry, bf16 weights at slots = 16 (the tensor cores) and fp32 weights at
+slots = 8, and CleanUNet's (E8's U-Net, five mha layers whose rings K6
+writes in place) with bf16 weights at 16 slots, each tick of the graphed
+multiplexer (the first eager, the second captured, the rest replayed) is
+held against eager, unpacked ``stream_step`` on the same card over the
+live rows gathered from the same pool: the live rows' output and state at
+1e-5 of max|ref| (fp32, TF32 off; another sum order), the paused rows'
+state bit for bit.  The same holds for ticks at widths 1, 16, 1 and 2 on
+both bottlenecks (and with fp32 weights), each width's graph eager,
+captured and replayed, with width 1 captured before the first wider tick:
+no K3/K4 pack's scratch moves after that capture.  Needs a CUDA device and imports no JAX:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_serve_card.py``.
 """
 
@@ -25,7 +24,7 @@ import torch
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
 from cleanumamba_tpu_torch.graphs import own
 from cleanumamba_tpu_torch.models.cleanumamba import init_params
-from cleanumamba_tpu_torch.params import tree_leaves
+from cleanumamba_tpu_torch.params import tree_leaves, tree_map
 from cleanumamba_tpu_torch.serve import SessionMultiplexer
 from cleanumamba_tpu_torch.streaming import stream_step
 
@@ -36,6 +35,17 @@ def _close(got, want, what):
     scale = float(want.float().abs().max())
     err = float((got.float() - want.float()).abs().max())
     assert err <= REL * max(scale, 1e-6), (what, err, scale)
+
+
+def _reference(mux, live, x):
+    """Eager, unpacked ``stream_step`` over the live rows of the pool, gathered
+    (a copy: an mha step writes the rings of its state): (state, out) of
+    those rows."""
+    dev, slots = mux.device, mux.slots
+    rows = torch.from_numpy(np.flatnonzero(live)).to(dev)
+    sub = tree_map(lambda t: t[rows] if t.ndim and t.shape[0] == slots else t, mux.pool)
+    with torch.no_grad():
+        return stream_step(mux.params, mux.cfg, sub, torch.from_numpy(x[live]).to(dev))
 
 
 @pytest.mark.cuda
@@ -67,14 +77,12 @@ def test_packed_ticks_match_the_unpacked_step_on_the_card(weights, slots, bottle
         for s in np.flatnonzero(live):
             mux._buf[s] = x[s]  # a hop for each live session; the others pause
         before = own(mux.pool)
-        with torch.no_grad():  # (an mha step writes the live rows' ring slots of ``before``)
-            ref_state, ref_out = stream_step(mux.params, cfg, before, torch.from_numpy(x).to(dev),
-                                             live=torch.from_numpy(live).to(dev))
+        ref_state, ref_out = _reference(mux, live, x)
         mux._pump()
         assert mux.ticks == k + 1
         rows = torch.from_numpy(np.flatnonzero(live)).to(dev)
         got_out = torch.from_numpy(np.stack([mux._out[s][0] for s in np.flatnonzero(live)]))
-        _close(got_out, ref_out[rows].cpu(), f"tick {k} output")
+        _close(got_out, ref_out.cpu(), f"tick {k} output")
         assert all(not mux._out[s] for s in np.flatnonzero(~live))
         for i, (got, want, old) in enumerate(zip(tree_leaves(mux.pool), tree_leaves(ref_state),
                                                  tree_leaves(before))):
@@ -82,7 +90,7 @@ def test_packed_ticks_match_the_unpacked_step_on_the_card(weights, slots, bottle
                 continue
             paused = torch.from_numpy(np.flatnonzero(~live)).to(dev)
             assert torch.equal(got[paused], old[paused]), (k, i)
-            _close(got[rows], want[rows], f"tick {k} state leaf {i}")
+            _close(got[rows], want, f"tick {k} state leaf {i}")
 
 
 WIDTH_SEQUENCE = (1, 16, 1, 2)  # live rows of the ticks, each its own width
@@ -94,11 +102,11 @@ WIDTH_SEQUENCE = (1, 16, 1, 2)  # live rows of the ticks, each its own width
 def test_width_ticks_replayed_match_the_unpacked_step_on_the_card(bottleneck, weights):
     """A tick at width 1, then ticks at widths 1, 16, 1, 2, the sequence three
     times (each width eager, then captured, then replayed; width 1 captured
-    before the first wider tick), at 16 slots with bf16 weights (every width
-    packed) and fp32 weights (width 16 per op, the others packed): each
-    tick's live rows against eager, unpacked ``stream_step`` at batch 16 from
-    the same pool (1e-5 of max|ref|), every other row bit for bit; one graph
-    a width; no K3/K4 pack's scratch moves after the first capture."""
+    before the first wider tick), at 16 slots with bf16 and fp32 weights
+    (every width packed): each tick's live rows against eager, unpacked
+    ``stream_step`` over those rows gathered from the same pool (1e-5 of
+    max|ref|), every other row bit for bit; one graph a width; no K3/K4
+    pack's scratch moves after the first capture."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K3/K4 and the graphs have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -110,7 +118,6 @@ def test_width_ticks_replayed_match_the_unpacked_step_on_the_card(bottleneck, we
     mux = SessionMultiplexer(init_params(cfg, torch.Generator().manual_seed(1), dev), cfg,
                              slots=slots, weights=weights, device=dev)
     assert mux.packed_levels == 2 * cfg.encoder_n_layers
-    assert mux.pack_width == (slots if weights == "bf16" else 8)
     scratch = [a["scratch"] for a in mux._packs[0]["enc"] + mux._packs[0]["dec"]]
     rng = np.random.default_rng(1)
     for s in range(slots):
@@ -126,10 +133,7 @@ def test_width_ticks_replayed_match_the_unpacked_step_on_the_card(bottleneck, we
         for s in np.flatnonzero(live):
             mux._buf[s] = x[s]
         before = own(mux.pool)
-        with torch.no_grad():
-            ref_state, ref_out = stream_step(mux.params, cfg, before,
-                                             torch.from_numpy(x).to(dev),
-                                             live=torch.from_numpy(live).to(dev))
+        ref_state, ref_out = _reference(mux, live, x)
         stepped = mux.rows_stepped
         mux._pump()
         k += 1
@@ -140,14 +144,14 @@ def test_width_ticks_replayed_match_the_unpacked_step_on_the_card(bottleneck, we
         rows = torch.from_numpy(np.flatnonzero(live)).to(dev)
         paused = torch.from_numpy(np.flatnonzero(~live)).to(dev)
         got_out = torch.from_numpy(np.stack([mux._out[s][0] for s in np.flatnonzero(live)]))
-        _close(got_out, ref_out[rows].cpu(), f"tick {k} (width {n}) output")
+        _close(got_out, ref_out.cpu(), f"tick {k} (width {n}) output")
         for i, (got, want, old) in enumerate(zip(tree_leaves(mux.pool),
                                                  tree_leaves(ref_state),
                                                  tree_leaves(before))):
             if got.ndim == 0 or got.shape[0] != slots or not got.numel():
                 continue
             assert torch.equal(got[paused], old[paused]), (k, n, i)
-            _close(got[rows], want[rows], f"tick {k} (width {n}) state leaf {i}")
+            _close(got[rows], want, f"tick {k} (width {n}) state leaf {i}")
     assert len(mux._graphs) == 1 + len(set(WIDTH_SEQUENCE))  # the prime and one a width
     assert ptrs == [a["scratch"].data_ptr() for a in mux._packs[0]["enc"]
                     + mux._packs[0]["dec"]]

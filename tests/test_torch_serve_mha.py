@@ -152,7 +152,7 @@ def test_paused_and_closed_rows(model):
 
 
 def test_block_ticks_match_the_reference(model):
-    """block=3 ticks (the bottleneck's token loop with the live mask)."""
+    """block=3 ticks (the bottleneck's token loop over the gathered rows)."""
     cfg, P = model
     fl, ts = cfg.frame_length, cfg.total_stride
     mux = SessionMultiplexer(P, cfg, slots=2, block=3, device="cpu")
