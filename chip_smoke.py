@@ -107,8 +107,11 @@ Phases, each printed as it passes; any failure raises (non-zero exit):
     and wall a tick per width; the graphed tick of the benchmark's
     live multiplexers (E8 and CleanUNet, 16 slots, bf16 weights) at widths
     1, 2, 4, 8 and 16: wall, device busy, K3/K4, K6 and K7 a tick from a
-    trace, K7's launches counted from zero (``chiprun_out/tick_widths.json``;
-    alone, with phase 26: ``--widths-only``); then ``cli/serve.py``
+    trace, K7's launches counted from zero, beside the same tick made to
+    read the stored bf16 weights and cast them per product: the outputs
+    equal bit for bit, and at width 1 ``widened`` kernels fewer, all of them
+    casts (``chiprun_out/tick_widths.json``; alone, with phase 26:
+    ``--widths-only``); then ``cli/serve.py``
     (bench and demo), ``cli/denoise.py`` on a reference-format checkpoint
     and ``cli/stream_demo.py --synthetic`` as subprocesses;
 16. the offline forward of mamba2 (the SSD scan) and mamba_s4 (the S4
@@ -2232,87 +2235,143 @@ K34_KERNELS = ("conv_relu_kernel", "glu_kernel", "convt_kernel")  # K3/K4 in a t
 ROW_COPY_KERNEL = "row_copy_kernel"  # K7's name in a trace
 
 
+CAST_KERNEL = "direct_copy"  # a dtype cast's kernel in a trace (at::native::...direct_copy_)
+
+
 def check_tick_widths(dev, smi, timed=200, traced=100, fill=640):
     """Phase 15 (c): the graphed tick of the benchmark's live multiplexers (16
     slots, bf16 weights, fp32 state) at each of ``TICK_WIDTHS``, on E8 and
-    CleanUNet (its windows filled first, ``fill`` ticks of every slot): ticks
-    of w live rows, the live set turning; after three to warm up (eager,
-    captured, replayed), ``timed`` ticks for the wall and ``traced`` under the
-    profiler for device busy a tick, K3/K4's, K6's and K7's (the rows'
-    gather and write-back) device time a tick and the top kernels.  Checks
-    that each tick steps w rows (``rows_stepped``), one graph a width, finite
-    outputs, and K7's launches, counted from zero: two a tick at every
-    width (the gather and the write-back).  Writes
-    ``chiprun_out/tick_widths.json``; returns K7's launches over the ticks."""
+    CleanUNet (its windows filled first, ``fill`` ticks of every slot), in
+    two arms on one traffic: "widened", the program's multiplexer, whose bf16
+    weights outside the level packs are held in fp32 (``widened`` leaves,
+    17 and 32), and "cast", the same multiplexer made to read the stored
+    bf16 weights and cast each per product in every tick (the tick before
+    that widening).  Ticks of w live rows, the live set turning; after three
+    to warm up (eager, captured, replayed), ``timed`` ticks for the wall and
+    ``traced`` under the profiler for device busy a tick, K3/K4's, K6's and
+    K7's (the rows' gather and write-back) device time a tick, the casts'
+    (``direct_copy``), the kernels a tick and the top kernels.  Checks that
+    each tick steps w rows (``rows_stepped``), one graph a width, finite
+    outputs, the two arms' outputs equal bit for bit, K7's launches, counted
+    from zero (two a tick at every width: the gather and the write-back),
+    and at width 1 that the widened tick launches ``widened`` kernels fewer
+    than the cast one, all of them casts, and spends under a tenth of the
+    cast tick's time in casts.  Writes ``chiprun_out/tick_widths.json``;
+    returns K7's launches over the ticks."""
     from torch.profiler import ProfilerActivity, profile
 
     from cleanumamba_tpu_torch.config import CleanUMambaConfig
     from cleanumamba_tpu_torch.models.cleanumamba import init_params
     from cleanumamba_tpu_torch.ops.cuda.row_copy import gather_rows, scatter_rows
+    from cleanumamba_tpu_torch.params import prepare_weight_view
     from cleanumamba_tpu_torch.serve import SessionMultiplexer
+    from cleanumamba_tpu_torch.streaming import without_packed_levels
 
     def k7_launches():
         return gather_rows.launches + scatter_rows.launches
 
-    rows, slots = [], 16
+    rows, slots, faults = [], 16, []
     gather_rows.launches = scatter_rows.launches = 0
     for label, cfg in (("E8", CleanUMambaConfig()), ("CleanUNet", CleanUMambaConfig(**CLEANUNET))):
         torch.cuda.reset_peak_memory_stats(dev)
         params = init_params(cfg, torch.Generator().manual_seed(0), dev)
-        mux = SessionMultiplexer(params, cfg, slots=slots, weights="bf16", device=dev)
-        rng = np.random.default_rng(152)
-        _admit_every_slot(mux, rng)
-        hops = (rng.normal(size=(64, mux.tick_samples)) * 0.1).astype(np.float32)
-        k = 0
-        if mux.kv_window:
-            k = _ticks_of_width(mux, hops, slots, fill, k, label=label)
-        for w in TICK_WIDTHS:
-            graphs0, launched0, ticks0 = len(mux._graphs), k7_launches(), mux.ticks
-            k = _ticks_of_width(mux, hops, w, 3, k, label=label)
-            if len(mux._graphs) != graphs0 + (w != slots or not mux.kv_window):
-                raise AssertionError(f"{label}: width {w} captured {len(mux._graphs) - graphs0} "
-                                     "graphs")
-            torch.cuda.synchronize()
-            t0, n0, r0 = time.perf_counter(), mux.ticks, mux.rows_stepped
-            k = _ticks_of_width(mux, hops, w, timed, k, label=label)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / timed
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                k = _ticks_of_width(mux, hops, w, traced, k, label=label)
+        arms = {}
+        for arm in ("widened", "cast"):
+            mux = SessionMultiplexer(params, cfg, slots=slots, weights="bf16", device=dev)
+            if arm == "cast":
+                stored = prepare_weight_view(params, "bf16")[0]
+                mux.params = stored
+                mux._step_params = without_packed_levels(stored, mux._packs[1])
+            else:
                 torch.cuda.synchronize()
-            if mux.rows_stepped - r0 != w * (mux.ticks - n0):
-                raise AssertionError(f"{label}: {mux.rows_stepped - r0} rows stepped in "
-                                     f"{mux.ticks - n0} ticks of width {w}")
-            launched = k7_launches() - launched0
-            if launched != 2 * (mux.ticks - ticks0):
-                raise AssertionError(f"{label}: K7 launched {launched} times in "
-                                     f"{mux.ticks - ticks0} ticks of width {w}")
-            busy, n_kernels = _device_busy(prof)
-            per = {}
-            for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    per[e.key] = per.get(e.key, 0.0) + e.device_time_total / traced / 1e3
-            k34 = sum(v for n, v in per.items() if any(x in n for x in K34_KERNELS))
-            k6 = sum(v for n, v in per.items() if KV_KERNEL in n)
-            k7 = sum(v for n, v in per.items() if ROW_COPY_KERNEL in n)
-            top = sorted(((v, n) for n, v in per.items()), reverse=True)[:8]
-            row = {"model": label, "width": w, "wall_ms": wall, "busy_ms": busy / traced,
-                   "k34_ms": k34, "k6_ms": k6, "k7_ms": k7, "kernels": n_kernels / traced,
-                   "top": [[n[:90], v] for v, n in top]}
-            rows.append(row)
-            print(f"  {label} tick at width {w} on {smi}: wall {wall:.4f} ms, device busy "
-                  f"{busy / traced:.4f} ms a tick (K3/K4 {k34:.4f}, K6 {k6:.4f}, K7 {k7:.4f}; "
-                  f"{n_kernels / traced:.1f} kernels a tick)", flush=True)
-            for v, n in top:
-                print(f"      {v * 1e3:9.2f} us a tick  {n[:100]}", flush=True)
-        print(f"  {label}: memory peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB, "
-              f"{len(mux._graphs)} graphs", flush=True)
-        del mux, params
+                print(f"  {label}: {mux.widened} weight leaves widened at construction; "
+                      f"memory {torch.cuda.memory_allocated(dev) / 1e9:.4f} GB with them",
+                      flush=True)
+            rng = np.random.default_rng(152)
+            _admit_every_slot(mux, rng)
+            hops = (rng.normal(size=(64, mux.tick_samples)) * 0.1).astype(np.float32)
+            k = 0
+            if mux.kv_window:
+                k = _ticks_of_width(mux, hops, slots, fill, k, label=label)
+            arms[arm] = [mux, hops, k]
+        widened = arms["widened"][0].widened
+        del params
+        per_arm = {}
+        for w in TICK_WIDTHS:
+            for arm, entry in arms.items():
+                mux, hops, k = entry
+                name = f"{label} ({arm})"
+                graphs0, launched0, ticks0 = len(mux._graphs), k7_launches(), mux.ticks
+                k = _ticks_of_width(mux, hops, w, 3, k, label=name)
+                if len(mux._graphs) != graphs0 + (w != slots or not mux.kv_window):
+                    raise AssertionError(f"{name}: width {w} captured "
+                                         f"{len(mux._graphs) - graphs0} graphs")
+                torch.cuda.synchronize()
+                t0, n0, r0 = time.perf_counter(), mux.ticks, mux.rows_stepped
+                outs = [[] for _ in range(slots)]
+                k = _ticks_of_width(mux, hops, w, timed, k, outs, label=name)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / timed
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    k = _ticks_of_width(mux, hops, w, traced, k, label=name)
+                    torch.cuda.synchronize()
+                entry[2] = k
+                if mux.rows_stepped - r0 != w * (mux.ticks - n0):
+                    raise AssertionError(f"{name}: {mux.rows_stepped - r0} rows stepped in "
+                                         f"{mux.ticks - n0} ticks of width {w}")
+                launched = k7_launches() - launched0
+                if launched != 2 * (mux.ticks - ticks0):
+                    raise AssertionError(f"{name}: K7 launched {launched} times in "
+                                         f"{mux.ticks - ticks0} ticks of width {w}")
+                busy, n_kernels = _device_busy(prof)
+                per, casts = {}, 0
+                for e in prof.key_averages():
+                    if e.device_type == torch.autograd.DeviceType.CUDA:
+                        per[e.key] = per.get(e.key, 0.0) + e.device_time_total / traced / 1e3
+                        casts += e.count * (CAST_KERNEL in e.key)
+                k34 = sum(v for n, v in per.items() if any(x in n for x in K34_KERNELS))
+                k6 = sum(v for n, v in per.items() if KV_KERNEL in n)
+                k7 = sum(v for n, v in per.items() if ROW_COPY_KERNEL in n)
+                cast_ms = sum(v for n, v in per.items() if CAST_KERNEL in n)
+                top = sorted(((v, n) for n, v in per.items()), reverse=True)[:8]
+                row = {"model": label, "arm": arm, "width": w, "wall_ms": wall,
+                       "busy_ms": busy / traced, "k34_ms": k34, "k6_ms": k6, "k7_ms": k7,
+                       "cast_ms": cast_ms, "casts": casts / traced,
+                       "kernels": n_kernels / traced, "top": [[n[:90], v] for v, n in top]}
+                rows.append(row)
+                per_arm[arm, w] = (row, np.concatenate([np.concatenate(o) for o in outs]))
+                print(f"  {label} tick at width {w} ({arm}) on {smi}: wall {wall:.4f} ms, device "
+                      f"busy {busy / traced:.4f} ms a tick (K3/K4 {k34:.4f}, K6 {k6:.4f}, K7 "
+                      f"{k7:.4f}, casts {cast_ms:.4f} in {casts / traced:.1f}; "
+                      f"{n_kernels / traced:.1f} kernels a tick)", flush=True)
+                for v, n in top:
+                    print(f"      {v * 1e3:9.2f} us a tick  {n[:100]}", flush=True)
+            (wide, y_w), (cast, y_c) = per_arm["widened", w], per_arm["cast", w]
+            print(f"  {label} width {w}: widened / cast device busy {wide['busy_ms']:.4f} / "
+                  f"{cast['busy_ms']:.4f} ms a tick ({wide['busy_ms'] - cast['busy_ms']:+.4f}); "
+                  f"{cast['kernels'] - wide['kernels']:.1f} kernels and "
+                  f"{cast['casts'] - wide['casts']:.1f} casts fewer a tick", flush=True)
+            if not np.array_equal(y_w, y_c):
+                faults.append(f"{label} width {w}: widened and cast outputs differ "
+                              f"(max {np.abs(y_w - y_c).max():.3e})")
+            # a trace may miss a launch at its start: a tick's counts to within half a kernel
+            if w == 1 and not (abs(cast["kernels"] - wide["kernels"] - widened) < 0.5
+                               and abs(cast["casts"] - wide["casts"] - widened) < 0.5
+                               and wide["cast_ms"] < 0.1 * cast["cast_ms"]):
+                faults.append(f"{label} width 1: {cast['kernels'] - wide['kernels']:.2f} kernels "
+                              f"and {cast['casts'] - wide['casts']:.2f} casts fewer a tick, "
+                              f"{widened} leaves widened; casts {wide['cast_ms']:.4f} against "
+                              f"{cast['cast_ms']:.4f} ms a tick")
+        print(f"  {label}: memory peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB (both "
+              f"arms), {len(arms['widened'][0]._graphs)} graphs", flush=True)
+        del arms, per_arm, entry, mux, stored
         torch.cuda.empty_cache()
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "tick_widths.json"), "w") as f:
         json.dump({"device": smi, "rows": rows}, f, indent=1)
     print(f"  K7 launches over the graphed ticks of both models: {k7_launches()}", flush=True)
+    if faults:
+        raise AssertionError("tick widths: " + "; ".join(faults))
     return k7_launches()
 
 

@@ -146,15 +146,18 @@ def prepare_weight_view(params, weights: str, dtype=torch.float32, quant_min_siz
     """Storage precision of the weights the streaming step reads
     (port of ``cleanumamba_tpu/streaming.py::prepare_weight_view``).
 
-    Returns ``(stored, view)``: ``stored`` is the tree kept resident,
-    ``view(stored)`` the tree the step functions consume, applied inside each
-    prime, step and block call.  "fp32": ``params`` as they are.  "bf16":
-    every fp32 leaf of ndim >= 2 whose path holds no sensitive key cast to
-    bf16; 1-D leaves (biases, norms, ``D``, ``dt_proj_b``) and ``A_log`` stay
-    fp32 (``bench.py`` casts every fp32 leaf instead; the port follows this
-    function).  "int8": ``quant.quantize_params(params, quant_min_size)``,
-    viewed as ``q * scale`` in ``dtype`` (the state dtype) at every call, two
-    launches per quantized leaf on a card.
+    Returns ``(stored, view)``: ``stored`` is the tree of the weights' storage
+    precision, ``view(stored)`` the tree the step functions consume.  "fp32":
+    ``params`` as they are.  "bf16": every fp32 leaf of ndim >= 2 whose path
+    holds no sensitive key cast to bf16; 1-D leaves (biases, norms, ``D``,
+    ``dt_proj_b``) and ``A_log`` stay fp32 (``bench.py`` casts every fp32
+    leaf instead; the port follows this function); the view is the identity,
+    and ``Streamer`` and ``SessionMultiplexer`` widen the leaves their steps
+    read outside the level packs back to fp32 once, where they compute in
+    fp32 (``streaming.step_weights``), so that no step casts them.  "int8":
+    ``quant.quantize_params(params, quant_min_size)``, viewed as ``q *
+    scale`` in ``dtype`` (the state dtype) inside each prime, step and block
+    call, two launches per quantized leaf on a card.
     """
     if weights == "fp32":
         return params, _identity

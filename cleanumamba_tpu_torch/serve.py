@@ -47,7 +47,9 @@ sessions riding it.
   graph; each pack's scratch is sized for ``slots`` rows when the levels
   are packed, so no later width regrows one under a captured graph.
   The packs compute in ``dtype`` and keep each weight as stored (bf16
-  weights stay bf16 in an fp32 pack); int8 weights pack only where
+  weights stay bf16 in an fp32 pack); the weights the step reads beside
+  them are held in ``dtype`` where that is fp32 (``streaming.step_weights``:
+  no tick casts a weight); int8 weights pack only where
   ``dtype`` is bf16, as an int8 pack computes in bf16.  A larger block runs
   ``stream_step_block``, whose mamba bottleneck is one selective scan (K1 on
   CUDA) at the tick's width, with no packs.  No whole-frame kernel.  The
@@ -102,8 +104,11 @@ class SessionMultiplexer:
              latency for throughput as ``Streamer``'s block path does.
     dtype:   state and activation dtype.
     weights: "fp32" | "bf16" | "int8" storage precision
-             (``params.prepare_weight_view``; the view is applied in every
-             prime and step call); must be "fp32" when ``fns`` is given.
+             (``params.prepare_weight_view``; the int8 view dequantizes in
+             every prime and step call); must be "fp32" when ``fns`` is
+             given.  Where ``dtype`` is fp32, every bf16 weight outside the
+             level packs is widened to fp32 once, at construction
+             (``streaming.step_weights``: exact, so no tick casts a weight).
     device:  where the model runs; None means ``params.default_device()``.
     fns:     optional ``{"prime": f, "step": g}`` in place of the live
              functions, e.g. the callables of an exported bundle whose traced
@@ -114,7 +119,9 @@ class SessionMultiplexer:
     ``packed_levels``: the encoder and decoder levels every tick runs
     through the fused level kernels (0 on the per-op path).  ``kv_window``:
     the tokens an mha session attends to (``bottleneck_mha.mha_max_len``; 0
-    for the other bottlenecks).  Counters, on the host: ``ticks``;
+    for the other bottlenecks).  ``widened``: the weight leaves held in the
+    compute dtype instead of cast in every tick (0 for fp32 or int8 weights,
+    bf16 state and a bundle's callables).  Counters, on the host: ``ticks``;
     ``rows_stepped``, the widths the ticks ran at, summed (``ticks`` x
     ``slots`` for a bundle's callables); for an mha model ``kv_positions``,
     the window lengths the live rows attended to, summed over the tokens of
@@ -147,6 +154,7 @@ class SessionMultiplexer:
                                  "(export_stream refuses it): serve it from the live "
                                  "functions")
             self.params = self._step_params = to_device(params, self.device)
+            self.widened = 0
             self._prime, self._step = fns["prime"], fns["step"]
             self._packs = None
         else:
@@ -157,8 +165,8 @@ class SessionMultiplexer:
             from cleanumamba_tpu_torch.streaming import (
                 stream_prime,
                 stream_step,
+                step_weights,
                 stream_step_block,
-                without_packed_levels,
             )
 
             self.params, view = prepare_weight_view(to_device(params, self.device), weights,
@@ -174,9 +182,10 @@ class SessionMultiplexer:
                 # before any capture: no width regrows a scratch
                 reserve_scratch(packs, slots)
             self._packs = packs
-            # what a packed tick reads: a packed level's weights are in its pack
-            self._step_params = (self.params if packs is None
-                                 else without_packed_levels(self.params, packs[1]))
+            # the prime reads the resident tree, a packed tick the same without
+            # its packed levels (their weights are in the packs)
+            self.params, self._step_params, self.widened = step_weights(
+                self.params, None if packs is None else packs[1], dtype)
             self._prime = lambda p, f: stream_prime(view(p), cfg, f, dtype)
             if block == 1:
                 self._step = lambda p, s, n: stream_step(view(p), cfg, s, n, dtype, packs=packs)

@@ -459,13 +459,49 @@ def stream_many(params, cfg: CleanUMambaConfig, state, blocks, dtype=torch.float
     return state, torch.cat(outs, dim=1)
 
 
+_LEVELS = (("enc", "encoder"), ("dec", "decoder"))
+
+
 def without_packed_levels(params, meta):
     """``params`` with None in place of every level that ``meta`` (of
     ``pack_stream_params``) packs: what :func:`stream_step` reads beside those
     packs, so no view or cast of a packed level's weights runs in a step."""
     return dict(params, **{
         name: [None if m is not None else lp for lp, m in zip(params[name], meta[side])]
-        for side, name in (("enc", "encoder"), ("dec", "decoder"))})
+        for side, name in _LEVELS})
+
+
+def step_weights(params, meta, dtype):
+    """The weights the streaming steps read, built once beside the packs of
+    ``meta`` (of ``pack_stream_params``; None where no level packs).
+
+    Returns ``(resident, step, widened)``.  Where ``dtype``, the compute
+    dtype, is fp32, every bf16 leaf outside the packed levels is widened to
+    fp32 once, here: bf16 -> fp32 is exact, so each product's ``.to(x.dtype)``
+    is then a no-op and no step casts a weight.  Nothing is narrowed, and
+    nothing is widened for bf16 compute or for leaves of another dtype
+    (int8 values and their scales, fp32 norms and ``A_log``).  ``resident``:
+    that tree, the packed levels' leaves as stored (their packs hold them),
+    for the prime and the block step; the bf16 copy of a widened leaf is not
+    kept.  ``step``: the same tree with None in place of every packed level
+    (:func:`without_packed_levels`), for :func:`stream_step` with those
+    packs.  ``widened``: the number of leaves widened."""
+    widened = 0
+
+    def widen(x):
+        nonlocal widened
+        if dtype == torch.float32 and isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+            widened += 1
+            return x.float()
+        return x
+
+    if meta is None:
+        step = resident = tree_map(widen, params)
+    else:
+        step = tree_map(widen, without_packed_levels(params, meta))
+        resident = dict(step, **{name: [lp if s is None else s for s, lp in
+                                        zip(step[name], params[name])] for _, name in _LEVELS})
+    return resident, step, widened
 
 
 class Streamer:
@@ -494,9 +530,12 @@ class Streamer:
     weights: "fp32" | "bf16" | "int8", the storage precision of the weight
     matrices (``prepare_weight_view``; int8 quantizes the leaves of at least
     ``quant_min_size`` elements).  bf16 and int8 make the packs' compute
-    dtype bf16.  The view is applied inside every prime, step and block
+    dtype bf16.  The int8 view is applied inside every prime, step and block
     call, so the resident weights stay int8.  State and activation math run
-    in ``dtype``.
+    in ``dtype``; where that is fp32, every bf16 weight outside the packs is
+    widened to fp32 once, at construction (``step_weights``: exact, so no
+    step casts a weight), and ``widened`` counts those leaves (0 for fp32 or
+    int8 weights and for bf16 state).
 
     On a CUDA device the single-frame step (of whichever mode) and the block
     step run as CUDA graphs per (batch, n_frames) (``graphs.StepGraphs``,
@@ -537,8 +576,8 @@ class Streamer:
                 self.packs = (arrays, meta)
         # what the single-frame step reads: a packed level's weights are in its
         # pack, so the view need not dequantize them at every step
-        self._step_params = (self.params if self.packs is None
-                             else without_packed_levels(self.params, self.packs[1]))
+        self.params, self._step_params, self.widened = step_weights(
+            self.params, None if self.packs is None else self.packs[1], dtype)
         self.fused_mode = ("mega" if self.mega is not None
                            else "fused" if self.packs is not None else "plain")
         self.state = None

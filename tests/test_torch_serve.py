@@ -29,7 +29,12 @@ from cleanumamba_tpu.serve import SessionMultiplexer as JaxMultiplexer
 from cleanumamba_tpu_torch import streaming as ts
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
 from cleanumamba_tpu_torch.ops.cuda.stream_fused import pack_stream_params
-from cleanumamba_tpu_torch.params import from_numpy, tree_leaves
+from cleanumamba_tpu_torch.params import (
+    from_numpy,
+    prepare_weight_view,
+    tensor_leaves,
+    tree_leaves,
+)
 from cleanumamba_tpu_torch.serve import SessionMultiplexer
 
 TINY = dict(channels_H=8, max_H=16, tsfm_n_head=2, tsfm_d_model=16, tsfm_d_inner=32,
@@ -219,7 +224,8 @@ WIDER = dict(channels_H=16, max_H=64, tsfm_n_head=2, tsfm_d_model=32, tsfm_d_inn
     ("fp32", torch.float32, 8, 1, True), ("fp32", torch.float32, 16, 1, True),
     ("bf16", torch.bfloat16, 16, 1, True), ("bf16", torch.float32, 16, 1, True),
     ("fp32", torch.bfloat16, 16, 1, True), ("int8", torch.bfloat16, 16, 1, True),
-    ("int8", torch.float32, 4, 1, False), ("fp32", torch.float32, 4, 4, False)])
+    ("int8", torch.float32, 4, 1, False), ("fp32", torch.float32, 4, 4, False),
+    ("bf16", torch.float32, 4, 4, False)])
 def test_levels_pack_where_the_constructor_chooses(model, weights, dtype, slots, block, packs):
     """Every level packs at block 1, whatever the weights' storage type and
     the state's; never for int8 weights in fp32 state (an int8 pack computes
@@ -228,6 +234,26 @@ def test_levels_pack_where_the_constructor_chooses(model, weights, dtype, slots,
     mux = SessionMultiplexer(params, cfg, slots=slots, block=block, dtype=dtype,
                              weights=weights, device="cpu")
     assert mux.packed_levels == (2 * cfg.encoder_n_layers if packs else 0)
+    _check_widened(mux, params, weights, dtype)
+
+
+def _check_widened(mux, params, weights, dtype):
+    """Where the ticks compute in fp32, every bf16 leaf outside the packs is
+    held in fp32 (five a mamba layer, the two bottleneck projections; at a
+    block above 1, where nothing packs, every bf16 leaf), and no bf16 leaf is
+    left in the tick's tree; fp32 and int8 weights and bf16 state keep the
+    stored leaves as they are."""
+    stored = prepare_weight_view(params, weights, dtype)[0]
+    bf16 = sum(t.dtype == torch.bfloat16 for t in tree_leaves(stored))
+    if weights == "bf16" and dtype == torch.float32:
+        want = 5 * mux.cfg.tsfm_n_layers + 2 if mux.packed_levels else bf16
+        assert mux.widened == want > 0
+        assert not any(t.dtype == torch.bfloat16 for t in tensor_leaves(mux._step_params))
+        assert bf16 - sum(t.dtype == torch.bfloat16 for t in tree_leaves(mux.params)) == want
+    else:
+        assert mux.widened == 0
+        assert all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(tensor_leaves(mux.params), tensor_leaves(stored)))
 
 
 @pytest.mark.parametrize("weights", ["fp32", "bf16", "int8"])
@@ -422,3 +448,22 @@ def test_block_one_ticks_run_the_packs_at_their_width(model, n_live, monkeypatch
     monkeypatch.setattr(ts, "stream_step", real)
     for s in range(mux.slots):
         np.testing.assert_allclose(outs[s], _solo(params, cfg, audio[s]), **TOL)
+
+
+@pytest.mark.parametrize("n_live", [1, 2, 5, WIDTH_SLOTS])
+def test_widened_ticks_equal_the_ticks_that_cast(model, n_live):
+    """bf16 weights, fp32 state: ticks of 1, 2, 5 (every slot, one paused) and
+    every live row, the live set turning, give bit for bit the outputs and
+    pool of the same ticks over the stored bf16 weights cast per product."""
+    cfg, params, _, _ = model
+    wide, cast = [SessionMultiplexer(params, cfg, slots=WIDTH_SLOTS, weights="bf16",
+                                     device="cpu") for _ in range(2)]
+    assert wide.widened == 5 * cfg.tsfm_n_layers + 2
+    stored = prepare_weight_view(params, "bf16")[0]  # read as stored, cast in every tick
+    cast.params, cast._step_params = stored, ts.without_packed_levels(stored, cast._packs[1])
+    a_in, a_out = _width_run(wide, cfg, n_live)
+    b_in, b_out = _width_run(cast, cfg, n_live)
+    assert wide.ticks == cast.ticks == 4
+    for s in range(WIDTH_SLOTS):
+        assert np.array_equal(a_in[s], b_in[s]) and np.array_equal(a_out[s], b_out[s]), s
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(wide.pool), tree_leaves(cast.pool)))

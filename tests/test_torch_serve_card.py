@@ -13,7 +13,13 @@ live rows gathered from the same pool: the live rows' output and state at
 state bit for bit.  The same holds for ticks at widths 1, 16, 1 and 2 on
 both bottlenecks (and with fp32 weights), each width's graph eager,
 captured and replayed, with width 1 captured before the first wider tick:
-no K3/K4 pack's scratch moves after that capture.  Needs a CUDA device and imports no JAX:
+no K3/K4 pack's scratch moves after that capture.  The reference reads the
+stored weights (bf16 where the multiplexer stores bf16), not the
+multiplexer's tree, whose bf16 leaves outside the packs are widened to fp32
+at construction.  Ticks at widths 1, 2, 4, 8 and 16 over those widened
+weights equal, bit for bit, the same ticks of a multiplexer that reads the
+stored bf16 weights and casts them per product, on both geometries.  Needs a
+CUDA device and imports no JAX:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_serve_card.py``.
 """
 
@@ -24,9 +30,9 @@ import torch
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
 from cleanumamba_tpu_torch.graphs import own
 from cleanumamba_tpu_torch.models.cleanumamba import init_params
-from cleanumamba_tpu_torch.params import tree_leaves, tree_map
+from cleanumamba_tpu_torch.params import prepare_weight_view, tensor_leaves, tree_leaves, tree_map
 from cleanumamba_tpu_torch.serve import SessionMultiplexer
-from cleanumamba_tpu_torch.streaming import stream_step
+from cleanumamba_tpu_torch.streaming import stream_step, without_packed_levels
 
 REL = 1e-5
 
@@ -37,15 +43,20 @@ def _close(got, want, what):
     assert err <= REL * max(scale, 1e-6), (what, err, scale)
 
 
-def _reference(mux, live, x):
-    """Eager, unpacked ``stream_step`` over the live rows of the pool, gathered
-    (a copy: an mha step writes the rings of its state): (state, out) of
-    those rows."""
+def _reference(mux, stored, live, x):
+    """Eager, unpacked ``stream_step`` on the ``stored`` weights over the live
+    rows of the pool, gathered (a copy: an mha step writes the rings of its
+    state): (state, out) of those rows."""
     dev, slots = mux.device, mux.slots
     rows = torch.from_numpy(np.flatnonzero(live)).to(dev)
     sub = tree_map(lambda t: t[rows] if t.ndim and t.shape[0] == slots else t, mux.pool)
     with torch.no_grad():
-        return stream_step(mux.params, mux.cfg, sub, torch.from_numpy(x[live]).to(dev))
+        return stream_step(stored, mux.cfg, sub, torch.from_numpy(x[live]).to(dev))
+
+
+def _config(bottleneck):
+    return (CleanUMambaConfig() if bottleneck == "mamba"  # E8
+            else CleanUMambaConfig(bottleneck="mha", tsfm_n_layers=5, norm_epsilon=1e-6))
 
 
 @pytest.mark.cuda
@@ -58,11 +69,11 @@ def test_packed_ticks_match_the_unpacked_step_on_the_card(weights, slots, bottle
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    cfg = (CleanUMambaConfig() if bottleneck == "mamba"  # E8
-           else CleanUMambaConfig(bottleneck="mha", tsfm_n_layers=5, norm_epsilon=1e-6))
+    cfg = _config(bottleneck)
     fl, tsr = cfg.frame_length, cfg.total_stride
-    mux = SessionMultiplexer(init_params(cfg, torch.Generator().manual_seed(0), dev), cfg,
-                             slots=slots, weights=weights, device=dev)
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    stored = prepare_weight_view(params, weights)[0]
+    mux = SessionMultiplexer(params, cfg, slots=slots, weights=weights, device=dev)
     assert mux.packed_levels == 2 * cfg.encoder_n_layers
     rng = np.random.default_rng(0)
     for s in range(slots):  # every slot admitted (primed); no tick yet
@@ -77,7 +88,7 @@ def test_packed_ticks_match_the_unpacked_step_on_the_card(weights, slots, bottle
         for s in np.flatnonzero(live):
             mux._buf[s] = x[s]  # a hop for each live session; the others pause
         before = own(mux.pool)
-        ref_state, ref_out = _reference(mux, live, x)
+        ref_state, ref_out = _reference(mux, stored, live, x)
         mux._pump()
         assert mux.ticks == k + 1
         rows = torch.from_numpy(np.flatnonzero(live)).to(dev)
@@ -112,11 +123,11 @@ def test_width_ticks_replayed_match_the_unpacked_step_on_the_card(bottleneck, we
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev, slots = torch.device("cuda:0"), 16
-    cfg = (CleanUMambaConfig() if bottleneck == "mamba"
-           else CleanUMambaConfig(bottleneck="mha", tsfm_n_layers=5, norm_epsilon=1e-6))
+    cfg = _config(bottleneck)
     fl, tsr = cfg.frame_length, cfg.total_stride
-    mux = SessionMultiplexer(init_params(cfg, torch.Generator().manual_seed(1), dev), cfg,
-                             slots=slots, weights=weights, device=dev)
+    params = init_params(cfg, torch.Generator().manual_seed(1), dev)
+    stored = prepare_weight_view(params, weights)[0]
+    mux = SessionMultiplexer(params, cfg, slots=slots, weights=weights, device=dev)
     assert mux.packed_levels == 2 * cfg.encoder_n_layers
     scratch = [a["scratch"] for a in mux._packs[0]["enc"] + mux._packs[0]["dec"]]
     rng = np.random.default_rng(1)
@@ -133,7 +144,7 @@ def test_width_ticks_replayed_match_the_unpacked_step_on_the_card(bottleneck, we
         for s in np.flatnonzero(live):
             mux._buf[s] = x[s]
         before = own(mux.pool)
-        ref_state, ref_out = _reference(mux, live, x)
+        ref_state, ref_out = _reference(mux, stored, live, x)
         stepped = mux.rows_stepped
         mux._pump()
         k += 1
@@ -157,3 +168,56 @@ def test_width_ticks_replayed_match_the_unpacked_step_on_the_card(bottleneck, we
                     + mux._packs[0]["dec"]]
     assert all(a is b for a, b in zip(scratch, [a["scratch"] for a in mux._packs[0]["enc"]
                                                 + mux._packs[0]["dec"]]))
+
+
+WIDENED_WIDTHS = (1, 2, 4, 8, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bottleneck", ["mamba", "mha"])
+def test_widened_ticks_equal_the_ticks_that_cast_on_the_card(bottleneck):
+    """bf16 weights, fp32 state, 16 slots, E8's and CleanUNet's geometries:
+    ``widened`` reads 17 and 32, and no bf16 leaf is left in the tick's
+    tree.  Beside it a multiplexer that reads the stored bf16 weights and
+    casts each per product in every tick.  Both take the same traffic: ticks
+    at widths 1, 2, 4, 8 and 16 (each eager, captured, replayed), the live
+    set turning; every tick's output and the whole pool are equal bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K3/K4 and the graphs have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, slots = torch.device("cuda:0"), 16
+    cfg = _config(bottleneck)
+    params = init_params(cfg, torch.Generator().manual_seed(2), dev)
+    muxes = [SessionMultiplexer(params, cfg, slots=slots, weights="bf16", device=dev)
+             for _ in range(2)]
+    wide, cast = muxes
+    assert wide.widened == {"mamba": 17, "mha": 32}[bottleneck]
+    assert not any(t.dtype == torch.bfloat16 for t in tensor_leaves(wide._step_params))
+    stored = prepare_weight_view(params, "bf16")[0]
+    cast.params, cast._step_params = stored, without_packed_levels(stored, cast._packs[1])
+    del params
+    rng = np.random.default_rng(2)
+    first = (rng.normal(size=(slots, cfg.frame_length)) * 0.1).astype(np.float32)
+    for mux in muxes:
+        for s in range(slots):
+            assert mux.open() == s
+            mux.feed(s, first[s])
+    k = 0
+    for w in WIDENED_WIDTHS:
+        for _ in range(4):
+            live = [(k * w + i) % slots for i in range(w)]
+            x = (rng.normal(size=(w, cfg.total_stride)) * 0.1).astype(np.float32)
+            outs = []
+            for mux in muxes:
+                for i, s in enumerate(live):
+                    mux._buf[s] = x[i]
+                mux._pump()
+                outs.append([mux._drain(s) for s in live])
+            k += 1
+            assert all(np.array_equal(a, b) for a, b in zip(*outs)), (w, k)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(wide.pool),
+                                                     tree_leaves(cast.pool))), w
+    assert wide.ticks == cast.ticks == 4 * len(WIDENED_WIDTHS)
+    assert len(wide._graphs) == len(cast._graphs) == 1 + len(WIDENED_WIDTHS)

@@ -25,8 +25,9 @@ import torch
 from cleanumamba_tpu_torch.config import CleanUMambaConfig
 from cleanumamba_tpu_torch.models import bottleneck_mha
 from cleanumamba_tpu_torch.models.cleanumamba import count_params, init_params
-from cleanumamba_tpu_torch.params import tree_leaves
+from cleanumamba_tpu_torch.params import prepare_weight_view, tensor_leaves, tree_leaves
 from cleanumamba_tpu_torch.serve import SessionMultiplexer
+from cleanumamba_tpu_torch.streaming import without_packed_levels
 from portbench import cleanunet_weights
 from portbench.reference import cleanunet as ref
 from portbench.weights import leaf_paths
@@ -244,3 +245,40 @@ def test_width_ticks_keep_other_rings_and_match_the_reference(model, n_live):
         want = ref.stream(P, SMALL, torch.from_numpy(audio[s])[None], W)[0].numpy()
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= REL * np.abs(want).max(), s
+
+
+@pytest.mark.parametrize("n_live", [1, 2, 5, WIDTH_SLOTS])
+def test_widened_ticks_equal_the_ticks_that_cast(model, n_live):
+    """bf16 weights, fp32 state: the six matrices of each layer and the two
+    bottleneck projections are held in fp32 (``widened``), and no bf16 leaf
+    is left in the tick's tree.  Ticks of 1, 2, 5 (every slot, one paused)
+    and every live row, the live set turning past the window, give bit for
+    bit the outputs and pool of the same ticks over the stored bf16 weights
+    cast per product (what the ticks did before the widening); bf16 state
+    widens nothing."""
+    cfg, P = model
+    fl, ts = cfg.frame_length, cfg.total_stride
+    stored = prepare_weight_view(P, "bf16")[0]
+    assert SessionMultiplexer(P, cfg, slots=2, weights="bf16", dtype=torch.bfloat16,
+                              device="cpu").widened == 0
+    muxes = [SessionMultiplexer(P, cfg, slots=WIDTH_SLOTS, weights="bf16", device="cpu")
+             for _ in range(2)]
+    wide, cast = muxes
+    assert wide.widened == 6 * cfg.tsfm_n_layers + 2
+    assert not any(t.dtype == torch.bfloat16 for t in tensor_leaves(wide._step_params))
+    cast.params, cast._step_params = stored, without_packed_levels(stored, cast._packs[1])
+    outs = [{}, {}]
+    for mux, out in zip(muxes, outs):
+        for s in range(WIDTH_SLOTS):
+            assert mux.open() == s
+            out[s] = [mux.feed(s, _audio(80 + s, fl))]
+        for r in range(2 * W * WIDTH_SLOTS // n_live):
+            for k in range(n_live):
+                s = (r * n_live + k) % WIDTH_SLOTS
+                mux._buf[s], mux._fed[s] = _audio(2000 * r + s, ts), mux._fed[s] + ts
+            mux._pump()
+    assert wide.ticks == cast.ticks and int(wide.pool["bottleneck"]["pos"].min()) > W
+    for s in range(WIDTH_SLOTS):
+        assert np.array_equal(np.concatenate(outs[0][s] + [wide._drain(s)]),
+                              np.concatenate(outs[1][s] + [cast._drain(s)])), s
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(wide.pool), tree_leaves(cast.pool)))

@@ -247,6 +247,40 @@ def test_streamer_weight_views(small):
     assert s8.fused_mode == "plain"  # "auto" keeps int8 on the per-op path, as JAX does
 
 
+@pytest.mark.parametrize("weights,dtype,fused,widened", [
+    ("bf16", torch.float32, True, "bottleneck"), ("bf16", torch.float32, False, "every"),
+    ("bf16", torch.bfloat16, True, "none"), ("fp32", torch.float32, True, "none"),
+    ("int8", torch.float32, True, "none")])
+def test_streamer_widens_bf16_weights_once(small, weights, dtype, fused, widened):
+    """With bf16 weights and fp32 state every bf16 leaf the steps read outside
+    the level packs is held in fp32 (with the levels packed, five a mamba
+    layer and the two bottleneck projections; with none packed, every bf16
+    leaf), no bf16 leaf is left in the single-frame step's tree, and prime,
+    single-frame steps and blocks give bit for bit what the stored bf16
+    weights cast per product give.  fp32 and int8 weights and bf16 state
+    widen nothing."""
+    cfg, _, pt = small
+    kw = dict(weights=weights, dtype=dtype, fused=fused, quant_min_size=64)
+    s, cast = ts.Streamer(pt, cfg, "cpu", **kw), ts.Streamer(pt, cfg, "cpu", **kw)
+    stored = tparams.prepare_weight_view(pt, weights, dtype, 64)[0]
+    bf16 = sum(t.dtype == torch.bfloat16 for t in tparams.tensor_leaves(stored))
+    assert s.widened == {"bottleneck": 5 * cfg.tsfm_n_layers + 2, "every": bf16,
+                         "none": 0}[widened]
+    assert s.fused_mode == ("fused" if fused else "plain")
+    if dtype == torch.float32:
+        assert not any(t.dtype == torch.bfloat16 for t in tparams.tensor_leaves(s._step_params))
+    cast.params = stored
+    cast._step_params = (stored if cast.packs is None
+                         else ts.without_packed_levels(stored, cast.packs[1]))
+    x = _audio(cfg, 1, 12, seed=13)
+    hops = [cfg.frame_length, 2, cfg.total_stride - 2] + [cfg.total_stride] * 3 \
+        + [3 * cfg.total_stride]
+    got, want = _feed_all(s, x, hops), _feed_all(cast, x, hops)
+    assert got.shape == x.shape and np.array_equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(tparams.tree_leaves(s.state),
+                                                 tparams.tree_leaves(cast.state)))
+
+
 def test_auto_takes_mega_for_any_state_dtype(small):
     """"auto" resolves to the whole-frame path whatever the state dtype, as
     the JAX package's does: a bf16 state is cast to fp32 around K5's launch and
